@@ -1,0 +1,117 @@
+"""Llama pretraining on one card: the port's counterpart of
+examples/llama_pretrain.py.
+
+    python -m dlrover_tpu_torch.run.llama_pretrain --model 8b --layers 4 \\
+        --seq 2048 --micro-batch 1 --global-batch 2 --steps 4
+
+Synthetic tokens and random weights, both drawn from ``--seed``. Prints the
+loss of each step. ``--device cpu`` runs the plain PyTorch path in place of
+the kernels (use ``--model tiny`` there).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import List, Optional
+
+import torch
+
+from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.train.trainer import ElasticTrainer, TrainConfig
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser("llama_pretrain")
+    p.add_argument("--model", default="tiny", choices=["tiny", "8b"])
+    p.add_argument("--layers", type=int, default=0,
+                   help="0 = the preset's depth")
+    p.add_argument("--seq", type=int, default=0,
+                   help="0 = min(2048, the preset's max_seq_len)")
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--micro-batch", type=int, default=1)
+    p.add_argument("--global-batch", type=int, default=0,
+                   help="0 = one microbatch per step")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    return p.parse_args(argv)
+
+
+def model_config(name: str, layers: int) -> llama.LlamaConfig:
+    cfg = (llama.LlamaConfig.tiny() if name == "tiny"
+           else llama.LlamaConfig.llama3_8b())
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def build(args: argparse.Namespace):
+    """The trainer, its state and a batch maker for ``args``; returns
+    ``(cfg, trainer, state, next_batch, tokens_per_step)``."""
+    device = resolve_device(args.device)
+    cfg = model_config(args.model, args.layers)
+    seq = args.seq or min(2048, cfg.max_seq_len)
+    tc = TrainConfig(
+        global_batch_size=args.global_batch or args.micro_batch,
+        micro_batch_size=args.micro_batch,
+        total_steps=args.steps,
+    )
+    trainer = ElasticTrainer(lambda p, t: llama.loss_fn(p, t, cfg), tc)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = trainer.init_state(llama.init_params(cfg, gen))
+    a, b = trainer.step_batch_shape
+    data_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+
+    def next_batch():
+        return torch.randint(0, cfg.vocab_size, (a, b, seq),
+                             generator=data_gen, device=device)
+
+    return cfg, trainer, state, next_batch, a * b * seq
+
+
+def timed_step(trainer, state, batch):
+    """One step, timed on the host clock up to the loss reaching the host
+    (which waits for the device); returns ``(state, loss, seconds)``."""
+    if batch.is_cuda:
+        torch.cuda.synchronize(batch.device)
+    t0 = time.perf_counter()
+    state, loss = trainer.step(state, batch)
+    loss = float(loss)
+    return state, loss, time.perf_counter() - t0
+
+
+def run(args: argparse.Namespace, log=print) -> dict:
+    """Train ``args.steps`` steps; returns the losses, per-step seconds,
+    tokens/s over the steps after the first, and peak device memory."""
+    cfg, trainer, state, next_batch, tokens = build(args)
+    cuda = args.device != "cpu"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for step in range(args.steps):
+        state, loss, seconds = timed_step(trainer, state, next_batch())
+        losses.append(loss)
+        step_s.append(seconds)
+        log(f"step {step + 1} loss {loss:.4f} ({seconds:.3f}s)")
+    steady = step_s[1:] or step_s
+    return {
+        "params": llama.param_count(cfg),
+        "tokens_per_step": tokens,
+        "losses": losses,
+        "step_s": step_s,
+        "tokens_per_s": tokens * len(steady) / sum(steady),
+        "max_memory_bytes": (torch.cuda.max_memory_allocated()
+                             if cuda else None),
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    result = run(parse_args(argv))
+    print(f"params {result['params']} tokens/s {result['tokens_per_s']:.1f} "
+          f"max_memory_bytes {result['max_memory_bytes']}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,7 +7,12 @@ setup(
         "TPU-native elastic, fault-tolerant training framework "
         "(JAX/XLA/pjit/Pallas)"
     ),
-    packages=find_packages(include=["dlrover_tpu", "dlrover_tpu.*"]),
+    packages=find_packages(include=[
+        "dlrover_tpu", "dlrover_tpu.*",
+        "dlrover_tpu_torch", "dlrover_tpu_torch.*",
+    ]),
+    # the port's CUDA sources are compiled with nvcc at first use
+    package_data={"dlrover_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
