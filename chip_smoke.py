@@ -9,22 +9,36 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    power limit as nvidia-smi reports them. TF32 is switched off for
    matmuls and cuDNN, so every f32 product in the references is full f32.
 2. build: compiles every kernel of the main path from the sources in this
-   checkout (``dlrover_tpu_torch/ops/csrc``), one nvcc per source, in
-   parallel.
+   checkout (``dlrover_tpu_torch/ops/csrc``: flash_attn.cu, fused_ce.cu),
+   one nvcc per source, in parallel; prints each kernel's registers and
+   spills.
 3. kernels: each flash-attention kernel (fwd, dq, dk/dv) against its plain
    PyTorch version on the same bf16 inputs on the card, for the main-path
-   shape and for non-causal, ragged, group-1 and head-dim-64 cases, with
-   the tolerances below; then each kernel's time, its plain version's
-   time, the least time the card could take (bound), and the time of
-   ``F.scaled_dot_product_attention(..., enable_gqa=True)`` as the
-   library yardstick (timed only; the port never calls it).
+   shape and for non-causal, ragged, group-1 and head-dim-64 cases; each
+   fused-CE kernel (fwd, merge, bwd_q, bwd_dx, bwd_dw) against its plain
+   version for the main-path shape and for ragged, ViT, all-masked and
+   last-column cases; with the tolerances below. Then each kernel's time,
+   its plain version's time, the least time the card could take (bound),
+   and one PyTorch call of the same function as the library yardstick
+   (timed only; the port never calls it): SDPA for attention,
+   ``torch.mm(..., out_dtype=torch.float32)`` of the same product for the
+   CE kernels. Last, the whole forward and backward of the fused CE
+   against the chunked CE at the main-path shape.
 4. main path: 4 training steps of the Llama-3-8B-width model cut to 4 of
    32 layers (seq 2048, micro-batch 1, global batch 2) through the port's
    ``ElasticTrainer``, with every kernel launch counter at 0 just before
-   and read just after; checks the losses and that every kernel ran.
-5. reference: a small Llama (head dim 128) on the card, bf16 with the
-   kernels, against the same weights on the CPU in f32 with the plain
-   versions: loss and every gradient, under remat "all" and "mlp".
+   and read just after; checks the losses, that every flash and fused-CE
+   kernel ran and that the chunked CE did not. Then the same 4 steps under
+   ``DLROVER_TPU_FUSED_CE=0`` (the chunked CE), with tokens/s and peak
+   memory of both runs and their step-1 losses compared.
+4b. ViT-B/16 (224x224, patch 16, dim 768, 12 layers, 12 heads, mlp 3072,
+   1000 classes) through ``run/vit_classify.py``: micro-batch 64, global
+   batch 128, 4 steps, counters at 0 just before and read just after;
+   checks the losses and that the flash and fused-CE kernels ran.
+5. reference: a small Llama (head dim 128) and a small ViT (head dim 64,
+   100 patches, 300 classes) on the card, bf16 with the kernels, against
+   the same weights on the CPU in f32 with the plain versions: loss and
+   every gradient (Llama under remat "all" and "mlp").
 6. output: one JSON line of the kernels, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -34,6 +48,7 @@ Exits with code 2 and prints no result when CUDA is not available.
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -70,6 +85,39 @@ CASES = [
 ]
 
 
+# fused CE, kernel vs plain version on the same bf16 inputs: logits are
+# bf16 products accumulated in f32 in both, so logz and nll_sum differ by
+# the order of f32 sums (and __expf) only; q is rounded to bf16 in both,
+# where a 1-ulp flip is 2^-8 relative, so q, dx and dw take the flash
+# tolerances above
+CE_LOGZ_ABS_TOL = 1e-3
+CE_NLL_REL_TOL = 1e-4
+# fused vs chunked step-1 loss of the main path: the same bf16 products
+# and roundings, summed in another order (loss ~12.6)
+FUSED_VS_CHUNKED_LOSS_TOL = 1e-2
+
+CE_SOURCE = "dlrover_tpu_torch/ops/csrc/fused_ce.cu"
+CE_KERNELS = [
+    # name, launch-counter key, the TPU kernel it replaces
+    ("fused_ce_fwd", "fwd", "dlrover_tpu/ops/fused_ce.py:201"),
+    # the per-token finalize of the same TPU kernel (fused_ce.py:230)
+    ("fused_ce_merge", "merge", "dlrover_tpu/ops/fused_ce.py:201"),
+    # the logits recompute that both TPU backward kernels ran (:290)
+    ("fused_ce_bwd_q", "bwd_q", "dlrover_tpu/ops/fused_ce.py:300"),
+    ("fused_ce_bwd_dx", "bwd_dx", "dlrover_tpu/ops/fused_ce.py:300"),
+    ("fused_ce_bwd_dw", "bwd_dw", "dlrover_tpu/ops/fused_ce.py:322"),
+]
+CE_MAIN = dict(n=2048, d=4096, v=128256, targets="main")
+CE_CASES = [
+    ("main", CE_MAIN),
+    ("ragged", dict(n=1000, d=4096, v=50000, targets="ragged")),
+    ("vit", dict(n=128, d=768, v=1000, targets="ragged")),
+    ("all_masked", dict(n=256, d=1024, v=5000, targets="all_masked")),
+    # 32001 = 250 * 128 + 1: the last forward tile is one column wide
+    ("last_column", dict(n=512, d=1024, v=32001, targets="last_column")),
+]
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -91,15 +139,19 @@ def nvidia_smi_line():
 
 
 def ptxas_usage(log):
-    """[(kernel<D>, "registers, spills")] from nvcc's -Xptxas -v output."""
+    """[(kernel, "registers, spills")] from nvcc's -Xptxas -v output."""
     import re
 
     out, kernel, spills = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?\d(flash_(?:fwd|bwd_dq|bwd_dkv)"
                       r"_kernel)ILi(\d+)E", line)
+        m_ce = re.search(r"Function properties for \S*?\d(fused_ce_\w+?_kernel)",
+                         line)
         if m:
             kernel = f"{m.group(1)}<{m.group(2)}>"
+        elif m_ce:
+            kernel = m_ce.group(1)
         elif "spill" in line:
             spills = line.strip()
         elif kernel and "Used" in line and "registers" in line:
@@ -250,7 +302,221 @@ def phase_timing(torch, F, attention, inputs):
     return times, sdpa_fwd, sdpa_bwd
 
 
-def phase_main_path(torch, attention):
+def ce_inputs(torch, gen, case):
+    """bf16 tokens, an f32 lm-head at the model's init scale and int32
+    targets for one CE case."""
+    n, d, v = case["n"], case["d"], case["v"]
+    x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w = 0.02 * torch.randn((d, v), generator=gen, device="cuda")
+    tgt = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    kind = case["targets"]
+    if kind == "main":
+        tgt[::97] = -1
+        tgt[-1] = -1  # the last position of a sequence has no target
+    elif kind == "ragged":
+        tgt[::13] = -1
+    elif kind == "all_masked":
+        tgt[:] = -1
+    elif kind == "last_column":
+        tgt[:] = v - 1
+    return x, w, tgt
+
+
+class _Worst:
+    """Running max |got - ref|, max |ref| and Frobenius sums over parts."""
+
+    def __init__(self):
+        self.err = self.peak = self.diff_sq = self.ref_sq = 0.0
+
+    def add(self, got, ref):
+        got, ref = got.float(), ref.float()
+        self.err = max(self.err, (got - ref).abs().max().item())
+        self.peak = max(self.peak, ref.abs().max().item())
+        self.diff_sq += (got - ref).norm().item() ** 2
+        self.ref_sq += ref.norm().item() ** 2
+
+    def check(self, label, name):
+        fro = math.sqrt(self.diff_sq) / max(math.sqrt(self.ref_sq), 1e-30)
+        print(f"  [{label}] {name}: max_abs_err {self.err:.3e} (max|ref| "
+              f"{self.peak:.3e}, tol {REL_MAX_TOL * self.peak:.3e}) rel_fro "
+              f"{fro:.3e} (tol {REL_FRO_TOL})", flush=True)
+        check(math.isfinite(self.err) and self.err <= REL_MAX_TOL * self.peak,
+              f"{label}: {name} max error {self.err} > {REL_MAX_TOL} * "
+              f"{self.peak}")
+        check(fro <= REL_FRO_TOL, f"{label}: {name} relative error {fro}")
+        return self.err
+
+
+def phase_ce_kernels(torch, fce):
+    """Each fused-CE kernel against its plain version on the same inputs:
+    the forward kernel's partials go through the plain merge, the merge
+    kernel takes the plain partials, and the q, dx and dw kernels take the
+    plain logz and q, so each comparison isolates one kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    errors, timing = {}, None
+    for label, case in CE_CASES:
+        x, w, tgt = ce_inputs(torch, gen, case)
+        v = case["v"]
+        wc = fce.compute_weight(w, torch.bfloat16)
+        part_p = fce.fused_ce_fwd_plain(x, wc, tgt, v)
+        part_k = fce.fused_ce_fwd(x, wc, tgt, v)
+        logz_p, gold_p = fce.fused_ce_merge_plain(part_p)
+        logz_f, gold_f = fce.fused_ce_merge_plain(part_k)
+        logz_m, gold_m = fce.fused_ce_merge(part_p)
+        logz_k, gold_k = fce.fused_ce_merge(part_k)
+        vf = (tgt >= 0).float()
+        nll_p = ((logz_p - gold_p) * vf).sum().item()
+        nll_k = ((logz_k - gold_k) * vf).sum().item()
+        torch.cuda.synchronize()
+        fwd_err = max((logz_f - logz_p).abs().max().item(),
+                      (gold_f - gold_p).abs().max().item())
+        merge_err = max((logz_m - logz_p).abs().max().item(),
+                        (gold_m - gold_p).abs().max().item())
+        nll_rel = abs(nll_k - nll_p) / max(abs(nll_p), 1e-30)
+        print(f"  [{label}] n={case['n']} d={case['d']} v={v}: fwd logz/gold "
+              f"max_abs_err {fwd_err:.3e}, merge {merge_err:.3e} (tol "
+              f"{CE_LOGZ_ABS_TOL}); nll_sum {nll_k:.6e} vs {nll_p:.6e}, "
+              f"rel {nll_rel:.3e} (tol {CE_NLL_REL_TOL}); n_valid "
+              f"{int(vf.sum().item())}", flush=True)
+        check(fwd_err <= CE_LOGZ_ABS_TOL, f"{label}: fwd error {fwd_err}")
+        check(merge_err <= CE_LOGZ_ABS_TOL,
+              f"{label}: merge error {merge_err}")
+        check(nll_rel <= CE_NLL_REL_TOL, f"{label}: nll_sum error {nll_rel}")
+
+        row_scale = vf.contiguous()
+        n, d = x.shape
+        dx_p = torch.zeros((n, d), dtype=torch.float32, device="cuda")
+        dx_k = torch.zeros_like(dx_p)
+        dw_p = torch.empty((d, v), dtype=torch.float32, device="cuda")
+        dw_k = torch.empty_like(dw_p)
+        q_worst = _Worst()
+        first_q = None
+        for c0, cw in fce._chunks(wc.shape[1]):
+            q_p = fce.fused_ce_bwd_q_plain(x, wc, tgt, logz_p, row_scale, v,
+                                           c0, cw)
+            q_k = fce.fused_ce_bwd_q(x, wc, tgt, logz_p, row_scale, v, c0, cw)
+            q_worst.add(q_k, q_p)
+            fce.fused_ce_bwd_dx_plain(q_p, wc, c0, dx_p)
+            fce.fused_ce_bwd_dx(q_p, wc, c0, dx_k)
+            fce.fused_ce_bwd_dw_plain(x, q_p, v, c0, dw_p)
+            fce.fused_ce_bwd_dw(x, q_p, v, c0, dw_k)
+            first_q = q_p if first_q is None else first_q
+        torch.cuda.synchronize()
+        worst = {"fused_ce_fwd": fwd_err, "fused_ce_merge": merge_err,
+                 "fused_ce_bwd_q": q_worst.check(label, "bwd_q q")}
+        for name, got, ref in (("fused_ce_bwd_dx", dx_k, dx_p),
+                               ("fused_ce_bwd_dw", dw_k, dw_p)):
+            one = _Worst()
+            one.add(got, ref)
+            worst[name] = one.check(label, name)
+        if label == "main":
+            errors = worst
+            timing = (x, w, wc, tgt, part_p, logz_p, row_scale, first_q,
+                      dx_k, dw_k)
+    return errors, timing
+
+
+def ce_bounds(n, d, v, cw, tile):
+    """Per-kernel (bound_ms, bound_by) at these dims: the larger of the
+    tensor-core time of the kernel's products and the time to read each
+    input once and write each output once. The merge does ~10 f32
+    operations per partial on the 67 TFLOP/s non-tensor path."""
+    vp = -(-v // 8) * 8
+    ntiles = -(-v // tile)
+    part = 3 * n * ntiles * 4
+    work = {
+        "fused_ce_fwd": (2 * n * d * v, n * d * 2 + d * vp * 2 + n * 4 + part),
+        "fused_ce_merge": (None, part + 2 * n * 4),
+        "fused_ce_bwd_q": (2 * n * d * cw,
+                           n * d * 2 + d * cw * 2 + 3 * n * 4 + n * cw * 2),
+        "fused_ce_bwd_dx": (2 * n * cw * d,
+                            n * cw * 2 + d * cw * 2 + 2 * n * d * 4),
+        "fused_ce_bwd_dw": (2 * d * n * cw, n * d * 2 + n * cw * 2 + d * cw * 4),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = (10 * n * ntiles / 67e12 if flops is None
+                 else flops / PEAK_BF16_FLOPS) * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[name] = ((t_ops, "operations") if t_ops >= t_bytes
+                     else (t_bytes, "bytes"))
+    return out
+
+
+def phase_ce_timing(torch, fce, chunked_ce, inputs):
+    """Each CE kernel at the main shape (the backward ones on one
+    BWD_CHUNK-column chunk, as the main path launches them), its plain
+    version, and ``torch.mm`` of the same product; then the whole forward
+    and backward, fused against chunked."""
+    x, w, wc, tgt, part, logz, row_scale, q, dx, dw = inputs
+    v = w.shape[1]
+    cw = q.shape[1]
+    f32 = torch.float32
+    runs = {
+        "fused_ce_fwd": (
+            lambda: fce.fused_ce_fwd(x, wc, tgt, v),
+            lambda: fce.fused_ce_fwd_plain(x, wc, tgt, v),
+            lambda: torch.mm(x, wc[:, :v], out_dtype=f32)),
+        "fused_ce_merge": (
+            lambda: fce.fused_ce_merge(part),
+            lambda: fce.fused_ce_merge_plain(part), None),
+        "fused_ce_bwd_q": (
+            lambda: fce.fused_ce_bwd_q(x, wc, tgt, logz, row_scale, v, 0, cw),
+            lambda: fce.fused_ce_bwd_q_plain(x, wc, tgt, logz, row_scale, v,
+                                             0, cw),
+            lambda: torch.mm(x, wc[:, :cw], out_dtype=f32)),
+        "fused_ce_bwd_dx": (
+            lambda: fce.fused_ce_bwd_dx(q, wc, 0, dx),
+            lambda: fce.fused_ce_bwd_dx_plain(q, wc, 0, dx),
+            lambda: torch.mm(q, wc[:, :cw].t(), out_dtype=f32)),
+        "fused_ce_bwd_dw": (
+            lambda: fce.fused_ce_bwd_dw(x, q, v, 0, dw),
+            lambda: fce.fused_ce_bwd_dw_plain(x, q, v, 0, dw),
+            lambda: torch.mm(x.t(), q, out_dtype=f32)),
+    }
+    times = {}
+    for name, (kernel, plain, library) in runs.items():
+        # plain, kernel, kernel, plain: the two orders average out drift
+        p1 = cuda_ms(torch, plain, iters=5)
+        k1 = cuda_ms(torch, kernel)
+        k2 = cuda_ms(torch, kernel)
+        p2 = cuda_ms(torch, plain, iters=5)
+        lib = cuda_ms(torch, library) if library else None
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, lib)
+
+    xr = x.detach().requires_grad_(True)
+    wr = w.detach().requires_grad_(True)
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(xr, wr, tgt)[0], (xr, wr))
+
+    fused = fwd_bwd(fce.fused_cross_entropy)
+    chunked = fwd_bwd(lambda a, b, t: chunked_ce.chunked_cross_entropy(
+        a, b, t, chunk_size=2048))
+    c1 = cuda_ms(torch, chunked, iters=5, warmup=1)
+    f1 = cuda_ms(torch, fused, iters=5, warmup=1)
+    f2 = cuda_ms(torch, fused, iters=5, warmup=1)
+    c2 = cuda_ms(torch, chunked, iters=5, warmup=1)
+    whole = ((f1 + f2) / 2, (c1 + c2) / 2)
+    return times, whole, ce_bounds(x.shape[0], x.shape[1], v, cw,
+                                   fce.FWD_TILE)
+
+
+def _launch_counts(attention, fce):
+    """Every kernel's launch count, keyed by its JSON name."""
+    counts = {name: attention.launch_counts[key] for name, key, _ in KERNELS}
+    counts.update({name: fce.launch_counts[key] for name, key, _ in CE_KERNELS})
+    return counts
+
+
+def _reset_counts(attention, fce, chunked_calls):
+    attention.reset_launch_counts()
+    fce.reset_launch_counts()
+    chunked_calls[0] = 0
+
+
+def _llama_run(torch, attention, fce, chunked_calls, label):
     from dlrover_tpu_torch.run import llama_pretrain
 
     args = llama_pretrain.parse_args([
@@ -258,35 +524,134 @@ def phase_main_path(torch, attention):
         "--micro-batch", "1", "--global-batch", "2", "--steps", "4",
         "--device", "cuda", "--seed", "0",
     ])
-    attention.reset_launch_counts()
-    result = llama_pretrain.run(args, log=lambda m: print("  " + m,
+    torch.cuda.empty_cache()
+    _reset_counts(attention, fce, chunked_calls)
+    result = llama_pretrain.run(args, log=lambda m: print(f"  [{label}] {m}",
                                                           flush=True))
-    counts = dict(attention.launch_counts)
-    losses = result["losses"]
-    print(f"  params {result['params']}, tokens/step "
+    counts = _launch_counts(attention, fce)
+    print(f"  [{label}] params {result['params']}, tokens/step "
           f"{result['tokens_per_step']}, step_s {result['step_s']}, "
           f"tokens/s (steps 2-4) {result['tokens_per_s']:.1f}, "
           f"max_memory_allocated {result['max_memory_bytes']} bytes",
           flush=True)
-    print(f"  kernel launches on the main path: {counts}", flush=True)
+    print(f"  [{label}] kernel launches: {counts}; chunked CE calls "
+          f"{chunked_calls[0]}", flush=True)
+    losses = result["losses"]
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    # at random init the final-norm hidden state has norm sqrt(dim), so the
-    # logits are ~N(0, sigma^2) with sigma = 0.02 sqrt(4096) = 1.28, and the
-    # expected loss is ln(vocab) + sigma^2 / 2 = 11.76 + 0.82
-    expected = math.log(128256) + 0.5 * (0.02 ** 2) * 4096
-    print(f"  step-1 loss {losses[0]:.4f}, expected {expected:.4f} "
-          f"(ln(128256) + sigma^2/2), tol 0.5", flush=True)
-    check(abs(losses[0] - expected) < 0.5,
-          f"step-1 loss {losses[0]} not within 0.5 of {expected}")
-    for _, key, _ in KERNELS:
-        check(counts[key] > 0, f"kernel {key} never launched on the main path")
     return counts, result
 
 
-def phase_reference(torch, remat_policy):
-    """A small Llama with head dim 128: bf16 + kernels on the card against
-    f32 + plain versions on the CPU, same weights, same tokens."""
+def phase_main_path(torch, attention, fce, chunked_calls):
+    """The Llama main path with the flag at its default (fused CE), then
+    the same steps under ``DLROVER_TPU_FUSED_CE=0`` (chunked CE)."""
+    saved = os.environ.pop("DLROVER_TPU_FUSED_CE", None)
+    try:
+        counts, result = _llama_run(torch, attention, fce, chunked_calls,
+                                    "fused")
+        losses = result["losses"]
+        # at random init the final-norm hidden state has norm sqrt(dim), so
+        # the logits are ~N(0, sigma^2) with sigma = 0.02 sqrt(4096) = 1.28,
+        # and the expected loss is ln(vocab) + sigma^2 / 2 = 11.76 + 0.82
+        expected = math.log(128256) + 0.5 * (0.02 ** 2) * 4096
+        print(f"  step-1 loss {losses[0]:.4f}, expected {expected:.4f} "
+              f"(ln(128256) + sigma^2/2), tol 0.5", flush=True)
+        check(abs(losses[0] - expected) < 0.5,
+              f"step-1 loss {losses[0]} not within 0.5 of {expected}")
+        for name in counts:
+            check(counts[name] > 0,
+                  f"kernel {name} never launched on the main path")
+        check(chunked_calls[0] == 0, "the chunked CE ran on the fused path")
+
+        os.environ["DLROVER_TPU_FUSED_CE"] = "0"
+        c_counts, c_result = _llama_run(torch, attention, fce, chunked_calls,
+                                        "chunked")
+    finally:
+        os.environ.pop("DLROVER_TPU_FUSED_CE", None)
+        if saved is not None:
+            os.environ["DLROVER_TPU_FUSED_CE"] = saved
+    check(chunked_calls[0] > 0, "DLROVER_TPU_FUSED_CE=0 did not take the "
+          "chunked CE")
+    check(not any(c_counts[name] for name, _, _ in CE_KERNELS),
+          "a fused-CE kernel ran under DLROVER_TPU_FUSED_CE=0")
+    diff = abs(c_result["losses"][0] - losses[0])
+    print(f"  fused vs chunked: step-1 loss {losses[0]:.5f} vs "
+          f"{c_result['losses'][0]:.5f}, diff {diff:.2e} (tol "
+          f"{FUSED_VS_CHUNKED_LOSS_TOL}); tokens/s {result['tokens_per_s']:.1f}"
+          f" vs {c_result['tokens_per_s']:.1f}; max_memory_allocated "
+          f"{result['max_memory_bytes']} vs {c_result['max_memory_bytes']} "
+          f"bytes", flush=True)
+    check(diff <= FUSED_VS_CHUNKED_LOSS_TOL,
+          f"fused and chunked step-1 losses differ by {diff}")
+    return counts, result
+
+
+def phase_vit(torch, attention, fce, chunked_calls):
+    """ViT-B/16 through run/vit_classify.py on the flash and CE kernels."""
+    from dlrover_tpu_torch.run import vit_classify
+
+    args = vit_classify.parse_args([
+        "--model", "b16", "--micro-batch", "64", "--global-batch", "128",
+        "--steps", "4", "--device", "cuda", "--seed", "0",
+    ])
+    torch.cuda.empty_cache()
+    _reset_counts(attention, fce, chunked_calls)
+    result = vit_classify.run(args, log=lambda m: print("  " + m, flush=True))
+    counts = _launch_counts(attention, fce)
+    losses = result["losses"]
+    print(f"  params {result['params']}, images/step "
+          f"{result['images_per_step']}, step_s {result['step_s']}, "
+          f"images/s (steps 2-4) {result['images_per_s']:.1f}, "
+          f"max_memory_allocated {result['max_memory_bytes']} bytes",
+          flush=True)
+    print(f"  kernel launches: {counts}", flush=True)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    # the pooled feature is the mean of 196 rms-normed tokens (unit RMS
+    # each), so its mean square sigma^2 lies in [0, 1]; the head is
+    # N(0, 1/768), so the logits are ~N(0, sigma^2) and the expected loss
+    # is ln(1000) + sigma^2 / 2, in [6.908, 7.408]; 0.1 on either side
+    # covers the spread of a 64-image mean
+    lo, hi = math.log(1000) - 0.1, math.log(1000) + 0.5 + 0.1
+    print(f"  step-1 loss {losses[0]:.4f}, expected in [{lo:.3f}, {hi:.3f}] "
+          f"(ln(1000) + sigma^2/2, sigma^2 in [0, 1])", flush=True)
+    check(lo <= losses[0] <= hi, f"ViT step-1 loss {losses[0]}")
+    for name in counts:
+        check(counts[name] > 0, f"kernel {name} never launched on ViT-B/16")
+    check(chunked_calls[0] == 0, "the chunked CE ran on the ViT path")
+    return counts, result
+
+
+def _card_vs_cpu(torch, label, params_cpu, batch_cpu, batch_gpu, loss_cpu,
+                 loss_gpu):
+    """Loss and every grad: bf16 + kernels on the card against f32 + plain
+    versions on the CPU, same weights, same batch."""
     from dlrover_tpu_torch.common.tree import flatten, map_tree
+
+    params_gpu = map_tree(lambda t: t.cuda(), params_cpu)
+
+    def loss_and_grads(params, batch, loss_fn):
+        leaves = [p.requires_grad_(True) for _, p in flatten(params)]
+        loss = loss_fn(params, batch)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    loss_c, grads_c = loss_and_grads(params_cpu, batch_cpu, loss_cpu)
+    loss_g, grads_g = loss_and_grads(params_gpu, batch_gpu, loss_gpu)
+    diff = abs(loss_g.item() - loss_c.item())
+    print(f"  {label}: loss card(bf16) {loss_g.item():.5f} cpu(f32) "
+          f"{loss_c.item():.5f} diff {diff:.2e} (tol {E2E_LOSS_TOL})",
+          flush=True)
+    check(diff <= E2E_LOSS_TOL, f"{label}: reference loss differs by {diff}")
+    worst = 0.0
+    for (path, _), gg, gc in zip(flatten(params_cpu), grads_g, grads_c):
+        fro = ((gg.float().cpu() - gc).norm() / gc.norm().clamp_min(1e-30))
+        worst = max(worst, fro.item())
+        check(fro.item() <= E2E_GRAD_REL_FRO_TOL,
+              f"{label}: reference grad {path} relative error {fro.item()}")
+    print(f"  {label}: every grad within rel_fro {worst:.3e} "
+          f"(tol {E2E_GRAD_REL_FRO_TOL})", flush=True)
+
+
+def phase_reference(torch, remat_policy):
+    """A small Llama with head dim 128 (its loss on the fused CE)."""
     from dlrover_tpu_torch.models import llama
 
     cfg = llama.LlamaConfig.tiny(
@@ -294,31 +659,32 @@ def phase_reference(torch, remat_policy):
         n_layers=2, remat=True, remat_policy=remat_policy,
     )
     gen = torch.Generator(device="cpu").manual_seed(7)
-    params_cpu = llama.init_params(cfg, gen)
+    params = llama.init_params(cfg, gen)
     tokens = torch.randint(0, cfg.vocab_size, (2, 320), generator=gen)
-    params_gpu = map_tree(lambda t: t.cuda(), params_cpu)
-
-    def loss_and_grads(params, tokens, cfg):
-        leaves = [p.requires_grad_(True) for _, p in flatten(params)]
-        loss = llama.loss_fn(params, tokens, cfg)
-        return loss, torch.autograd.grad(loss, leaves)
-
-    loss_c, grads_c = loss_and_grads(params_cpu, tokens, cfg)
     cfg_bf16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
-    loss_g, grads_g = loss_and_grads(params_gpu, tokens.cuda(), cfg_bf16)
-    diff = abs(loss_g.item() - loss_c.item())
-    print(f"  remat {remat_policy!r}: loss card(bf16) {loss_g.item():.5f} "
-          f"cpu(f32) {loss_c.item():.5f}"
-          f" diff {diff:.2e} (tol {E2E_LOSS_TOL})", flush=True)
-    check(diff <= E2E_LOSS_TOL, f"reference loss differs by {diff}")
-    worst = 0.0
-    for (path, _), gg, gc in zip(flatten(params_cpu), grads_g, grads_c):
-        fro = ((gg.float().cpu() - gc).norm() / gc.norm().clamp_min(1e-30))
-        worst = max(worst, fro.item())
-        check(fro.item() <= E2E_GRAD_REL_FRO_TOL,
-              f"reference grad {path} relative error {fro.item()}")
-    print(f"  every grad within rel_fro {worst:.3e} "
-          f"(tol {E2E_GRAD_REL_FRO_TOL})", flush=True)
+    _card_vs_cpu(torch, f"llama remat {remat_policy!r}", params, tokens,
+                 tokens.cuda(), lambda p, t: llama.loss_fn(p, t, cfg),
+                 lambda p, t: llama.loss_fn(p, t, cfg_bf16))
+
+
+def phase_reference_vit(torch):
+    """A small ViT with head dim 64, 100 patches (not a multiple of the
+    kernels' 64-row tiles) and 300 classes (not a multiple of 8), a -1 pad
+    label, remat on."""
+    from dlrover_tpu_torch.models import vit
+
+    cfg = vit.ViTConfig.tiny(image_size=80, patch_size=8, n_classes=300,
+                             dim=128, n_heads=2, mlp_dim=256, remat=True)
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    params = vit.init_params(cfg, gen)
+    images = torch.randn((6, 80, 80, 3), generator=gen)
+    labels = torch.randint(0, 300, (6,), generator=gen)
+    labels[-1] = -1
+    cfg_bf16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    _card_vs_cpu(torch, "vit", params, (images, labels),
+                 (images.cuda(), labels.cuda()),
+                 lambda p, b: vit.loss_fn(p, b, cfg),
+                 lambda p, b: vit.loss_fn(p, b, cfg_bf16))
 
 
 def main():
@@ -329,7 +695,18 @@ def main():
         return 2
     import torch.nn.functional as F
 
-    from dlrover_tpu_torch.ops import attention, cuda_build
+    from dlrover_tpu_torch.ops import attention, chunked_ce, cuda_build
+    from dlrover_tpu_torch.ops import fused_ce as fce
+
+    # count the chunked CE's calls where cross_entropy_sums reaches it
+    chunked_calls = [0]
+    real_chunked = fce.chunked_cross_entropy
+
+    def counted_chunked(*args, **kwargs):
+        chunked_calls[0] += 1
+        return real_chunked(*args, **kwargs)
+
+    fce.chunked_cross_entropy = counted_chunked
 
     t_start = time.perf_counter()
     print("== phase 1: device", flush=True)
@@ -345,40 +722,67 @@ def main():
     check(cap >= (9, 0), f"needs compute capability >= 9.0, got {cap}")
 
     print("== phase 2: build", flush=True)
-    seconds = cuda_build.build(["flash_attn"])
+    seconds = cuda_build.build(cuda_build.sources())
     print(f"  nvcc seconds: {seconds}", flush=True)
-    log = cuda_build.library_path("flash_attn").with_suffix(".log")
-    for kernel, usage in ptxas_usage(log.read_text()):
-        print(f"  ptxas {kernel}: {usage}", flush=True)
+    for src in cuda_build.sources():
+        log = cuda_build.library_path(src).with_suffix(".log")
+        for kernel, usage in ptxas_usage(log.read_text()):
+            print(f"  ptxas {kernel}: {usage}", flush=True)
 
     print("== phase 3: kernels against their plain versions", flush=True)
     errors, inputs = phase_kernels(torch, attention)
     times, sdpa_fwd, sdpa_bwd = phase_timing(torch, F, attention, inputs)
+    del inputs
     bound = bounds(MAIN_CASE)
     for kname, (k_ms, p_ms) in times.items():
         print(f"  {kname}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
               f"{bound[kname][0]:.4f} ms ({bound[kname][1]})", flush=True)
     print(f"  library: sdpa fwd {sdpa_fwd:.4f} ms, sdpa bwd (dq, dk, dv "
           f"together) {sdpa_bwd:.4f} ms", flush=True)
+    ce_errors, ce_inputs_main = phase_ce_kernels(torch, fce)
+    ce_times, whole, ce_bound = phase_ce_timing(torch, fce, chunked_ce,
+                                                ce_inputs_main)
+    del ce_inputs_main
+    for kname, (k_ms, p_ms, lib_ms) in ce_times.items():
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        print(f"  {kname}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{ce_bound[kname][0]:.4f} ms ({ce_bound[kname][1]}), "
+              f"{k_ms / ce_bound[kname][0]:.2f}x bound; library torch.mm "
+              f"{lib}", flush=True)
+    print(f"  whole CE forward + backward at n={CE_MAIN['n']} d={CE_MAIN['d']}"
+          f" v={CE_MAIN['v']}: fused {whole[0]:.4f} ms, chunked "
+          f"{whole[1]:.4f} ms", flush=True)
 
     print("== phase 4: main path (Llama-3-8B width, 4 of 32 layers)",
           flush=True)
-    counts, _ = phase_main_path(torch, attention)
+    counts, _ = phase_main_path(torch, attention, fce, chunked_calls)
+
+    print("== phase 4b: ViT-B/16", flush=True)
+    phase_vit(torch, attention, fce, chunked_calls)
 
     print("== phase 5: small-model reference (card bf16 vs cpu f32)",
           flush=True)
     for policy in ("all", "mlp"):
         phase_reference(torch, policy)
+    phase_reference_vit(torch)
 
     kernels = []
-    for kname, key, replaces in KERNELS:
+    for kname, _, replaces in KERNELS:
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "launches": counts[key],
+            "replaces": replaces, "launches": counts[kname],
             "max_abs_err": errors[kname], "ms": times[kname][0],
             "plain_ms": times[kname][1], "bound_ms": bound[kname][0],
             "bound_by": bound[kname][1],
             "library_ms": sdpa_fwd if kname == "flash_fwd" else None,
+        })
+    for kname, _, replaces in CE_KERNELS:
+        kernels.append({
+            "name": kname, "route": "cuda", "source": CE_SOURCE,
+            "replaces": replaces, "launches": counts[kname],
+            "max_abs_err": ce_errors[kname], "ms": ce_times[kname][0],
+            "plain_ms": ce_times[kname][1], "bound_ms": ce_bound[kname][0],
+            "bound_by": ce_bound[kname][1], "library_ms": ce_times[kname][2],
         })
     print(f"== done in {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

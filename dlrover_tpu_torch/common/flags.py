@@ -33,3 +33,9 @@ CHUNKED_CE = EnvFlag(
     "Chunked fused cross-entropy kill-switch: 0 restores the dense "
     "[B,T,V] logits path (ops/chunked_ce.py). Read at every loss call.",
 )
+
+FUSED_CE = EnvFlag(
+    "DLROVER_TPU_FUSED_CE", True,
+    "Fused lm-head cross-entropy kernels (ops/fused_ce.py): 0 takes the "
+    "chunked cross-entropy instead. Read at every loss call.",
+)

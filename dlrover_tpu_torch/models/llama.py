@@ -6,10 +6,11 @@ through numpy with no transposes: per-layer leaves are stacked on a leading
 layer axis (``params["layers"]["wq"]`` is ``(L, dim, n_heads*head_dim)``)
 and every projection is ``x @ w``. The layer scan is a Python loop over the
 stacked leaves. bfloat16 compute, float32 master params; attention runs the
-flash kernels (``ops/attention.py``) and the loss fuses the unembed matmul
-into the chunked cross-entropy (``ops/chunked_ce.py``), or computes dense
-f32 logits when ``DLROVER_TPU_CHUNKED_CE=0``. The fused-CE kernels are not
-ported yet, so the loss does not read ``DLROVER_TPU_FUSED_CE``.
+flash kernels (``ops/attention.py``). The loss fuses the unembed matmul
+into the cross-entropy through ``cross_entropy_sums``, as the JAX loss
+does: the fused-CE kernels (``ops/fused_ce.py``) by default, the chunked
+cross-entropy under ``DLROVER_TPU_FUSED_CE=0``; under
+``DLROVER_TPU_CHUNKED_CE=0`` it computes dense f32 logits instead.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from torch.utils.checkpoint import (
 from dlrover_tpu_torch.ops import (
     apply_rope,
     chunked_ce_enabled,
-    chunked_cross_entropy,
+    cross_entropy_sums,
     embed_lookup,
     flash_attention,
     rms_norm,
@@ -251,7 +252,7 @@ def loss_fn(params: Params, tokens: torch.Tensor,
         # fused lm-head + CE on the shifted targets: never materializes
         # [b, s, vocab] logits
         x = forward_hidden(params, tokens, cfg)
-        nll_sum, n_valid = chunked_cross_entropy(
+        nll_sum, n_valid = cross_entropy_sums(
             x, params["lm_head"], _shift_targets(tokens),
             chunk_size=cfg.ce_chunk_size,
         )

@@ -17,7 +17,9 @@ On the card a bf16 product asks cuBLAS for an f32 output
 (``torch.mm(..., out_dtype=torch.float32)``); on the CPU the bf16 operands
 are upcast to f32 first, which gives the same exact products.
 
-This op has no Pallas kernel, so ``torch.mm`` per chunk is its port.
+This op has no Pallas kernel, so ``torch.mm`` per chunk is its port. It is
+the path behind ``DLROVER_TPU_FUSED_CE=0``; the models reach it through
+``ops/fused_ce.py::cross_entropy_sums``, whose default is the fused kernels.
 """
 
 from __future__ import annotations

@@ -87,12 +87,18 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     return seconds
 
 
+def sources():
+    """The name of every CUDA source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it first if
-    needed."""
+    """The loaded library for ``csrc/<name>.cu``. The first load builds
+    every missing library of ``csrc/`` at once, so a training step's kernel
+    families compile in parallel rather than one at each first launch."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        build(sources())
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

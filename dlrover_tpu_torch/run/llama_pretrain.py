@@ -20,7 +20,11 @@ import torch
 
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import llama
-from dlrover_tpu_torch.train.trainer import ElasticTrainer, TrainConfig
+from dlrover_tpu_torch.train.trainer import (
+    ElasticTrainer,
+    TrainConfig,
+    batch_leaves,
+)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -73,9 +77,11 @@ def build(args: argparse.Namespace):
 
 def timed_step(trainer, state, batch):
     """One step, timed on the host clock up to the loss reaching the host
-    (which waits for the device); returns ``(state, loss, seconds)``."""
-    if batch.is_cuda:
-        torch.cuda.synchronize(batch.device)
+    (which waits for the device); returns ``(state, loss, seconds)``.
+    ``batch`` is a tensor or a tree of tensors."""
+    leaf = batch_leaves(batch)[0]
+    if leaf.is_cuda:
+        torch.cuda.synchronize(leaf.device)
     t0 = time.perf_counter()
     state, loss = trainer.step(state, batch)
     loss = float(loss)

@@ -9,11 +9,12 @@ Builds the trainer of ``run/llama_pretrain.py``, takes one warm-up step
 with ``torch.profiler`` and reports, per step:
 
 - device time inside each scope the port names (``attention_fwd``,
-  ``attention_bwd``, ``chunked_ce_fwd``, ``chunked_ce_bwd``,
+  ``attention_bwd``, ``fused_ce_fwd``, ``fused_ce_bwd``, and
+  ``chunked_ce_fwd`` / ``chunked_ce_bwd`` under ``DLROVER_TPU_FUSED_CE=0``,
   ``optimizer_update``) and the rest (layer matmuls, norms, rope,
   embedding, gradient accumulation);
-- device time by kernel family (the port's flash kernels, cuBLAS GEMMs,
-  everything else) and the top kernels by name;
+- device time by kernel family (the port's flash and fused-CE kernels,
+  cuBLAS GEMMs, everything else) and the top kernels by name;
 - the device's busy share of the profiled host wall time (the union of
   kernel and copy intervals), and so its idle share; and the busy time
   against the median wall time of as many steps again taken without the
@@ -37,8 +38,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from dlrover_tpu_torch.run import llama_pretrain
 
-SCOPES = ("attention_fwd", "attention_bwd", "chunked_ce_fwd",
-          "chunked_ce_bwd", "optimizer_update")
+SCOPES = ("attention_fwd", "attention_bwd", "fused_ce_fwd", "fused_ce_bwd",
+          "chunked_ce_fwd", "chunked_ce_bwd", "optimizer_update")
 GEMM_MARKERS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 
 
@@ -51,6 +52,8 @@ def _family(name: str) -> str:
     low = name.lower()
     if "flash_" in low and "kernel" in low:
         return "flash kernels (port)"
+    if "fused_ce_" in low and "kernel" in low:
+        return "fused-CE kernels (port)"
     if any(m in low for m in GEMM_MARKERS):
         return "cuBLAS GEMM"
     return "other (elementwise, reductions, copies)"

@@ -2,11 +2,15 @@
 step path).
 
 One optimizer step is ``accum_steps = global_batch // micro_batch``
-microbatches (data-parallel size 1 for now): each microbatch's gradients
-add into an f32 accumulator, the sum is scaled by 1/accum, clipped by its
-global norm, fed to adamw, and the update is scaled by the state's
-``lr_scale`` before it lands on the params, as the JAX step does. With one
-microbatch the grads stay in the param dtype and no accumulator exists.
+microbatches (data-parallel size 1 for now). A batch is a tensor (token ids
+for the LM families) or a tree of tensors (an ``(images, labels)`` tuple for
+the CV family) whose every leaf leads with ``accum_steps``; microbatch ``i``
+is every leaf's ``[i]``, as the JAX step slices a pytree. Each microbatch's
+gradients add into an f32 accumulator, the sum is scaled by 1/accum,
+clipped by its global norm, fed to adamw, and the update is scaled by the
+state's ``lr_scale`` before it lands on the params, as the JAX step does.
+With one microbatch the grads stay in the param dtype and no accumulator
+exists.
 
 Unlike the JAX step, which returns a fresh state, this one updates the
 state in place to save memory: the first microbatch's f32 gradients
@@ -21,14 +25,30 @@ lint hooks are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, Tuple
+from typing import Any, Callable, Iterable, List, Tuple
 
 import torch
 
 from dlrover_tpu_torch.common.tree import Tree, flatten
 from dlrover_tpu_torch.train.optim import make_optimizer
 
-LossFn = Callable[[Tree, torch.Tensor], torch.Tensor]
+#: a tensor, or a tuple or list of batches
+Batch = Any
+LossFn = Callable[[Tree, Batch], torch.Tensor]
+
+
+def batch_leaves(batch: Batch) -> List[torch.Tensor]:
+    """The tensors of a batch tree, in order."""
+    if isinstance(batch, torch.Tensor):
+        return [batch]
+    return [t for b in batch for t in batch_leaves(b)]
+
+
+def microbatch(batch: Batch, i: int) -> Batch:
+    """Row ``i`` of every leaf of a batch tree."""
+    if isinstance(batch, torch.Tensor):
+        return batch[i]
+    return type(batch)(microbatch(b, i) for b in batch)
 
 
 @dataclasses.dataclass
@@ -64,8 +84,8 @@ class ElasticTrainer:
 
     @property
     def step_batch_shape(self) -> Tuple[int, int]:
-        """(accum_steps, micro_batch): how callers shape the token batch
-        fed to ``step``."""
+        """(accum_steps, micro_batch): the leading dims of every leaf of a
+        batch fed to ``step``."""
         return self.accum_steps, self.tc.micro_batch_size
 
     def init_state(self, params: Tree) -> dict:
@@ -81,15 +101,15 @@ class ElasticTrainer:
             "lr_scale": 1.0,
         }
 
-    def step(self, state: dict, batch: torch.Tensor
-             ) -> Tuple[dict, torch.Tensor]:
-        """One optimizer step over ``batch`` shaped (accum_steps, micro,
-        ...). Returns the (updated in place) state and the mean microbatch
-        loss as a 0-dim tensor on the params' device."""
+    def step(self, state: dict, batch: Batch) -> Tuple[dict, torch.Tensor]:
+        """One optimizer step over ``batch``, each leaf shaped
+        (accum_steps, micro, ...). Returns the (updated in place) state and
+        the mean microbatch loss as a 0-dim tensor on the params' device."""
         accum = self.accum_steps
-        if batch.shape[0] != accum:
+        leads = [t.shape[0] if t.dim() else None for t in batch_leaves(batch)]
+        if not leads or any(lead != accum for lead in leads):
             raise ValueError(
-                f"batch leads with {batch.shape[0]}, expected accum_steps="
+                f"batch leaves lead with {leads}, expected accum_steps="
                 f"{accum}"
             )
         leaves = flatten(state["params"])
@@ -97,7 +117,7 @@ class ElasticTrainer:
         loss_sum = None
         grads = None
         for i in range(accum):
-            loss = self.loss_fn(state["params"], batch[i])
+            loss = self.loss_fn(state["params"], microbatch(batch, i))
             g = torch.autograd.grad(loss, tensors)
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -121,11 +141,12 @@ class ElasticTrainer:
         return state, loss_sum * (1.0 / accum)
 
     @torch.no_grad()
-    def eval_step(self, state: dict, batch: torch.Tensor) -> torch.Tensor:
-        """Loss of one microbatch without touching the train state."""
+    def eval_step(self, state: dict, batch: Batch) -> torch.Tensor:
+        """Loss of one microbatch (a tensor or a tree of tensors, one row
+        of a ``step`` batch) without touching the train state."""
         return self.loss_fn(state["params"], batch)
 
-    def evaluate(self, state: dict, batches: Iterable[torch.Tensor]) -> float:
+    def evaluate(self, state: dict, batches: Iterable[Batch]) -> float:
         """Mean loss over eval batches, each one ``step_batch_shape`` row.
         Losses add on the device and reach the host once, at the end."""
         total = None

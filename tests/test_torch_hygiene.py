@@ -60,13 +60,18 @@ def test_scan_matches_whole_names():
 def test_port_runs_without_loading_jax():
     code = (
         "import sys, torch\n"
-        "from dlrover_tpu_torch.models import llama\n"
+        "from dlrover_tpu_torch.models import llama, vit\n"
         "from dlrover_tpu_torch.train.trainer import ElasticTrainer, TrainConfig\n"
         "cfg = llama.LlamaConfig.tiny()\n"
         "params = llama.init_params(cfg, torch.Generator().manual_seed(0))\n"
         "toks = torch.randint(0, cfg.vocab_size, (2, 8))\n"
         "loss = llama.loss_fn(params, toks, cfg)\n"
         "assert torch.isfinite(loss)\n"
+        "vcfg = vit.ViTConfig.tiny()\n"
+        "vparams = vit.init_params(vcfg, torch.Generator().manual_seed(0))\n"
+        "images = torch.randn(2, 32, 32, 3)\n"
+        "labels = torch.tensor([1, -1])\n"
+        "assert torch.isfinite(vit.loss_fn(vparams, (images, labels), vcfg))\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'dlrover_tpu'))\n"
@@ -83,13 +88,15 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     """Entry points default to the card; without one they raise instead of
     running on the CPU."""
     from dlrover_tpu_torch.common.device import resolve_device
-    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.run import llama_pretrain, vit_classify
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         llama_pretrain.run(llama_pretrain.parse_args([]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vit_classify.run(vit_classify.parse_args([]))
     assert resolve_device("cpu") == torch.device("cpu")
 
 

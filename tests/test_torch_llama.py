@@ -3,8 +3,9 @@
 ``LlamaConfig.tiny()`` in float32, one set of weights made by the JAX
 package's ``init_params`` and carried across as numpy. Loss and every
 parameter gradient are compared on both cross-entropy paths
-(``DLROVER_TPU_CHUNKED_CE`` on and off, read by both packages) and under
-each rematerialization policy.
+(``DLROVER_TPU_CHUNKED_CE`` on and off, read by both packages), with
+``DLROVER_TPU_FUSED_CE`` on and off, and under each rematerialization
+policy.
 """
 
 import jax
@@ -18,6 +19,7 @@ from dlrover_tpu.models import llama as jllama
 from dlrover_tpu_torch.common.tree import flatten
 from dlrover_tpu_torch.models import llama as tllama
 from dlrover_tpu_torch.models.convert import params_from_jax, params_to_numpy
+from dlrover_tpu_torch.ops import fused_ce as fce
 
 # vocab 256 in chunks of 96: three chunks, the last one 64 wide
 CE_CHUNK = 96
@@ -65,6 +67,57 @@ def test_tiny_loss_and_grads_match_jax(np_params, tokens, monkeypatch,
     for (path, jg), g in zip(j_flat, grads):
         np.testing.assert_allclose(g.numpy(), jg, rtol=1e-4, atol=1e-6,
                                    err_msg=path)
+
+
+@pytest.mark.parametrize("fused", ["1", "0"], ids=["fused_ce", "chunked_ce"])
+@pytest.mark.parametrize("remat", ["off", "all"])
+def test_tiny_loss_and_grads_match_jax_fused_flag(np_params, tokens,
+                                                  monkeypatch, fused, remat):
+    """``DLROVER_TPU_FUSED_CE`` on and off: the port's loss takes the
+    fused-CE plain versions or the chunked path; the JAX loss takes its
+    chunked path on the CPU either way. The function is the same."""
+    monkeypatch.setenv("DLROVER_TPU_CHUNKED_CE", "1")
+    monkeypatch.setenv("DLROVER_TPU_FUSED_CE", fused)
+    kw = dict(ce_chunk_size=CE_CHUNK, remat=remat != "off")
+    jcfg = jllama.LlamaConfig.tiny(**kw)
+    tcfg = tllama.LlamaConfig.tiny(**kw)
+    j_loss, j_grads = jax.jit(jax.value_and_grad(
+        lambda p: jllama.loss_fn(p, jnp.asarray(tokens), jcfg)
+    ))(jax.tree.map(jnp.asarray, np_params))
+
+    params = params_from_jax(np_params, "cpu")
+    leaves = [p.requires_grad_(True) for _, p in flatten(params)]
+    fce.reset_launch_counts()
+    loss = tllama.loss_fn(params, torch.from_numpy(tokens).long(), tcfg)
+    grads = torch.autograd.grad(loss, leaves)
+    assert not any(fce.launch_counts.values())
+
+    # f32 on both sides: the order of sums differs, nothing else
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
+    for (path, jg), g in zip(flatten(jax.tree.map(np.asarray, j_grads)),
+                             grads):
+        np.testing.assert_allclose(g.numpy(), jg, rtol=1e-4, atol=1e-6,
+                                   err_msg=path)
+
+
+def test_loss_dispatches_on_the_fused_flag(np_params, tokens, monkeypatch):
+    """The loss reaches the fused CE by default and the chunked CE under
+    ``DLROVER_TPU_FUSED_CE=0``, as the JAX loss does on the TPU."""
+    calls = []
+    real_fused, real_chunked = fce.fused_cross_entropy, fce.chunked_cross_entropy
+    monkeypatch.setattr(fce, "fused_cross_entropy",
+                        lambda *a, **k: calls.append("fused") or real_fused(*a))
+    monkeypatch.setattr(fce, "chunked_cross_entropy",
+                        lambda *a, **k: calls.append("chunked")
+                        or real_chunked(*a, **k))
+    params = params_from_jax(np_params, "cpu")
+    toks = torch.from_numpy(tokens).long()
+    cfg = tllama.LlamaConfig.tiny()
+    monkeypatch.delenv("DLROVER_TPU_FUSED_CE", raising=False)
+    tllama.loss_fn(params, toks, cfg)
+    monkeypatch.setenv("DLROVER_TPU_FUSED_CE", "0")
+    tllama.loss_fn(params, toks, cfg)
+    assert calls == ["fused", "chunked"]
 
 
 def test_params_round_trip_through_numpy(np_params):
