@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    spills.
 3. kernels: each flash-attention kernel (fwd, dq, dk/dv) against its plain
    PyTorch version on the same bf16 inputs on the card, for the main-path
-   shape and for non-causal, ragged, group-1 and head-dim-64 cases; each
+   shape and for non-causal, ragged, group-1, head-dim-64 and ViT-B/16
+   (non-causal, s 196, head dim 64, batch 64) cases; each
    fused-CE kernel (fwd, merge, bwd_q, bwd_dx, bwd_dw) against its plain
    version for the main-path shape and for ragged, ViT, all-masked and
    last-column cases; with the tolerances below. Then each kernel's time,
@@ -82,6 +83,8 @@ CASES = [
     ("ragged_non_causal", dict(b=1, s=1000, h=8, hkv=2, d=128, causal=False)),
     ("group1", dict(b=1, s=1024, h=8, hkv=8, d=128, causal=True)),
     ("head_dim64", dict(b=2, s=520, h=8, hkv=2, d=64, causal=True)),
+    # the ViT-B/16 path's shape: 196 patches, 12 heads of 64, micro-batch 64
+    ("vit_b16", dict(b=64, s=196, h=12, hkv=12, d=64, causal=False)),
 ]
 
 
@@ -111,7 +114,8 @@ CE_MAIN = dict(n=2048, d=4096, v=128256, targets="main")
 CE_CASES = [
     ("main", CE_MAIN),
     ("ragged", dict(n=1000, d=4096, v=50000, targets="ragged")),
-    ("vit", dict(n=128, d=768, v=1000, targets="ragged")),
+    # the ViT-B/16 path's shape: one pooled row per image of a micro-batch
+    ("vit", dict(n=64, d=768, v=1000, targets="ragged")),
     ("all_masked", dict(n=256, d=1024, v=5000, targets="all_masked")),
     # 32001 = 250 * 128 + 1: the last forward tile is one column wide
     ("last_column", dict(n=512, d=1024, v=32001, targets="last_column")),

@@ -214,20 +214,12 @@ def test_shape_validation():
 
 
 def test_cuda_source_constants_match_the_wrapper():
-    """The forward's vocab tile in fused_ce.cu is the wrapper's FWD_TILE,
-    and the tile sweep finds each constant it rewrites exactly once."""
+    """The forward's vocab tile in fused_ce.cu is the wrapper's FWD_TILE."""
     import re
 
     from dlrover_tpu_torch.ops import cuda_build
-    from dlrover_tpu_torch.run import ce_tile_sweep
 
     assert cuda_build.sources() == ["flash_attn", "fused_ce"]
     src = (cuda_build.CSRC_DIR / "fused_ce.cu").read_text()
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert int(consts["BN"]) == fce.FWD_TILE
-    assert ce_tile_sweep.VARIANTS[0] == tuple(
-        int(consts[name]) for name in ce_tile_sweep.NAMES)
-    for var in ce_tile_sweep.VARIANTS:
-        text = ce_tile_sweep.variant_source(src, var)
-        for name, value in zip(ce_tile_sweep.NAMES, var):
-            assert f"constexpr int {name} = {value};" in text
