@@ -9,22 +9,29 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    power limit as nvidia-smi reports them. TF32 is switched off for
    matmuls and cuDNN, so every f32 product in the references is full f32.
 2. build: compiles every kernel of the main path from the sources in this
-   checkout (``dlrover_tpu_torch/ops/csrc``: flash_attn.cu, fused_ce.cu),
-   one nvcc per source, in parallel; prints each kernel's registers and
-   spills.
+   checkout (``dlrover_tpu_torch/ops/csrc``: flash_attn.cu, fused_ce.cu and
+   the header sm90_gemm.cuh), one nvcc per source, in parallel; prints each
+   kernel's registers and spills. Then counts, in the built library's SASS
+   (``cuobjdump -sass``), each fused-CE kernel's ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions: ``fused_ce_bwd_q`` and
+   ``fused_ce_bwd_dx`` run the wgmma + TMA main loop of sm90_gemm.cuh and
+   must have both; ``fused_ce_fwd`` and ``fused_ce_bwd_dw`` still run the
+   mma.sync + cp.async loop and show none.
 3. kernels: each flash-attention kernel (fwd, dq, dk/dv) against its plain
    PyTorch version on the same bf16 inputs on the card, for the main-path
    shape and for non-causal, ragged, group-1, head-dim-64 and ViT-B/16
    (non-causal, s 196, head dim 64, batch 64) cases; each
    fused-CE kernel (fwd, merge, bwd_q, bwd_dx, bwd_dw) against its plain
-   version for the main-path shape and for ragged, ViT, all-masked and
-   last-column cases; with the tolerances below. Then each kernel's time,
-   its plain version's time, the least time the card could take (bound),
-   and one PyTorch call of the same function as the library yardstick
-   (timed only; the port never calls it): SDPA for attention,
-   ``torch.mm(..., out_dtype=torch.float32)`` of the same product for the
-   CE kernels. Last, the whole forward and backward of the fused CE
-   against the chunked CE at the main-path shape.
+   version for the main-path shape and for ragged, ragged-d (every edge of
+   the wgmma tiles), ViT, all-masked and last-column cases; with the
+   tolerances below. Then each kernel's time, its plain version's time,
+   the least time the card could take (bound), and one PyTorch call of the
+   same function as the library yardstick (timed only; the port never
+   calls it): SDPA for attention, ``torch.mm(..., out_dtype=
+   torch.float32)`` of the same product for the CE kernels, with each CE
+   kernel's achieved TFLOP/s and its time over the library's. Last, the
+   whole forward and backward of the fused CE against the chunked CE at
+   the main-path shape.
 4. main path: 4 training steps of the Llama-3-8B-width model cut to 4 of
    32 layers (seq 2048, micro-batch 1, global batch 2) through the port's
    ``ElasticTrainer``, with every kernel launch counter at 0 just before
@@ -114,6 +121,11 @@ CE_MAIN = dict(n=2048, d=4096, v=128256, targets="main")
 CE_CASES = [
     ("main", CE_MAIN),
     ("ragged", dict(n=1000, d=4096, v=50000, targets="ragged")),
+    # every edge of the wgmma tiles: d 520 is no multiple of 64 (bwd_q's K
+    # step) or 256 (bwd_dx's N tile); the vocab splits into chunks of 8192
+    # and 808 columns, the second at c0 8192 (the chunk's tensor-map base)
+    # and no multiple of 64 (bwd_dx's K step); n 300 is no multiple of 128
+    ("ragged_d", dict(n=300, d=520, v=9000, targets="ragged")),
     # the ViT-B/16 path's shape: one pooled row per image of a micro-batch
     ("vit", dict(n=64, d=768, v=1000, targets="ragged")),
     ("all_masked", dict(n=256, d=1024, v=5000, targets="all_masked")),
@@ -163,6 +175,34 @@ def ptxas_usage(log):
             out.append((kernel, f"{regs} registers; {spills}"))
             kernel = None
     return out
+
+
+# the kernels that must run the wgmma + TMA main loop of sm90_gemm.cuh
+WGMMA_KERNELS = ("fused_ce_bwd_q", "fused_ce_bwd_dx")
+
+
+def sass_counts(library):
+    """{fused-CE kernel: (HGMMA, UTMALDG) instruction count} in the SASS of
+    a built library."""
+    import re
+
+    from dlrover_tpu_torch.ops import cuda_build
+
+    out = subprocess.run(
+        [cuda_build.toolkit_binary("cuobjdump"), "-sass", str(library)],
+        capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    counts, kernel = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            m = re.search(r"\d(fused_ce_\w+?)_kernel", line)
+            kernel = m.group(1) if m else None
+            if kernel:
+                counts[kernel] = [0, 0]
+        elif kernel:
+            counts[kernel][0] += "HGMMA" in line
+            counts[kernel][1] += "UTMALDG" in line
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -421,15 +461,13 @@ def phase_ce_kernels(torch, fce):
     return errors, timing
 
 
-def ce_bounds(n, d, v, cw, tile):
-    """Per-kernel (bound_ms, bound_by) at these dims: the larger of the
-    tensor-core time of the kernel's products and the time to read each
-    input once and write each output once. The merge does ~10 f32
-    operations per partial on the 67 TFLOP/s non-tensor path."""
+def ce_work(n, d, v, cw, tile):
+    """Per-kernel (tensor-core FLOPs or None, bytes): the products' FLOPs
+    and each input read once and each output written once."""
     vp = -(-v // 8) * 8
     ntiles = -(-v // tile)
     part = 3 * n * ntiles * 4
-    work = {
+    return {
         "fused_ce_fwd": (2 * n * d * v, n * d * 2 + d * vp * 2 + n * 4 + part),
         "fused_ce_merge": (None, part + 2 * n * 4),
         "fused_ce_bwd_q": (2 * n * d * cw,
@@ -438,8 +476,16 @@ def ce_bounds(n, d, v, cw, tile):
                             n * cw * 2 + d * cw * 2 + 2 * n * d * 4),
         "fused_ce_bwd_dw": (2 * d * n * cw, n * d * 2 + n * cw * 2 + d * cw * 4),
     }
+
+
+def ce_bounds(n, d, v, cw, tile):
+    """Per-kernel (bound_ms, bound_by) at these dims: the larger of the
+    tensor-core time of the kernel's products and the time to read each
+    input once and write each output once. The merge does ~10 f32
+    operations per partial on the 67 TFLOP/s non-tensor path."""
+    ntiles = -(-v // tile)
     out = {}
-    for name, (flops, nbytes) in work.items():
+    for name, (flops, nbytes) in ce_work(n, d, v, cw, tile).items():
         t_ops = (10 * n * ntiles / 67e12 if flops is None
                  else flops / PEAK_BF16_FLOPS) * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -732,6 +778,14 @@ def main():
         log = cuda_build.library_path(src).with_suffix(".log")
         for kernel, usage in ptxas_usage(log.read_text()):
             print(f"  ptxas {kernel}: {usage}", flush=True)
+    sass = sass_counts(cuda_build.library_path("fused_ce"))
+    for kname, _, _ in CE_KERNELS:
+        check(kname in sass, f"{kname}_kernel not in fused_ce's SASS")
+        hgmma, tma = sass[kname]
+        print(f"  sass {kname}_kernel: {hgmma} HGMMA, {tma} UTMALDG", flush=True)
+    for kname in WGMMA_KERNELS:
+        check(min(sass[kname]) > 0,
+              f"{kname}_kernel has no HGMMA or no UTMALDG: {sass[kname]}")
 
     print("== phase 3: kernels against their plain versions", flush=True)
     errors, inputs = phase_kernels(torch, attention)
@@ -747,9 +801,15 @@ def main():
     ce_times, whole, ce_bound = phase_ce_timing(torch, fce, chunked_ce,
                                                 ce_inputs_main)
     del ce_inputs_main
+    ce_flops = ce_work(CE_MAIN["n"], CE_MAIN["d"], CE_MAIN["v"], fce.BWD_CHUNK,
+                       fce.FWD_TILE)
     for kname, (k_ms, p_ms, lib_ms) in ce_times.items():
-        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        print(f"  {kname}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        flops = ce_flops[kname][0]
+        rate = (f", {flops / k_ms / 1e9:.1f} TFLOP/s" if flops is not None
+                else "")
+        lib = (f"{lib_ms:.4f} ms, kernel/library {k_ms / lib_ms:.2f}x"
+               if lib_ms is not None else "none")
+        print(f"  {kname}: {k_ms:.4f} ms{rate}, plain {p_ms:.4f} ms, bound "
               f"{ce_bound[kname][0]:.4f} ms ({ce_bound[kname][1]}), "
               f"{k_ms / ce_bound[kname][0]:.2f}x bound; library torch.mm "
               f"{lib}", flush=True)

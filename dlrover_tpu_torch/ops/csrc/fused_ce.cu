@@ -18,16 +18,33 @@
 //
 // What bounds them: each kernel is a (tokens x d x vocab-columns) product
 // with an element-wise epilogue, 2 n d v FLOPs on O((n + v) d) bytes, so all
-// are bound by operations (n = 2048, d = 4096: ~2000 FLOPs a byte). Design:
-// one mma.sync m16n8k16 GEMM main loop (bf16 operands, f32 accumulators in
-// registers) shared by every kernel. A block of 8 warps owns a 128 x 128
-// output tile and walks K in 64-wide steps through a 3-stage cp.async ring
-// in shared memory (110.6 KB, so two blocks share an SM); each warp owns
-// 64 x 32 of the tile and reads its fragments with ldmatrix (.trans for
-// operands stored the other way round). Measured on the card, two blocks
-// of 16 warps hide latency better than one 128 x 256 block of 8 warps
-// (which moves fewer bytes from L2 per FLOP but ran 10% slower), and
-// 64-wide K steps, with half the barriers, beat 32-wide ones by 20%.
+// are bound by operations (n = 2048, d = 4096: ~2000 FLOPs a byte). Two GEMM
+// main loops, bf16 operands and f32 accumulators in registers in both:
+//   - wgmma + TMA (sm90_gemm.cuh), for bwd_q and bwd_dx: a block of one
+//     producer and two consumer warpgroups owns a 128 x 256 output tile;
+//     the producer's one thread keeps a 4-stage ring of 64-deep K steps
+//     (48 KB a stage: a 128 x 64 A box and 256 columns of B) filled by TMA
+//     through full/empty mbarriers, and each consumer warpgroup (232
+//     registers after setmaxnreg) runs m64n256k16 wgmma on its 64 rows
+//     straight from the 128-byte-swizzled shared tiles. Only wgmma reaches
+//     the tensor cores' full rate; TMA takes the address arithmetic and
+//     the ragged-edge zero fill off the threads; the mbarriers replace a
+//     __syncthreads() a K step. bwd_q's B is w as [k = feature][n = vocab],
+//     vocab contiguous (MN-major, wgmma's transposed B); bwd_dx reads the
+//     same w chunk as [n = feature][k = vocab] (K-major). Each chunk's
+//     tensor map starts at column c0 and is cw wide, so no kernel reads a
+//     neighbouring chunk. Measured on the card (run/ce_tile_sweep.py), the
+//     128 x 256 tile over 4 stages beat 3 stages and 128 x 128 tiles over 4
+//     or 6; one block an SM (a 192 KiB ring), 384 threads.
+//   - mma.sync m16n8k16 (gemm_tile below), for fwd and bwd_dw: a block of 8
+//     warps owns a 128 x 128 output tile and walks K in 64-wide steps
+//     through a 3-stage cp.async ring in shared memory (110.6 KB, so two
+//     blocks share an SM); each warp owns 64 x 32 of the tile and reads its
+//     fragments with ldmatrix (.trans for operands stored the other way
+//     round). Measured on the card, two blocks of 16 warps hid latency
+//     better than one 128 x 256 block of 8 warps, and 64-wide K steps, with
+//     half the barriers, beat 32-wide ones by 20%. These two kernels move
+//     to the wgmma loop next (bwd_dw needs its MN-major A).
 // The epilogues run on the register tile:
 //   - fwd: per row of the tile, (max, sum exp, gold logit) over its 128
 //     columns, written as one vocab tile's partial. The TPU grid carried
@@ -38,20 +55,24 @@
 //   - merge: one warp per token combines the partials into logz and gold.
 //   - bwd_q: q = (exp(l - logz) - onehot) * row_scale, rounded to bf16, for
 //     one vocab chunk of C columns, into an (n, C) buffer.
-//   - bwd_dx: dx (n, d) f32 += q @ w_chunk^T.
+//   - bwd_dx: dx (n, d) f32 += q @ w_chunk^T, each element read and written
+//     by its one owning block, no atomics.
 //   - bwd_dw: dw[:, chunk] = x^T @ q, each dw column written once, f32.
 // The TPU kernels kept a (tokens x d) dx and a (d x vocab-tile) dw
 // accumulator in VMEM, 1 MB each at d = 4096, and recomputed the logits in
 // both; neither fits a Hopper block. Going chunk by chunk recomputes the
 // logits once (6 n d v backward FLOPs, not 8) and no f32 (n, v) tensor ever
-// exists. Not yet: wgmma, TMA, persistent scheduling.
+// exists. Not yet: persistent scheduling.
 //
 // Plain C interface (bound with ctypes). Each entry returns the cudaError_t
-// of its launch, 0 on success.
+// of its launch, 0 on success; bwd_q and bwd_dx return cudaErrorInvalidValue
+// if a tensor map cannot be encoded.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -346,81 +367,107 @@ fused_ce_merge_kernel(const float* __restrict__ part, float* __restrict__ logz,
 }
 
 // ---------------------------------------------------------------------------
-// backward q for vocab columns [c0, c0 + cw): grid (token tiles, cw / BN);
-// q (n, cw) bf16
+// backward q for vocab columns [c0, c0 + cw), on the wgmma main loop over
+// (token tiles x cw / BN) tiles; q (n, cw) bf16. A = x (n, d) is K-major; B
+// is w's chunk, [k = feature][n = vocab column], MN-major.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
-fused_ce_bwd_q_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                      const int* __restrict__ tgt, const float* __restrict__ logz,
-                      const float* __restrict__ scale, bf16* __restrict__ q, int n, int d,
-                      int vp, int v, int c0, int cw) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int m0 = blockIdx.x * BM, n0 = c0 + blockIdx.y * BN;
-  float acc[4][NI][4];
-  gemm_tile<true, true>(acc, x, d, w, vp, n, vp, d, m0, n0, smem);
+typedef sm90::Gemm<256, 4, false, true> BwdQGemm;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+struct BwdQEpilogue {
+  const int* __restrict__ tgt;
+  const float* __restrict__ logz;
+  const float* __restrict__ scale;
+  bf16* __restrict__ q;
+  int n, v, c0, cw;
+
+  // row: a token; col: a column of the chunk
+  template <int N>
+  __device__ __forceinline__ void operator()(const float (&acc)[N], int row0, int col0) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mi * 16 + g + 8 * h;
+      const int row = row0 + 8 * h;
       if (row >= n) continue;
       const float lz = logz[row], sc = scale[row];
-      const int tg = tgt[row];
+      const int tg = tgt[row] - c0;  // the target's column in the chunk
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = n0 + wn * WN + ni * 8 + 2 * t;  // even; cw is a multiple of 8
-        if (col - c0 >= cw) continue;
+      for (int i = 0; i < N / 4; ++i) {
+        const int col = col0 + 8 * i;  // even; cw is a multiple of 8
+        if (col >= cw) continue;
         float p[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float l = acc[mi][ni][2 * h + e];
-          p[e] = col + e < v ? __expf(l - lz) : 0.0f;
+          const float l = acc[4 * i + 2 * h + e];
+          p[e] = c0 + col + e < v ? __expf(l - lz) : 0.0f;
           if (col + e == tg) p[e] -= 1.0f;
           p[e] *= sc;
         }
-        *reinterpret_cast<__nv_bfloat162*>(q + (long)row * cw + (col - c0)) =
+        *reinterpret_cast<__nv_bfloat162*>(q + (long)row * cw + col) =
             __floats2bfloat162_rn(p[0], p[1]);
       }
     }
+  }
+};
+
+__global__ void __launch_bounds__(BwdQGemm::THREADS, 1)
+fused_ce_bwd_q_kernel(const __grid_constant__ CUtensorMap x_map,
+                      const __grid_constant__ CUtensorMap w_map, const int* __restrict__ tgt,
+                      const float* __restrict__ logz, const float* __restrict__ scale,
+                      bf16* __restrict__ q, int n, int d, int v, int c0, int cw) {
+  typedef BwdQGemm G;
+  G::run(&x_map, &w_map, sm90::cdiv(n, G::BM), sm90::cdiv(cw, G::BN), d,
+         BwdQEpilogue{tgt, logz, scale, q, n, v, c0, cw});
 }
 
 // ---------------------------------------------------------------------------
-// backward dx += q @ w[:, c0:c0+cw]^T: grid (token tiles, d / BN); dx (n, d)
-// f32, read and written by its one owning block per launch
+// backward dx += q @ w[:, c0:c0+cw]^T, on the wgmma main loop over (token
+// tiles x d / BN) tiles; dx (n, d) f32, each element read and written by
+// the one block that owns its tile. A = q (n, cw) and B (w's chunk read as
+// [n = feature][k = vocab column]) are both K-major.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
-fused_ce_bwd_dx_kernel(const bf16* __restrict__ q, const bf16* __restrict__ w,
-                       float* __restrict__ dx, int n, int d, int vp, int c0, int cw) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float acc[4][NI][4];
-  // B[k = vocab column][n = feature] is w's chunk read as [n][k]
-  gemm_tile<true, false>(acc, q, cw, w + c0, vp, n, d, cw, m0, n0, smem);
+typedef sm90::Gemm<256, 4, false, false> BwdDxGemm;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N, g = lane / 4, t = lane % 4;
+struct BwdDxEpilogue {
+  float* __restrict__ dx;
+  int n, d;
+
+  // a batch's loads all go out before its stores, so their latencies
+  // overlap: one at a time, 64 round trips to L2 a thread stalled the SM
+  static constexpr int BATCH = 16;  // 8-column groups a batch, per row
+
+  template <int N>
+  __device__ __forceinline__ void operator()(const float (&acc)[N], int row0, int col0) const {
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+    for (int i0 = 0; i0 < N / 4; i0 += BATCH) {
+      float2 cur[2][BATCH];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mi * 16 + g + 8 * h;
-      if (row >= n) continue;
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = n0 + wn * WN + ni * 8 + 2 * t;  // even; d is a multiple of 8
-        if (col >= d) continue;
-        float2* p = reinterpret_cast<float2*>(dx + (long)row * d + col);
-        float2 cur = *p;
-        cur.x += acc[mi][ni][2 * h];
-        cur.y += acc[mi][ni][2 * h + 1];
-        *p = cur;
-      }
+        for (int i = 0; i < BATCH; ++i) {
+          const int row = row0 + 8 * h, col = col0 + 8 * (i0 + i);  // col even; d % 8 == 0
+          if (row < n && col < d)
+            cur[h][i] = *reinterpret_cast<const float2*>(dx + (long)row * d + col);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < BATCH; ++i) {
+          const int row = row0 + 8 * h, col = col0 + 8 * (i0 + i);
+          if (row >= n || col >= d) continue;
+          cur[h][i].x += acc[4 * (i0 + i) + 2 * h];
+          cur[h][i].y += acc[4 * (i0 + i) + 2 * h + 1];
+          *reinterpret_cast<float2*>(dx + (long)row * d + col) = cur[h][i];
+        }
     }
+  }
+};
+
+__global__ void __launch_bounds__(BwdDxGemm::THREADS, 1)
+fused_ce_bwd_dx_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap w_map, float* __restrict__ dx, int n,
+                       int d, int cw) {
+  typedef BwdDxGemm G;
+  G::run(&q_map, &w_map, sm90::cdiv(n, G::BM), sm90::cdiv(d, G::BN), cw,
+         BwdDxEpilogue{dx, n, d});
 }
 
 // ---------------------------------------------------------------------------
@@ -495,22 +542,35 @@ int dlrover_ce_merge(const void* part, void* logz, void* gold, int n, int ntiles
 int dlrover_ce_bwd_q(const void* x, const void* w, const void* tgt, const void* logz,
                      const void* scale, void* q, int n, int d, int vp, int v, int c0, int cw,
                      void* stream) {
-  int err = prepare(fused_ce_bwd_q_kernel, PIPE_BYTES);
+  typedef BwdQGemm G;
+  CUtensorMap x_map, w_map;
+  int sms = 0;
+  int err = G::map_a(&x_map, x, n, d, d);
+  // the chunk's map is cw wide: TMA reads no neighbouring chunk's columns
+  if (!err) err = G::map_b(&w_map, (const bf16*)w + c0, cw, d, vp);
+  if (!err) err = sm90::sm_count(&sms);
+  if (!err) err = prepare(fused_ce_bwd_q_kernel, G::SMEM_BYTES);
   if (err) return err;
-  fused_ce_bwd_q_kernel<<<dim3(cdiv(n, BM), cdiv(cw, BN)), NTHREADS, PIPE_BYTES,
-                          (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w, (const int*)tgt, (const float*)logz,
-      (const float*)scale, (bf16*)q, n, d, vp, v, c0, cw);
+  const int grid = G::grid_size(cdiv(n, G::BM) * cdiv(cw, G::BN), sms);
+  fused_ce_bwd_q_kernel<<<grid, G::THREADS, G::SMEM_BYTES, (cudaStream_t)stream>>>(
+      x_map, w_map, (const int*)tgt, (const float*)logz, (const float*)scale, (bf16*)q, n, d,
+      v, c0, cw);
   return (int)cudaGetLastError();
 }
 
 int dlrover_ce_bwd_dx(const void* q, const void* w, void* dx, int n, int d, int vp, int c0,
                       int cw, void* stream) {
-  int err = prepare(fused_ce_bwd_dx_kernel, PIPE_BYTES);
+  typedef BwdDxGemm G;
+  CUtensorMap q_map, w_map;
+  int sms = 0;
+  int err = G::map_a(&q_map, q, n, cw, cw);
+  if (!err) err = G::map_b(&w_map, (const bf16*)w + c0, d, cw, vp);
+  if (!err) err = sm90::sm_count(&sms);
+  if (!err) err = prepare(fused_ce_bwd_dx_kernel, G::SMEM_BYTES);
   if (err) return err;
-  fused_ce_bwd_dx_kernel<<<dim3(cdiv(n, BM), cdiv(d, BN)), NTHREADS, PIPE_BYTES,
-                           (cudaStream_t)stream>>>((const bf16*)q, (const bf16*)w,
-                                                   (float*)dx, n, d, vp, c0, cw);
+  const int grid = G::grid_size(cdiv(n, G::BM) * cdiv(d, G::BN), sms);
+  fused_ce_bwd_dx_kernel<<<grid, G::THREADS, G::SMEM_BYTES, (cudaStream_t)stream>>>(
+      q_map, w_map, (float*)dx, n, d, cw);
   return (int)cudaGetLastError();
 }
 

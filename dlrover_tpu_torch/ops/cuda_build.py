@@ -3,9 +3,10 @@
 Each source under ``ops/csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, loaded with ``ctypes``. Builds
 land in ``build/torch_kernels/`` at the root of the checkout, named with a
-hash of the source and the flags, so an edited kernel rebuilds and an
-unchanged one loads at once. Several sources build in parallel, one
-``nvcc`` each. Nothing here runs when the module is imported.
+hash of the source, the headers beside it (``csrc/*.cuh``) and the flags,
+so an edited kernel or header rebuilds and an unchanged one loads at once.
+Several sources build in parallel, one ``nvcc`` each. Nothing here runs
+when the module is imported.
 """
 
 from __future__ import annotations
@@ -31,24 +32,31 @@ NVCC_FLAGS = (
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def toolkit_binary(tool: str) -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): under
+    ``CUDA_HOME`` or ``CUDA_PATH``, else on ``PATH``, else under
+    ``/usr/local/cuda``."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
-        return str(Path(cuda_home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
+    if cuda_home and (Path(cuda_home) / "bin" / tool).exists():
+        return str(Path(cuda_home) / "bin" / tool)
+    found = shutil.which(tool)
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
+    default = Path("/usr/local/cuda/bin") / tool
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise RuntimeError(f"{tool} not found (set CUDA_HOME or put it on PATH)")
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives: named by a
+    hash of the source, of every header under ``csrc/`` and of the flags,
+    so an edited header rebuilds too."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:
@@ -65,7 +73,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         if out.exists():
             seconds[name] = 0.0
             continue
-        nvcc = nvcc or _nvcc()
+        nvcc = nvcc or toolkit_binary("nvcc")
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.Popen(

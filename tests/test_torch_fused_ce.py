@@ -214,12 +214,42 @@ def test_shape_validation():
 
 
 def test_cuda_source_constants_match_the_wrapper():
-    """The forward's vocab tile in fused_ce.cu is the wrapper's FWD_TILE."""
+    """The forward's vocab tile in fused_ce.cu is the wrapper's FWD_TILE:
+    the constant that ``dlrover_ce_tile()`` returns (the one the wrapper
+    checks when it loads the library), defined once across fused_ce.cu and
+    the headers beside it, so another kernel's tile constant cannot
+    shadow or stand in for it."""
     import re
 
     from dlrover_tpu_torch.ops import cuda_build
 
     assert cuda_build.sources() == ["flash_attn", "fused_ce"]
     src = (cuda_build.CSRC_DIR / "fused_ce.cu").read_text()
-    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
-    assert int(consts["BN"]) == fce.FWD_TILE
+    (name,) = re.findall(r"int dlrover_ce_tile\(\) \{ return (\w+); \}", src)
+    texts = [src] + [h.read_text()
+                     for h in sorted(cuda_build.CSRC_DIR.glob("*.cuh"))]
+    defs = [v for text in texts
+            for v in re.findall(rf"constexpr int {name} = (\d+);", text)]
+    assert defs == [str(fce.FWD_TILE)]
+
+
+@pytest.mark.parametrize("change", ["edit", "add"])
+def test_library_path_hashes_the_headers(monkeypatch, tmp_path, change):
+    """A library is named by a hash of its source and of every header under
+    csrc/, so editing or adding a header that a source includes rebuilds
+    it rather than loading a stale library."""
+    from dlrover_tpu_torch.ops import cuda_build
+
+    (tmp_path / "k.cu").write_text('#include "loop.cuh"\n')
+    (tmp_path / "loop.cuh").write_text("constexpr int BN = 256;\n")
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    before = cuda_build.library_path("k")
+    assert before == cuda_build.library_path("k")
+    if change == "edit":
+        (tmp_path / "loop.cuh").write_text("constexpr int BN = 128;\n")
+    else:
+        (tmp_path / "extra.cuh").write_text("// another header\n")
+    after = cuda_build.library_path("k")
+    assert after != before
+    assert after.parent == before.parent and after.name.startswith("libk-")
+    assert cuda_build.sources() == ["k"]  # a header is no source of its own
