@@ -33,9 +33,10 @@
 //     vocab contiguous (MN-major, wgmma's transposed B); bwd_dx reads the
 //     same w chunk as [n = feature][k = vocab] (K-major). Each chunk's
 //     tensor map starts at column c0 and is cw wide, so no kernel reads a
-//     neighbouring chunk. Measured on the card (run/ce_tile_sweep.py), the
-//     128 x 256 tile over 4 stages beat 3 stages and 128 x 128 tiles over 4
-//     or 6; one block an SM (a 192 KiB ring), 384 threads.
+//     neighbouring chunk. Measured on the card (PERF.md), the 128 x 256
+//     tile over 4 stages beat 128 x 128 tiles over 4 or 6 stages by 13-25 %,
+//     and 3 stages or a persistent grid were no faster; one block an SM (a
+//     192 KiB ring), 384 threads.
 //   - mma.sync m16n8k16 (gemm_tile below), for fwd and bwd_dw: a block of 8
 //     warps owns a 128 x 128 output tile and walks K in 64-wide steps
 //     through a 3-stage cp.async ring in shared memory (110.6 KB, so two
@@ -367,11 +368,11 @@ fused_ce_merge_kernel(const float* __restrict__ part, float* __restrict__ logz,
 }
 
 // ---------------------------------------------------------------------------
-// backward q for vocab columns [c0, c0 + cw), on the wgmma main loop over
-// (token tiles x cw / BN) tiles; q (n, cw) bf16. A = x (n, d) is K-major; B
-// is w's chunk, [k = feature][n = vocab column], MN-major.
+// backward q for vocab columns [c0, c0 + cw), on the wgmma main loop: grid
+// (token tiles, cw / BN); q (n, cw) bf16. A = x (n, d) is K-major; B is w's
+// chunk, [k = feature][n = vocab column], MN-major.
 // ---------------------------------------------------------------------------
-typedef sm90::Gemm<256, 4, false, true> BwdQGemm;
+typedef sm90::Gemm<false, true> BwdQGemm;
 
 struct BwdQEpilogue {
   const int* __restrict__ tgt;
@@ -413,18 +414,17 @@ fused_ce_bwd_q_kernel(const __grid_constant__ CUtensorMap x_map,
                       const __grid_constant__ CUtensorMap w_map, const int* __restrict__ tgt,
                       const float* __restrict__ logz, const float* __restrict__ scale,
                       bf16* __restrict__ q, int n, int d, int v, int c0, int cw) {
-  typedef BwdQGemm G;
-  G::run(&x_map, &w_map, sm90::cdiv(n, G::BM), sm90::cdiv(cw, G::BN), d,
-         BwdQEpilogue{tgt, logz, scale, q, n, v, c0, cw});
+  BwdQGemm::run(&x_map, &w_map, blockIdx.x * BwdQGemm::BM, blockIdx.y * BwdQGemm::BN, d,
+                BwdQEpilogue{tgt, logz, scale, q, n, v, c0, cw});
 }
 
 // ---------------------------------------------------------------------------
-// backward dx += q @ w[:, c0:c0+cw]^T, on the wgmma main loop over (token
-// tiles x d / BN) tiles; dx (n, d) f32, each element read and written by
-// the one block that owns its tile. A = q (n, cw) and B (w's chunk read as
-// [n = feature][k = vocab column]) are both K-major.
+// backward dx += q @ w[:, c0:c0+cw]^T, on the wgmma main loop: grid (token
+// tiles, d / BN); dx (n, d) f32, read and written by its one owning block
+// per launch. A = q (n, cw) and B (w's chunk read as [n = feature][k =
+// vocab column]) are both K-major.
 // ---------------------------------------------------------------------------
-typedef sm90::Gemm<256, 4, false, false> BwdDxGemm;
+typedef sm90::Gemm<false, false> BwdDxGemm;
 
 struct BwdDxEpilogue {
   float* __restrict__ dx;
@@ -465,9 +465,8 @@ __global__ void __launch_bounds__(BwdDxGemm::THREADS, 1)
 fused_ce_bwd_dx_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap w_map, float* __restrict__ dx, int n,
                        int d, int cw) {
-  typedef BwdDxGemm G;
-  G::run(&q_map, &w_map, sm90::cdiv(n, G::BM), sm90::cdiv(d, G::BN), cw,
-         BwdDxEpilogue{dx, n, d});
+  BwdDxGemm::run(&q_map, &w_map, blockIdx.x * BwdDxGemm::BM, blockIdx.y * BwdDxGemm::BN, cw,
+                 BwdDxEpilogue{dx, n, d});
 }
 
 // ---------------------------------------------------------------------------
@@ -544,17 +543,15 @@ int dlrover_ce_bwd_q(const void* x, const void* w, const void* tgt, const void* 
                      void* stream) {
   typedef BwdQGemm G;
   CUtensorMap x_map, w_map;
-  int sms = 0;
   int err = G::map_a(&x_map, x, n, d, d);
   // the chunk's map is cw wide: TMA reads no neighbouring chunk's columns
   if (!err) err = G::map_b(&w_map, (const bf16*)w + c0, cw, d, vp);
-  if (!err) err = sm90::sm_count(&sms);
   if (!err) err = prepare(fused_ce_bwd_q_kernel, G::SMEM_BYTES);
   if (err) return err;
-  const int grid = G::grid_size(cdiv(n, G::BM) * cdiv(cw, G::BN), sms);
-  fused_ce_bwd_q_kernel<<<grid, G::THREADS, G::SMEM_BYTES, (cudaStream_t)stream>>>(
-      x_map, w_map, (const int*)tgt, (const float*)logz, (const float*)scale, (bf16*)q, n, d,
-      v, c0, cw);
+  fused_ce_bwd_q_kernel<<<dim3(cdiv(n, G::BM), cdiv(cw, G::BN)), G::THREADS, G::SMEM_BYTES,
+                          (cudaStream_t)stream>>>(x_map, w_map, (const int*)tgt,
+                                                  (const float*)logz, (const float*)scale,
+                                                  (bf16*)q, n, d, v, c0, cw);
   return (int)cudaGetLastError();
 }
 
@@ -562,15 +559,12 @@ int dlrover_ce_bwd_dx(const void* q, const void* w, void* dx, int n, int d, int 
                       int cw, void* stream) {
   typedef BwdDxGemm G;
   CUtensorMap q_map, w_map;
-  int sms = 0;
   int err = G::map_a(&q_map, q, n, cw, cw);
   if (!err) err = G::map_b(&w_map, (const bf16*)w + c0, d, cw, vp);
-  if (!err) err = sm90::sm_count(&sms);
   if (!err) err = prepare(fused_ce_bwd_dx_kernel, G::SMEM_BYTES);
   if (err) return err;
-  const int grid = G::grid_size(cdiv(n, G::BM) * cdiv(d, G::BN), sms);
-  fused_ce_bwd_dx_kernel<<<grid, G::THREADS, G::SMEM_BYTES, (cudaStream_t)stream>>>(
-      q_map, w_map, (float*)dx, n, d, cw);
+  fused_ce_bwd_dx_kernel<<<dim3(cdiv(n, G::BM), cdiv(d, G::BN)), G::THREADS, G::SMEM_BYTES,
+                           (cudaStream_t)stream>>>(q_map, w_map, (float*)dx, n, d, cw);
   return (int)cudaGetLastError();
 }
 

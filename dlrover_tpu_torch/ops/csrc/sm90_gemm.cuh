@@ -1,12 +1,11 @@
 // A Hopper (sm_90a) GEMM main loop: TMA loads into an mbarrier ring, wgmma
 // from shared memory, one producer warpgroup and two consumer warpgroups.
 //
-// Gemm<BN, STAGES, A_MN, B_MN>::run computes 128 x BN tiles of
+// Gemm<A_MN, B_MN>::run computes one 128 x 256 tile of
 // C = A (M x K) @ B (K x N) with bf16 operands and f32 accumulators in
-// registers, and hands each tile's accumulators to the caller's epilogue.
-// The grid is persistent: one block an SM walks the tiles (token tiles
-// fastest, as a grid of one block a tile would run them), so the producer
-// loads the next tile's first stages while the consumers run the epilogue.
+// registers, then hands the accumulators to the caller's epilogue. A grid
+// of one block a tile; a persistent grid (one block an SM walking the
+// tiles) measured no faster on the card.
 //
 // Operand majors, fixed at compile time:
 //   A_MN = false: A is [m][k], k contiguous (K-major); true: A is [k][m].
@@ -23,10 +22,11 @@
 //     walks K, waits on each stage's "empty" barrier, arms its "full"
 //     barrier with the stage's byte count and issues the stage's TMA loads.
 //   warpgroups 1 and 2, consumers: 232 registers each; each owns 64 rows of
-//     the tile (BN / 2 f32 accumulators a thread), waits on a stage's "full"
-//     barrier, issues four m64nBNk16 wgmma on it, and releases the stage one
-//     K step later, once the next step's wgmma group is in flight (the
-//     tile's last stage once its products are done, before the epilogue).
+//     the tile (128 f32 accumulators a thread), waits on a stage's "full"
+//     barrier, issues four m64n256k16 wgmma on it, and releases the stage one
+//     K step later, once the next step's wgmma group is in flight.
+// The ring has 4 stages of 48 KB (the tile and depth are chosen in
+// fused_ce.cu's note).
 // No __syncthreads() runs after the barriers are initialised.
 //
 // Host side: map_a / map_b build each operand's tensor map for a launch;
@@ -41,8 +41,6 @@
 #include <stdint.h>
 
 namespace sm90 {
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // ---- PTX wrappers -------------------------------------------------------------
 
@@ -130,8 +128,8 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
   "%48, %49, %50, %51, %52, %53, %54, %55, "                                         \
   "%56, %57, %58, %59, %60, %61, %62, %63"
 
-// d (64 x N f32, the warpgroup's fragment) += A (64 x 16) @ B (16 x N), both
-// bf16 in shared memory; TA / TB: the operand is MN-major
+// d (64 x 256 f32, the warpgroup's fragment) += A (64 x 16) @ B (16 x 256),
+// both bf16 in shared memory; TA / TB: the operand is MN-major
 template <bool TA, bool TB>
 __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
@@ -148,16 +146,6 @@ __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db)
       "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : SM90_ACC64, SM90_ACC8(64), SM90_ACC8(72), SM90_ACC8(80), SM90_ACC8(88),
         SM90_ACC8(96), SM90_ACC8(104), SM90_ACC8(112), SM90_ACC8(120)
-      : "l"(da), "l"(db), "r"(1), "n"(int(TA)), "n"(int(TB)));
-}
-
-template <bool TA, bool TB>
-__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_REGS64 "}, "
-      "%64, %65, p, 1, 1, %67, %68;\n}\n"
-      : SM90_ACC64
       : "l"(da), "l"(db), "r"(1), "n"(int(TA)), "n"(int(TB)));
 }
 
@@ -204,26 +192,17 @@ static inline int encode_map(CUtensorMap* map, const void* base, int inner, int 
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// the current device's SM count. Returns a cudaError_t.
-static inline int sm_count(int* sms) {
-  int dev = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (!err) err = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return err;
-}
-
 // ---- the main loop ---------------------------------------------------------------
 
-template <int BN_, int STAGES_, bool A_MN, bool B_MN>
+template <bool A_MN, bool B_MN>
 struct Gemm {
-  static constexpr int BM = 128, BN = BN_, BK = 64, STAGES = STAGES_;
+  static constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
   static constexpr int THREADS = 384;
   static constexpr int ACC = BN / 2;  // accumulators a consumer thread holds
   static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   // the ring, its barriers, and slack to round the ring up to 1024 bytes
   static constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
-  static_assert(BN == 128 || BN == 256, "wgmma shapes m64n128k16 and m64n256k16");
   static_assert(SMEM_BYTES <= 232448, "fits a block's shared memory");
 
   // A (M x K): [m][k] with row stride lda, or [k][m] when A_MN
@@ -236,23 +215,18 @@ struct Gemm {
     return B_MN ? encode_map(map, b, N, K, ldb, BK) : encode_map(map, b, K, N, ldb, BN);
   }
 
-  // blocks to launch for this many tiles: one an SM, or one a tile if fewer
-  static int grid_size(int tiles, int sms) { return tiles < sms ? tiles : sms; }
-
-  // Tiles blockIdx.x, + gridDim.x, ... of the m_tiles x n_tiles grid of
-  // tiles, token (m) tiles fastest, each over K. epi(acc, row, col) runs on
-  // each consumer thread: acc[4 i + 2 h + e] is C[row + 8 h][col + 8 i + e].
+  // The tile at (m0, n0) over K. epi(acc, row, col) runs on each consumer
+  // thread: acc[4 i + 2 h + e] is C[row + 8 h][col + 8 i + e].
   template <class Epilogue>
   static __device__ __forceinline__ void run(const CUtensorMap* ta, const CUtensorMap* tb,
-                                             int m_tiles, int n_tiles, int K,
-                                             const Epilogue& epi) {
+                                             int m0, int n0, int K, const Epilogue& epi) {
     extern __shared__ unsigned char sm90_smem[];
     // 128-byte swizzle repeats every 1024 bytes and the descriptors assume
     // each box starts on that boundary; dynamic shared memory is only
-    // guaranteed 16
+    // guaranteed to be 16-byte aligned
     const uint32_t ring = (smem_u32(sm90_smem) + 1023u) & ~1023u;
     const uint32_t full = ring + STAGES * STAGE_BYTES, empty = full + STAGES * 8;
-    const int nk = (K + BK - 1) / BK, tiles = m_tiles * n_tiles;
+    const int nk = (K + BK - 1) / BK;
     const int wg = threadIdx.x / 128;
 
     if (threadIdx.x == 0) {
@@ -268,28 +242,24 @@ struct Gemm {
     if (wg == 0) {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
       if (threadIdx.x == 0) {
-        int it = 0;  // K steps loaded so far, over all of this block's tiles
-        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-          const int m0 = tile % m_tiles * BM, n0 = tile / m_tiles * BN;
-          for (int kt = 0; kt < nk; ++kt, ++it) {
-            const int s = it % STAGES, k0 = kt * BK;
-            mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
-            const uint32_t a = ring + s * STAGE_BYTES, b = a + A_BYTES, bar = full + 8 * s;
-            mbar_expect_tx(bar, STAGE_BYTES);
-            if (A_MN) {
+        for (int kt = 0; kt < nk; ++kt) {
+          const int s = kt % STAGES, k0 = kt * BK;
+          mbar_wait(empty + 8 * s, ((kt / STAGES) & 1) ^ 1);
+          const uint32_t a = ring + s * STAGE_BYTES, b = a + A_BYTES, bar = full + 8 * s;
+          mbar_expect_tx(bar, STAGE_BYTES);
+          if (A_MN) {
 #pragma unroll
-              for (int j = 0; j < BM / 64; ++j)
-                tma_load(a + j * BK * 128, ta, bar, m0 + 64 * j, k0);
-            } else {
-              tma_load(a, ta, bar, k0, m0);
-            }
-            if (B_MN) {
+            for (int j = 0; j < BM / 64; ++j)
+              tma_load(a + j * BK * 128, ta, bar, m0 + 64 * j, k0);
+          } else {
+            tma_load(a, ta, bar, k0, m0);
+          }
+          if (B_MN) {
 #pragma unroll
-              for (int j = 0; j < BN / 64; ++j)
-                tma_load(b + j * BK * 128, tb, bar, n0 + 64 * j, k0);
-            } else {
-              tma_load(b, tb, bar, k0, n0);
-            }
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load(b + j * BK * 128, tb, bar, n0 + 64 * j, k0);
+          } else {
+            tma_load(b, tb, bar, k0, n0);
           }
         }
       }
@@ -307,33 +277,27 @@ struct Gemm {
       constexpr uint32_t A_STEP = (A_MN ? 16 * 128 : 32) >> 4;
       constexpr uint32_t B_STEP = (B_MN ? 16 * 128 : 32) >> 4;
 
-      const bool leader = threadIdx.x % 128 == 0;  // releases stages for the warpgroup
-      const int lane = threadIdx.x % 32;
-      const int row = 64 * c + 16 * ((threadIdx.x / 32) % 4) + lane / 4, col = 2 * (lane % 4);
       float acc[ACC];
-      int it = 0;  // K steps consumed so far, over all of this block's tiles
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
 #pragma unroll
-        for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
-        fence_acc(acc);
-        for (int kt = 0; kt < nk; ++kt, ++it) {
-          const int s = it % STAGES;
-          mbar_wait(full + 8 * s, (it / STAGES) & 1);
-          const uint64_t off = (uint64_t)((s * STAGE_BYTES) >> 4);
-          wgmma_fence();
+      for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
+      fence_acc(acc);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(full + 8 * s, (kt / STAGES) & 1);
+        const uint64_t off = (uint64_t)((s * STAGE_BYTES) >> 4);
+        wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma<A_MN, B_MN>(acc, da + off + kk * A_STEP, db + off + kk * B_STEP);
-          wgmma_commit();
-          fence_acc(acc);
-          wgmma_wait<1>();  // the previous step's group has read its stage
-          if (kt > 0 && leader) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
-        }
-        wgmma_wait<0>();
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma<A_MN, B_MN>(acc, da + off + kk * A_STEP, db + off + kk * B_STEP);
+        wgmma_commit();
         fence_acc(acc);
-        if (leader) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
-        epi(acc, tile % m_tiles * BM + row, tile / m_tiles * BN + col);
+        wgmma_wait<1>();  // the previous step's group has read its stage
+        if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * ((kt - 1) % STAGES));
       }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      const int lane = threadIdx.x % 32;
+      epi(acc, m0 + 64 * c + 16 * ((threadIdx.x / 32) % 4) + lane / 4, n0 + 2 * (lane % 4));
     }
   }
 };
