@@ -10,28 +10,36 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    matmuls and cuDNN, so every f32 product in the references is full f32.
 2. build: compiles every kernel of the main path from the sources in this
    checkout (``dlrover_tpu_torch/ops/csrc``: flash_attn.cu, fused_ce.cu and
-   the header sm90_gemm.cuh), one nvcc per source, in parallel; prints each
-   kernel's registers and spills. Then counts, in the built library's SASS
-   (``cuobjdump -sass``), each fused-CE kernel's ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA load) instructions: ``fused_ce_bwd_q`` and
-   ``fused_ce_bwd_dx`` run the wgmma + TMA main loop of sm90_gemm.cuh and
-   must have both; ``fused_ce_fwd`` and ``fused_ce_bwd_dw`` still run the
-   mma.sync + cp.async loop and show none.
+   the header sm90_gemm.cuh they both include), one nvcc per source, in
+   parallel; prints each kernel's registers and spills. Then counts, in
+   each built library's SASS (``cuobjdump -sass``), every kernel's
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions:
+   ``WGMMA_KERNELS`` (``fused_ce_bwd_q``, ``fused_ce_bwd_dx`` and
+   ``fused_ce_bwd_dw`` on the main loop of sm90_gemm.cuh, ``flash_fwd`` on
+   its own warp-specialised loop) must have both; ``NO_WGMMA_KERNELS``
+   (``fused_ce_fwd`` and ``fused_ce_merge``, ``flash_bwd_dq`` and
+   ``flash_bwd_dkv``, still on mma.sync + cp.async or no GEMM) must show
+   none.
 3. kernels: each flash-attention kernel (fwd, dq, dk/dv) against its plain
    PyTorch version on the same bf16 inputs on the card, for the main-path
-   shape and for non-causal, ragged, group-1, head-dim-64 and ViT-B/16
-   (non-causal, s 196, head dim 64, batch 64) cases; each
+   shape and for non-causal, ragged, group-1, head-dim-64, ViT-B/16
+   (non-causal, s 196, head dim 64, batch 64) and two cases that cut the
+   forward's 128-row tile (s 130 with batches meeting inside a tile, and
+   s 200 at head dim 64); each
    fused-CE kernel (fwd, merge, bwd_q, bwd_dx, bwd_dw) against its plain
    version for the main-path shape and for ragged, ragged-d (every edge of
    the wgmma tiles), ViT, all-masked and last-column cases; with the
    tolerances below. Then each kernel's time, its plain version's time,
    the least time the card could take (bound), and one PyTorch call of the
    same function as the library yardstick (timed only; the port never
-   calls it): SDPA for attention, ``torch.mm(..., out_dtype=
-   torch.float32)`` of the same product for the CE kernels, with each CE
-   kernel's achieved TFLOP/s and its time over the library's. Last, the
-   whole forward and backward of the fused CE against the chunked CE at
-   the main-path shape.
+   calls it): SDPA's forward for flash_fwd, SDPA's backward for dq and
+   dk/dv together, ``torch.mm(..., out_dtype=torch.float32)`` of the same
+   product for the CE kernels, with each CE kernel's achieved TFLOP/s and
+   its time over the library's. Each kernel's timing block starts after a
+   synchronise and an idle gap of ``IDLE_GAP_S``, so no block inherits the
+   clocks or heat of the one before, and the SM clock and power draw are
+   printed after it. Last, the whole forward and backward of the fused CE
+   against the chunked CE at the main-path shape.
 4. main path: 4 training steps of the Llama-3-8B-width model cut to 4 of
    32 layers (seq 2048, micro-batch 1, global batch 2) through the port's
    ``ElasticTrainer``, with every kernel launch counter at 0 just before
@@ -75,6 +83,9 @@ E2E_GRAD_REL_FRO_TOL = 5e-2
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
+# seconds the card idles before each kernel's timing block
+IDLE_GAP_S = 1.0
+
 SOURCE = "dlrover_tpu_torch/ops/csrc/flash_attn.cu"
 KERNELS = [
     # name, launch-counter key, the TPU kernel it replaces
@@ -92,6 +103,10 @@ CASES = [
     ("head_dim64", dict(b=2, s=520, h=8, hkv=2, d=64, causal=True)),
     # the ViT-B/16 path's shape: 196 patches, 12 heads of 64, micro-batch 64
     ("vit_b16", dict(b=64, s=196, h=12, hkv=12, d=64, causal=False)),
+    # the forward's 128-row tile: s 130 leaves a 2-row second tile whose
+    # box would reach into the next batch's rows, with group 4
+    ("tile_edge_gqa4", dict(b=3, s=130, h=8, hkv=2, d=128, causal=True)),
+    ("tile_edge_d64", dict(b=2, s=200, h=4, hkv=4, d=64, causal=False)),
 ]
 
 
@@ -177,13 +192,18 @@ def ptxas_usage(log):
     return out
 
 
-# the kernels that must run the wgmma + TMA main loop of sm90_gemm.cuh
-WGMMA_KERNELS = ("fused_ce_bwd_q", "fused_ce_bwd_dx")
+# the kernels that run wgmma with TMA loads (HGMMA and UTMALDG in their
+# SASS), and those that must show neither; every kernel is in one of them
+WGMMA_KERNELS = ("fused_ce_bwd_q", "fused_ce_bwd_dx", "fused_ce_bwd_dw",
+                 "flash_fwd")
+NO_WGMMA_KERNELS = ("fused_ce_fwd", "fused_ce_merge", "flash_bwd_dq",
+                    "flash_bwd_dkv")
 
 
 def sass_counts(library):
-    """{fused-CE kernel: (HGMMA, UTMALDG) instruction count} in the SASS of
-    a built library."""
+    """{kernel instance: (HGMMA, UTMALDG) instruction count} in the SASS of
+    a built library; an instance is a kernel's name (``fused_ce_bwd_q``)
+    or, for a template, its name and head dim (``flash_fwd<128>``)."""
     import re
 
     from dlrover_tpu_torch.ops import cuda_build
@@ -195,14 +215,49 @@ def sass_counts(library):
     counts, kernel = {}, None
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            m = re.search(r"\d(fused_ce_\w+?)_kernel", line)
-            kernel = m.group(1) if m else None
-            if kernel:
+            m = re.search(r"\d((?:fused_ce|flash)_\w+?)_kernel(?:ILi(\d+)E)?",
+                          line)
+            kernel = None
+            if m:
+                kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
                 counts[kernel] = [0, 0]
         elif kernel:
             counts[kernel][0] += "HGMMA" in line
             counts[kernel][1] += "UTMALDG" in line
     return {k: tuple(v) for k, v in counts.items()}
+
+
+def check_sass(sass):
+    """Each kernel of KERNELS and CE_KERNELS is in the SASS; every instance
+    of a WGMMA_KERNELS kernel has HGMMA and UTMALDG, every instance of a
+    NO_WGMMA_KERNELS kernel has neither."""
+    for kname in [k for k, _, _ in KERNELS + CE_KERNELS]:
+        found = {inst: c for inst, c in sass.items()
+                 if inst.split("<")[0] == kname}
+        check(found, f"{kname}_kernel not in the SASS")
+        for inst, (hgmma, tma) in sorted(found.items()):
+            print(f"  sass {inst}: {hgmma} HGMMA, {tma} UTMALDG", flush=True)
+            if kname in WGMMA_KERNELS:
+                check(hgmma > 0 and tma > 0,
+                      f"{inst} has no HGMMA or no UTMALDG: {(hgmma, tma)}")
+            else:
+                check(hgmma == 0 and tma == 0,
+                      f"{inst} should run no wgmma or TMA: {(hgmma, tma)}")
+
+
+def settle(torch):
+    """Synchronise, then leave the card idle for IDLE_GAP_S."""
+    torch.cuda.synchronize()
+    time.sleep(IDLE_GAP_S)
+
+
+def clocks_line():
+    """The SM clock and power draw now, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return (out.stdout.strip().splitlines() or ["?"])[0]
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -326,23 +381,28 @@ def phase_timing(torch, F, attention, inputs):
     }
     times = {}
     for name, (kernel, plain) in runs.items():
+        settle(torch)
         # plain, kernel, kernel, plain: the two orders average out drift
         p1 = cuda_ms(torch, plain, iters=5)
         k1 = cuda_ms(torch, kernel)
         k2 = cuda_ms(torch, kernel)
         p2 = cuda_ms(torch, plain, iters=5)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"  {name} timed; sm clock, power: {clocks_line()}", flush=True)
 
     # library yardstick: SDPA in (b, h, s, d), timed only
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
+    settle(torch)
     sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=c, enable_gqa=True))
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=c,
                                          enable_gqa=True)
     dot = do.transpose(1, 2)
+    settle(torch)
     sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))
+    print(f"  sdpa timed; sm clock, power: {clocks_line()}", flush=True)
     return times, sdpa_fwd, sdpa_bwd
 
 
@@ -527,6 +587,7 @@ def phase_ce_timing(torch, fce, chunked_ce, inputs):
     }
     times = {}
     for name, (kernel, plain, library) in runs.items():
+        settle(torch)
         # plain, kernel, kernel, plain: the two orders average out drift
         p1 = cuda_ms(torch, plain, iters=5)
         k1 = cuda_ms(torch, kernel)
@@ -534,6 +595,7 @@ def phase_ce_timing(torch, fce, chunked_ce, inputs):
         p2 = cuda_ms(torch, plain, iters=5)
         lib = cuda_ms(torch, library) if library else None
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, lib)
+        print(f"  {name} timed; sm clock, power: {clocks_line()}", flush=True)
 
     xr = x.detach().requires_grad_(True)
     wr = w.detach().requires_grad_(True)
@@ -778,14 +840,10 @@ def main():
         log = cuda_build.library_path(src).with_suffix(".log")
         for kernel, usage in ptxas_usage(log.read_text()):
             print(f"  ptxas {kernel}: {usage}", flush=True)
-    sass = sass_counts(cuda_build.library_path("fused_ce"))
-    for kname, _, _ in CE_KERNELS:
-        check(kname in sass, f"{kname}_kernel not in fused_ce's SASS")
-        hgmma, tma = sass[kname]
-        print(f"  sass {kname}_kernel: {hgmma} HGMMA, {tma} UTMALDG", flush=True)
-    for kname in WGMMA_KERNELS:
-        check(min(sass[kname]) > 0,
-              f"{kname}_kernel has no HGMMA or no UTMALDG: {sass[kname]}")
+    sass = {}
+    for src in cuda_build.sources():
+        sass.update(sass_counts(cuda_build.library_path(src)))
+    check_sass(sass)
 
     print("== phase 3: kernels against their plain versions", flush=True)
     errors, inputs = phase_kernels(torch, attention)
@@ -797,6 +855,9 @@ def main():
               f"{bound[kname][0]:.4f} ms ({bound[kname][1]})", flush=True)
     print(f"  library: sdpa fwd {sdpa_fwd:.4f} ms, sdpa bwd (dq, dk, dv "
           f"together) {sdpa_bwd:.4f} ms", flush=True)
+    bwd_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
+    print(f"  flash_bwd_dq + flash_bwd_dkv: {bwd_ms:.4f} ms, "
+          f"{bwd_ms / sdpa_bwd:.2f}x sdpa bwd", flush=True)
     ce_errors, ce_inputs_main = phase_ce_kernels(torch, fce)
     ce_times, whole, ce_bound = phase_ce_timing(torch, fce, chunked_ce,
                                                 ce_inputs_main)

@@ -12,26 +12,47 @@
 //
 // What bounds them: at the training shapes (s = 2048, d = 128) every kernel
 // does O(s^2 d) tensor-core work on O(s d) bytes, so all three are bound by
-// operations. Design (the FlashAttention-2 layout on mma.sync): a block of
-// 4 warps owns one 64-row tile and loops over 64-row tiles of the other
-// sequence axis; each warp owns 16 of the rows, and its scores, softmax
-// probabilities and output accumulator stay in registers as m16n8k16
-// fragments (a score fragment is re-packed in registers as the A operand of
-// the next product). Only the streamed 64 x d bf16 tiles pass through shared
-// memory, double-buffered with cp.async so the next tile loads while this
-// one is multiplied, and read into fragments with ldmatrix (.trans where the
-// product needs the transpose). A forward or dq block owns one
-// (b, h, q-tile) and stops at the causal diagonal; a dk/dv block owns one
-// (b, kv-head, k-tile) and loops over group x q-tiles, so the group's query
-// heads sum on chip and no block writes another block's output (no
-// atomics). Not yet: wgmma, TMA, warp specialisation.
+// operations.
+//
+// The forward is written for Hopper: a block of one producer and two
+// consumer warpgroups owns a 128-row Q tile of one (batch, head). The
+// producer's one thread (40 registers after setmaxnreg) loads Q once and
+// streams 128-key K and V tiles through a 2-stage ring by TMA, each stage
+// behind a full and an empty mbarrier; each tile is a rank-4 box over
+// (d, s, head, batch) under 128-byte swizzle, so a ragged tile reads zeros
+// at its own sequence's end. Each consumer warpgroup (232 registers) owns
+// 64 of the rows: S = Q K^T by wgmma m64n128k16 from shared memory, the
+// online softmax on the accumulator registers (row max and sum over the
+// quad; exp2 with the scale folded in), then O += P V by wgmma with P
+// converted to bf16 in registers as the A operand (the accumulator layout
+// is already the A fragment's) and V read MN-major. Only the diagonal tile
+// and a tile reaching past sk mask; the k loop stops at the diagonal; the
+// longest causal q-tiles launch first (the q-tile is the grid's slowest
+// index). While one consumer warpgroup runs its softmax, the other's wgmma
+// keeps the tensor cores busy.
+//
+// The backward kernels keep the FlashAttention-2 layout on mma.sync: a
+// block of 4 warps owns one 64-row tile and loops over 64-row tiles of the
+// other sequence axis; each warp owns 16 of the rows, and its scores,
+// softmax probabilities and output accumulator stay in registers as
+// m16n8k16 fragments (a score fragment is re-packed in registers as the A
+// operand of the next product). Only the streamed 64 x d bf16 tiles pass
+// through shared memory, double-buffered with cp.async and read into
+// fragments with ldmatrix (.trans where the product needs the transpose). A
+// dq block owns one (b, h, q-tile) and stops at the causal diagonal; a
+// dk/dv block owns one (b, kv-head, k-tile) and loops over group x q-tiles,
+// so the group's query heads sum on chip and no block writes another
+// block's output (no atomics).
 //
 // Plain C interface (bound with ctypes). Each entry returns the
-// cudaError_t of its launch, 0 on success.
+// cudaError_t of its launch, 0 on success; the forward returns
+// cudaErrorInvalidValue if a tensor map cannot be encoded.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -214,6 +235,13 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int sq, int sk, int 
   return qpos < sq && kpos < sk && (!causal || kpos <= qpos);
 }
 
+// 2^x on the special-function unit; 2^(-huge) = 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -225,114 +253,275 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (q-tiles, h, b)
+// forward, on wgmma + TMA: grid (h, b, q-tiles of FWD_ROWS), the longest
+// causal q-tiles first. Warpgroup 0 is the producer: one thread loads the
+// block's Q tile once, then streams K and V tiles of FWD_KEYS keys through
+// a ring of FWD_STAGES stages (full / empty mbarriers). Warpgroups 1 and 2
+// each own 64 query rows: S = Q K^T (wgmma from shared memory, both
+// K-major), the online softmax on S's registers, then O += P V with P
+// rounded to bf16 in registers as the A operand and V read MN-major
+// ([k = key][n = d], d contiguous). Every tile is a rank-4 TMA box over
+// (d, s, head, batch), so rows past a sequence's end read as zeros and no
+// tile reaches into the next batch; keys past sk still score 0, not -inf,
+// so the last k tile masks them.
 // ---------------------------------------------------------------------------
+constexpr int FWD_ROWS = 128;  // query rows a block
+constexpr int FWD_KEYS = 128;  // keys a K / V tile
+#ifndef FLASH_FWD_STAGES
+#define FLASH_FWD_STAGES 2
+#endif
+#ifndef FLASH_FWD_OVERLAP
+#define FLASH_FWD_OVERLAP 0
+#endif
+constexpr int FWD_STAGES = FLASH_FWD_STAGES;
+constexpr int FWD_THREADS = 384;
+
+// S for a tile of FWD_KEYS keys from k0, in the accumulator layout
+// (sc[4 i + 2 h + e] is row `row` + 8 h, key k0 + 8 i + 2 t + e): keys past
+// sk and, when causal, keys after the row score NEG
+__device__ __forceinline__ void mask_scores(float (&sc)[FWD_KEYS / 2], int k0, int row, int t,
+                                            int sk, int causal) {
+#pragma unroll
+  for (int i = 0; i < FWD_KEYS / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kpos = k0 + 8 * i + 2 * t + (e % 2), qpos = row + 8 * (e / 2);
+      if (kpos >= sk || (causal && kpos > qpos)) sc[4 * i + e] = NEG;
+    }
+}
+
+// one online-softmax step on the two rows a thread holds: m_r (the raw-score
+// max) moves to the tile's, corr is exp of the move, sc becomes
+// p = exp(scale (s - m_r)) in place and rowsum the thread's part of its sum
+__device__ __forceinline__ void softmax_step(float (&sc)[FWD_KEYS / 2], float (&m_r)[2],
+                                             float (&corr)[2], float (&rowsum)[2], float sl2) {
+  float mx[2] = {NEG, NEG}, base[2];
+#pragma unroll
+  for (int i = 0; i < FWD_KEYS / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m_r[r], quad_max(mx[r]));
+    corr[r] = exp2_approx((m_r[r] - m_new) * sl2);
+    m_r[r] = m_new;
+    // a row with nothing visible yet keeps p = exp2(-1e30 sl2) = 0
+    base[r] = m_new == NEG ? 0.0f : m_new * sl2;
+    rowsum[r] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < FWD_KEYS / 2; ++i) {
+    sc[i] = exp2_approx(fmaf(sc[i], sl2, -base[(i / 2) % 2]));
+    rowsum[(i / 2) % 2] += sc[i];
+  }
+}
+
+// p (accumulator layout) -> bf16 A operands, one a k16 step: pa[kk][j] is
+// (row + 8 (j % 2), keys 16 kk + 8 (j / 2) + 2 t, + 1)
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[FWD_KEYS / 16][4],
+                                       const float (&p)[FWD_KEYS / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(p[8 * kk + 2 * j], p[8 * kk + 2 * j + 1]);
+}
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int sq, int sk, int h, int hkv,
-                 float scale, int causal) {
-  using T = Tile<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + T::ELEMS;      // two buffers
-  bf16* Vs = Ks + 2 * T::ELEMS;  // two buffers
+struct FwdSmem {
+  static constexpr int BOX_BYTES = 128 * 128;     // one [128 rows][64] box
+  static constexpr int TILE_BYTES = D / 64 * BOX_BYTES;  // a Q, K or V tile
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;     // K and V
+  // Q, the ring, q_full + full[] + empty[], and slack to round up to 1024
+  static constexpr int BYTES = 1024 + TILE_BYTES + FWD_STAGES * STAGE_BYTES +
+                               (1 + 2 * FWD_STAGES) * 8;
+  static_assert(BYTES <= 232448, "fits a block's shared memory");
+};
 
-  const int nq = (sq + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - blockIdx.x) * BQ;  // longest causal rows launch first
-  const int hh = blockIdx.y, bb = blockIdx.z;
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                 float* __restrict__ lse, int sq, int sk, int h, int hkv, float scale,
+                 int causal) {
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char fwd_smem[];
+  // 128-byte swizzle repeats every 1024 bytes; each box starts on that
+  // boundary
+  const uint32_t qs = (sm90::smem_u32(fwd_smem) + 1023u) & ~1023u;
+  const uint32_t ring = qs + L::TILE_BYTES;
+  const uint32_t q_full = ring + FWD_STAGES * L::STAGE_BYTES;
+  const uint32_t full = q_full + 8, empty = full + 8 * FWD_STAGES;
+
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * FWD_ROWS;
   const int hk = hh / (h / hkv);
-  const long qstride = (long)h * D, kstride = (long)hkv * D;
-  const bf16* qh = q + (long)bb * sq * qstride + (long)hh * D;
-  const bf16* kh = k + (long)bb * sk * kstride + (long)hk * D;
-  const bf16* vh = v + (long)bb * sk * kstride + (long)hk * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = 16 * warp;  // the warp's rows within the tile
+  const int k_lim = causal ? min(sk, min(q0 + FWD_ROWS, sq)) : sk;
+  const int nk = (k_lim + FWD_KEYS - 1) / FWD_KEYS;  // stops at the diagonal
+  const int wg = threadIdx.x / 128;
 
-  const int k_lim = causal ? min(sk, min(q0 + BQ, sq)) : sk;
-  const int nkt = (k_lim + BK - 1) / BK;
-  load_tile_async<D>(Qs, qh, q0, sq, qstride);
-  load_tile_async<D>(Ks, kh, 0, sk, kstride);
-  load_tile_async<D>(Vs, vh, 0, sk, kstride);
-  cp_async_commit();
-
-  float acc[D / 8][4];
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  float m_r[2] = {NEG, NEG}, l_r[2] = {0.0f, 0.0f};  // rows g, g+8
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nkt) {
-      load_tile_async<D>(Ks + (buf ^ 1) * T::ELEMS, kh, (kt + 1) * BK, sk, kstride);
-      load_tile_async<D>(Vs + (buf ^ 1) * T::ELEMS, vh, (kt + 1) * BK, sk, kstride);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);   // the producer's arrive, plus the bytes
+      sm90::mbar_init(empty + 8 * s, 2);  // one arrive per consumer warpgroup
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and q) have landed
-    __syncthreads();
-    const bf16* Kb = Ks + buf * T::ELEMS;
-    const bf16* Vb = Vs + buf * T::ELEMS;
-    const int k0 = kt * BK;
-
-    float s[8][4];
-    scores<D>(s, Qs, row0, Kb, lane);
-
-    // online softmax on the two rows this lane touches
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qpos = q0 + row0 + g + 8 * (e / 2), kpos = k0 + 8 * j + 2 * t + (e % 2);
-        s[j][e] = visible(qpos, kpos, sq, sk, causal) ? s[j][e] * scale : NEG;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float corr[2], base[2], rowsum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m_r[i], quad_max(mx[i]));
-      corr[i] = __expf(m_r[i] - m_new);
-      m_r[i] = m_new;
-      // a row with nothing visible yet keeps p = exp(-1e30) = 0
-      base[i] = m_new == NEG ? 0.0f : m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - base[e / 2]);
-        rowsum[e / 2] += s[j][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * corr[i] + rowsum[i];  // lane-partial
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-    accumulate<D>(acc, s, Vb, lane);
-    __syncthreads();  // the next prefetch overwrites this buffer
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // an empty row (l == 0) is guarded as l = 1, as the TPU kernel does
-  float inv[2];
-  float* lseh = lse + ((long)bb * h + hh) * sq;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      sm90::mbar_expect_tx(q_full, L::TILE_BYTES);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float l = quad_sum(l_r[i]);
-    const float lsafe = l == 0.0f ? 1.0f : l;
-    inv[i] = 1.0f / lsafe;
-    const int qpos = q0 + row0 + g + 8 * i;
-    if (t == 0 && qpos < sq) lseh[qpos] = m_r[i] + logf(lsafe);
+      for (int j = 0; j < D / 64; ++j)
+        sm90::tma_load_4d(qs + j * L::BOX_BYTES, &q_map, q_full, 64 * j, q0, hh, bb);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % FWD_STAGES;
+        sm90::mbar_wait(empty + 8 * s, ((kt / FWD_STAGES) & 1) ^ 1);
+        const uint32_t ks = ring + s * L::STAGE_BYTES, vs = ks + L::TILE_BYTES;
+        const uint32_t bar = full + 8 * s;
+        sm90::mbar_expect_tx(bar, L::STAGE_BYTES);
+#pragma unroll
+        for (int j = 0; j < D / 64; ++j) {
+          sm90::tma_load_4d(ks + j * L::BOX_BYTES, &k_map, bar, 64 * j, kt * FWD_KEYS, hk, bb);
+          sm90::tma_load_4d(vs + j * L::BOX_BYTES, &v_map, bar, 64 * j, kt * FWD_KEYS, hk, bb);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;  // this warpgroup's 64 rows of the tile
+    const int lane = threadIdx.x % 32, t = lane % 4;
+    const int row = q0 + 64 * c + 16 * ((threadIdx.x / 32) % 4) + lane / 4;  // and row + 8
+    const float sl2 = scale * 1.4426950408889634f;  // exp(scale x) = exp2(sl2 x)
+    // Q and K: K-major, rows of 128 bytes, 8-row groups 1024 apart, a k16
+    // step 32 bytes along the row and the next 64 of d one box further. V:
+    // MN-major, [keys][64 of d] boxes BOX_BYTES apart (LBO), 8-key groups
+    // 1024 apart (SBO), a k16 step 16 keys down.
+    const uint64_t dq = sm90::smem_desc(qs + c * 64 * 128, 16, 1024);
+
+    float acc[D / 2];  // O: acc[4 i + 2 h + e] is (row + 8 h, 8 i + 2 t + e)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    float m_r[2] = {NEG, NEG}, l_r[2] = {0.0f, 0.0f};  // raw-score max, lane-partial sum
+    sm90::mbar_wait(q_full, 0);
+
+    // a tile that reaches past sk or across this warpgroup's part of the
+    // diagonal masks; every tile below the diagonal skips the test
+    auto masks = [&](int k0) {
+      return k0 + FWD_KEYS > sk || (causal && k0 + FWD_KEYS - 1 > q0 + 64 * c);
+    };
+    // S = Q K^T for the K tile of stage s, issued and committed
+    auto issue_s = [&](float (&sc)[FWD_KEYS / 2], int s) {
+      const uint64_t dk = sm90::smem_desc(ring + s * L::STAGE_BYTES, 16, 1024);
+#pragma unroll
+      for (int i = 0; i < FWD_KEYS / 2; ++i) sc[i] = 0.0f;
+      sm90::fence_acc(sc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t off = (uint64_t)(((kk / 4) * L::BOX_BYTES + (kk % 4) * 32) >> 4);
+        sm90::wgmma_ss<FWD_KEYS>(sc, dq + off, dk + off, 1);
+      }
+      sm90::wgmma_commit();
+    };
+    // O += P V for the V tile of stage s, issued and committed
+    auto issue_pv = [&](uint32_t (&pa)[FWD_KEYS / 16][4], int s) {
+      const uint64_t dv =
+          sm90::smem_desc(ring + s * L::STAGE_BYTES + L::TILE_BYTES, L::BOX_BYTES, 1024);
+      sm90::fence_acc(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
+        sm90::wgmma_rs<D, true>(acc, pa[kk], dv + (uint64_t)((kk * 16 * 128) >> 4), 1);
+      sm90::wgmma_commit();
+    };
+    auto rescale = [&](const float (&corr)[2], const float (&rowsum)[2]) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * corr[r] + rowsum[r];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+    };
+
+    float sc[FWD_KEYS / 2];         // S, then P, over the tile's keys
+    uint32_t pa[FWD_KEYS / 16][4];  // P as the A operand, one k16 step each
+    float corr[2], rowsum[2];
+#if FLASH_FWD_OVERLAP
+    // the softmax of tile kt runs while the tensor cores do tile kt - 1's
+    // P V: S of kt and P V of kt - 1 are issued together
+    if (nk > 0) {
+      sm90::mbar_wait(full, 0);
+      issue_s(sc, 0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(sc);
+      if (masks(0)) mask_scores(sc, 0, row, t, sk, causal);
+      softmax_step(sc, m_r, corr, rowsum, sl2);
+      rescale(corr, rowsum);
+      pack_p(pa, sc);
+    }
+    for (int kt = 1; kt < nk; ++kt) {
+      const int s = kt % FWD_STAGES, prev = (kt - 1) % FWD_STAGES, k0 = kt * FWD_KEYS;
+      sm90::mbar_wait(full + 8 * s, (kt / FWD_STAGES) & 1);
+      issue_s(sc, s);
+      issue_pv(pa, prev);
+      sm90::wgmma_wait<1>();  // S is in; P V may still run
+      sm90::fence_acc(sc);
+      if (masks(k0)) mask_scores(sc, k0, row, t, sk, causal);
+      softmax_step(sc, m_r, corr, rowsum, sl2);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < FWD_KEYS / 16; ++kk) sm90::fence_regs(pa[kk]);
+      if (threadIdx.x % 128 == 0) sm90::mbar_arrive(empty + 8 * prev);
+      rescale(corr, rowsum);
+      pack_p(pa, sc);
+    }
+    if (nk > 0) {
+      issue_pv(pa, (nk - 1) % FWD_STAGES);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < FWD_KEYS / 16; ++kk) sm90::fence_regs(pa[kk]);
+    }
+#else
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % FWD_STAGES, k0 = kt * FWD_KEYS;
+      sm90::mbar_wait(full + 8 * s, (kt / FWD_STAGES) & 1);
+      issue_s(sc, s);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(sc);
+      if (masks(k0)) mask_scores(sc, k0, row, t, sk, causal);
+      softmax_step(sc, m_r, corr, rowsum, sl2);
+      rescale(corr, rowsum);
+      pack_p(pa, sc);
+      issue_pv(pa, s);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < FWD_KEYS / 16; ++kk) sm90::fence_regs(pa[kk]);
+      if (threadIdx.x % 128 == 0) sm90::mbar_arrive(empty + 8 * s);
+    }
+#endif
+
+    // an empty row (l == 0) is guarded as l = 1, as the TPU kernel does
+    const long qstride = (long)h * D;
+    bf16* oh = o + (long)bb * sq * qstride + (long)hh * D;
+    float* lseh = lse + ((long)bb * h + hh) * sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(l_r[r]);
+      const float lsafe = l == 0.0f ? 1.0f : l;
+      const float inv = 1.0f / lsafe;
+      const int qpos = row + 8 * r;
+      if (qpos >= sq) continue;
+      if (t == 0) lseh[qpos] = m_r[r] == NEG ? NEG : m_r[r] * scale + logf(lsafe);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(oh + (long)qpos * qstride + 8 * i + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+    }
   }
-  store_rows<D>(o + (long)bb * sq * qstride + (long)hh * D, qstride, acc, q0 + row0 + g, sq,
-                inv[0], inv[1], lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -529,8 +718,6 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-constexpr int fwd_smem() { return 5 * Tile<D>::BYTES; }  // Q, 2 K, 2 V
-template <int D>
 constexpr int dq_smem() { return 6 * Tile<D>::BYTES; }  // Q, dO, 2 K, 2 V
 template <int D>
 constexpr int dkv_smem() {  // K, V, 2 Q, 2 dO, 2 x (lse, delta)
@@ -543,17 +730,31 @@ int prepare(Kernel kernel, int smem_bytes) {
                                    smem_bytes);
 }
 
+// a (b, s, heads, D) bf16 tensor as a rank-4 tensor map over (d, s, head,
+// batch), read in [FWD_ROWS][64] boxes of one head of one sequence
+template <int D>
+int map_heads(CUtensorMap* map, const void* base, int b, int s, int heads) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)s, (cuuint64_t)heads, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)heads * D * 2, (cuuint64_t)D * 2,
+                                 (cuuint64_t)s * heads * D * 2};
+  const cuuint32_t box[4] = {64, FWD_ROWS, 1, 1};
+  return sm90::encode_tiled(map, base, 4, dims, strides, box);
+}
+
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
                int sq, int sk, int h, int hkv, float scale, int causal,
                cudaStream_t stream) {
-  constexpr int smem = fwd_smem<D>();
-  int err = prepare(flash_fwd_kernel<D>, smem);
+  static_assert(FWD_KEYS == FWD_ROWS, "one box shape for Q, K and V");
+  CUtensorMap q_map, k_map, v_map;
+  int err = map_heads<D>(&q_map, q, b, sq, h);
+  if (!err) err = map_heads<D>(&k_map, k, b, sk, hkv);
+  if (!err) err = map_heads<D>(&v_map, v, b, sk, hkv);
+  if (!err) err = prepare(flash_fwd_kernel<D>, FwdSmem<D>::BYTES);
   if (err) return err;
-  dim3 grid((sq + BQ - 1) / BQ, h, b);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, sq, sk, h,
-      hkv, scale, causal);
+  dim3 grid(h, b, (sq + FWD_ROWS - 1) / FWD_ROWS);
+  flash_fwd_kernel<D><<<grid, FWD_THREADS, FwdSmem<D>::BYTES, stream>>>(
+      q_map, k_map, v_map, (bf16*)o, (float*)lse, sq, sk, h, hkv, scale, causal);
   return (int)cudaGetLastError();
 }
 

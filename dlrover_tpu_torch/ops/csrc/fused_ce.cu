@@ -20,10 +20,10 @@
 // with an element-wise epilogue, 2 n d v FLOPs on O((n + v) d) bytes, so all
 // are bound by operations (n = 2048, d = 4096: ~2000 FLOPs a byte). Two GEMM
 // main loops, bf16 operands and f32 accumulators in registers in both:
-//   - wgmma + TMA (sm90_gemm.cuh), for bwd_q and bwd_dx: a block of one
-//     producer and two consumer warpgroups owns a 128 x 256 output tile;
+//   - wgmma + TMA (sm90_gemm.cuh), for bwd_q, bwd_dx and bwd_dw: a block of
+//     one producer and two consumer warpgroups owns a 128 x 256 output tile;
 //     the producer's one thread keeps a 4-stage ring of 64-deep K steps
-//     (48 KB a stage: a 128 x 64 A box and 256 columns of B) filled by TMA
+//     (48 KB a stage: 128 rows of A and 256 columns of B) filled by TMA
 //     through full/empty mbarriers, and each consumer warpgroup (232
 //     registers after setmaxnreg) runs m64n256k16 wgmma on its 64 rows
 //     straight from the 128-byte-swizzled shared tiles. Only wgmma reaches
@@ -31,21 +31,23 @@
 //     the ragged-edge zero fill off the threads; the mbarriers replace a
 //     __syncthreads() a K step. bwd_q's B is w as [k = feature][n = vocab],
 //     vocab contiguous (MN-major, wgmma's transposed B); bwd_dx reads the
-//     same w chunk as [n = feature][k = vocab] (K-major). Each chunk's
-//     tensor map starts at column c0 and is cw wide, so no kernel reads a
-//     neighbouring chunk. Measured on the card (PERF.md), the 128 x 256
-//     tile over 4 stages beat 128 x 128 tiles over 4 or 6 stages by 13-25 %,
-//     and 3 stages or a persistent grid were no faster; one block an SM (a
-//     192 KiB ring), 384 threads.
-//   - mma.sync m16n8k16 (gemm_tile below), for fwd and bwd_dw: a block of 8
-//     warps owns a 128 x 128 output tile and walks K in 64-wide steps
-//     through a 3-stage cp.async ring in shared memory (110.6 KB, so two
-//     blocks share an SM); each warp owns 64 x 32 of the tile and reads its
-//     fragments with ldmatrix (.trans for operands stored the other way
-//     round). Measured on the card, two blocks of 16 warps hid latency
-//     better than one 128 x 256 block of 8 warps, and 64-wide K steps, with
-//     half the barriers, beat 32-wide ones by 20%. These two kernels move
-//     to the wgmma loop next (bwd_dw needs its MN-major A).
+//     same w chunk as [n = feature][k = vocab] (K-major); bwd_dw reads x as
+//     [k = token][m = feature] (MN-major A, wgmma's transposed A) and q as
+//     [k = token][n = column] (MN-major B). Each chunk's tensor map starts
+//     at column c0 and is cw wide, so no kernel reads a neighbouring chunk.
+//     Measured on the card (PERF.md), the 128 x 256 tile over 4 stages beat
+//     128 x 128 tiles over 4 or 6 stages by 13-25 %, and 3 stages or a
+//     persistent grid were no faster; one block an SM (a 192 KiB ring), 384
+//     threads.
+//   - mma.sync m16n8k16 (gemm_tile below), for fwd: a block of 8 warps owns
+//     a 128 x 128 output tile and walks K in 64-wide steps through a
+//     3-stage cp.async ring in shared memory (110.6 KB, so two blocks share
+//     an SM); each warp owns 64 x 32 of the tile and reads its fragments
+//     with ldmatrix (.trans for operands stored the other way round).
+//     Measured on the card, two blocks of 16 warps hid latency better than
+//     one 128 x 256 block of 8 warps, and 64-wide K steps, with half the
+//     barriers, beat 32-wide ones by 20%. The forward moves to the wgmma
+//     loop next.
 // The epilogues run on the register tile:
 //   - fwd: per row of the tile, (max, sum exp, gold logit) over its 128
 //     columns, written as one vocab tile's partial. The TPU grid carried
@@ -58,7 +60,9 @@
 //     one vocab chunk of C columns, into an (n, C) buffer.
 //   - bwd_dx: dx (n, d) f32 += q @ w_chunk^T, each element read and written
 //     by its one owning block, no atomics.
-//   - bwd_dw: dw[:, chunk] = x^T @ q, each dw column written once, f32.
+//   - bwd_dw: dw[:, chunk] = x^T @ q, each dw column written once, f32,
+//     with row stride v: an odd v (32001, 1000) leaves rows 4-byte aligned
+//     only, so pairs go out as one float2 only where v is even.
 // The TPU kernels kept a (tokens x d) dx and a (d x vocab-tile) dw
 // accumulator in VMEM, 1 MB each at d = 4096, and recomputed the logits in
 // both; neither fits a Hopper block. Going chunk by chunk recomputes the
@@ -66,8 +70,8 @@
 // exists. Not yet: persistent scheduling.
 //
 // Plain C interface (bound with ctypes). Each entry returns the cudaError_t
-// of its launch, 0 on success; bwd_q and bwd_dx return cudaErrorInvalidValue
-// if a tensor map cannot be encoded.
+// of its launch, 0 on success; bwd_q, bwd_dx and bwd_dw return
+// cudaErrorInvalidValue if a tensor map cannot be encoded.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -470,36 +474,49 @@ fused_ce_bwd_dx_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// backward dw[:, c0:c0+cw] = x^T @ q: grid (d / BM, cw / BN); dw (d, v) f32,
-// each column written once
+// backward dw[:, c0:c0+cw] = x^T @ q, on the wgmma main loop: grid (d / BM,
+// cw / BN); dw (d, v) f32, each column written once. A is x read as [k =
+// token][m = feature] and B is q read as [k = token][n = column]: both
+// MN-major.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
-fused_ce_bwd_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ q,
-                       float* __restrict__ dw, int n, int d, int v, int c0, int cw) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float acc[4][NI][4];
-  // A[m = feature][k = token] is x read as [k][m]; B = q is [k][n]
-  gemm_tile<false, true>(acc, x, d, q, cw, d, cw, n, m0, n0, smem);
+typedef sm90::Gemm<true, true> BwdDwGemm;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N, g = lane / 4, t = lane % 4;
-  const int c_end = min(cw, v - c0);  // the chunk's real columns
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+struct BwdDwEpilogue {
+  float* __restrict__ dw;
+  int d, v, c0, cw;
+
+  // row: a feature; col: a column of the chunk
+  template <int N>
+  __device__ __forceinline__ void operator()(const float (&acc)[N], int row0, int col0) const {
+    const int c_end = min(cw, v - c0);  // the chunk's real columns
+    // an odd v leaves every other row 4-byte aligned only
+    const bool pairs = (v % 2) == 0;  // c0 and col are even
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mi * 16 + g + 8 * h;
+      const int row = row0 + 8 * h;
       if (row >= d) continue;
+      float* out = dw + (long)row * v + c0;
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + wn * WN + ni * 8 + 2 * t + e;
-          if (col < c_end) dw[(long)row * v + c0 + col] = acc[mi][ni][2 * h + e];
+      for (int i = 0; i < N / 4; ++i) {
+        const int col = col0 + 8 * i;
+        const float a = acc[4 * i + 2 * h], b = acc[4 * i + 2 * h + 1];
+        if (pairs && col + 1 < c_end) {
+          *reinterpret_cast<float2*>(out + col) = make_float2(a, b);
+        } else {
+          if (col < c_end) out[col] = a;
+          if (col + 1 < c_end) out[col + 1] = b;
         }
+      }
     }
+  }
+};
+
+__global__ void __launch_bounds__(BwdDwGemm::THREADS, 1)
+fused_ce_bwd_dw_kernel(const __grid_constant__ CUtensorMap x_map,
+                       const __grid_constant__ CUtensorMap q_map, float* __restrict__ dw,
+                       int n, int d, int v, int c0, int cw) {
+  BwdDwGemm::run(&x_map, &q_map, blockIdx.x * BwdDwGemm::BM, blockIdx.y * BwdDwGemm::BN, n,
+                 BwdDwEpilogue{dw, d, v, c0, cw});
 }
 
 static_assert(3 * WARPS_N * BM * sizeof(float) <= PIPE_BYTES, "fwd reduction fits");
@@ -570,11 +587,16 @@ int dlrover_ce_bwd_dx(const void* q, const void* w, void* dx, int n, int d, int 
 
 int dlrover_ce_bwd_dw(const void* x, const void* q, void* dw, int n, int d, int v, int c0,
                       int cw, void* stream) {
-  int err = prepare(fused_ce_bwd_dw_kernel, PIPE_BYTES);
+  typedef BwdDwGemm G;
+  // with no tokens the K loop is empty and no load is issued, so the maps
+  // (which cannot describe an empty matrix) stay zeros and dw gets zeros
+  CUtensorMap x_map = {}, q_map = {};
+  int err = n ? G::map_a(&x_map, x, d, n, d) : 0;
+  if (!err && n) err = G::map_b(&q_map, q, cw, n, cw);
+  if (!err) err = prepare(fused_ce_bwd_dw_kernel, G::SMEM_BYTES);
   if (err) return err;
-  fused_ce_bwd_dw_kernel<<<dim3(cdiv(d, BM), cdiv(cw, BN)), NTHREADS, PIPE_BYTES,
-                           (cudaStream_t)stream>>>((const bf16*)x, (const bf16*)q,
-                                                   (float*)dw, n, d, v, c0, cw);
+  fused_ce_bwd_dw_kernel<<<dim3(cdiv(d, G::BM), cdiv(cw, G::BN)), G::THREADS, G::SMEM_BYTES,
+                           (cudaStream_t)stream>>>(x_map, q_map, (float*)dw, n, d, v, c0, cw);
   return (int)cudaGetLastError();
 }
 

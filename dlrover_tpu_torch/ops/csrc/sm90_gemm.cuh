@@ -32,6 +32,11 @@
 // Host side: map_a / map_b build each operand's tensor map for a launch;
 // cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so the
 // library needs no link against libcuda.
+//
+// Beside the loop, the pieces flash attention's forward (flash_attn.cu)
+// builds its own warp-specialised loop from: rank-4 TMA loads and maps
+// (encode_tiled), and m64n64k16 / m64n128k16 wgmma with A from shared
+// memory (wgmma_ss) or from registers (wgmma_rs).
 
 #pragma once
 
@@ -86,6 +91,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// box at element coordinates (c0 innermost) of a rank-4 map -> shared
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -104,6 +119,13 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for registers a wgmma reads as its A operand
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
@@ -149,8 +171,68 @@ __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db)
       : "l"(da), "l"(db), "r"(1), "n"(int(TA)), "n"(int(TB)));
 }
 
+// Narrower shapes, for flash attention: d (64 x N f32) = A (64 x 16) @ B
+// (16 x N) + (scale_d ? d : 0), N = 64 or 128, bf16 operands. wgmma_ss reads
+// both operands from shared memory (both K-major); wgmma_rs takes A from
+// registers as four bf16x2 words a thread in the layout of mma.sync's
+// m16n8k16 A fragment (warp w of the warpgroup holds rows 16 w .. 16 w + 15),
+// the layout in which the accumulators of a previous product already lie
+// (acc[4 i + 2 h + e] is row 8 h, column 8 i + e of the thread's quad), so
+// an accumulator tile converts to an A operand without moving between
+// threads. TB: B is MN-major.
+#define SM90_ACC32 SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24)
+#define SM90_REGS32                                                                  \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "                                                 \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                                         \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "n64 or n128");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_REGS64 "}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : SM90_ACC64
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_REGS32 "}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : SM90_ACC32
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+template <int N, bool TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "n64 or n128");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_REGS64 "}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : SM90_ACC64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(int(TB)));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_REGS32 "}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : SM90_ACC32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(int(TB)));
+  }
+}
+
 #undef SM90_ACC8
+#undef SM90_ACC32
 #undef SM90_ACC64
+#undef SM90_REGS32
 #undef SM90_REGS64
 
 // ---- host: tensor maps -----------------------------------------------------------
@@ -160,11 +242,14 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// a row-major bf16 matrix of `outer` rows of `inner` elements, row stride
-// ld elements (a multiple of 8; base 16-byte aligned), read in boxes of
-// [box_outer][64] under 128-byte swizzle. Returns a cudaError_t.
-static inline int encode_map(CUtensorMap* map, const void* base, int inner, int outer,
-                             long ld, int box_outer) {
+// a bf16 tensor of `rank` dimensions (dims[0] innermost, contiguous;
+// strides[i] the byte stride of dimension i + 1, a multiple of 16; base
+// 16-byte aligned), read in boxes of box[] elements whose inner extent is 64
+// (128 bytes), under 128-byte swizzle; elements outside the dims read as
+// zeros. Returns a cudaError_t.
+static inline int encode_tiled(CUtensorMap* map, const void* base, int rank,
+                               const cuuint64_t* dims, const cuuint64_t* strides,
+                               const cuuint32_t* box) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -181,15 +266,24 @@ static inline int encode_map(CUtensorMap* map, const void* base, int inner, int 
       return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUresult res =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a row-major bf16 matrix of `outer` rows of `inner` elements, row stride
+// ld elements (a multiple of 8; base 16-byte aligned), read in boxes of
+// [box_outer][64]
+static inline int encode_map(CUtensorMap* map, const void* base, int inner, int outer,
+                             long ld, int box_outer) {
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult res =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_tiled(map, base, 2, dims, strides, box);
 }
 
 // ---- the main loop ---------------------------------------------------------------
