@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 2. build: compiles every kernel of the main path from the sources in this
    checkout (``dlrover_tpu_torch/ops/csrc``: flash_attn.cu, fused_ce.cu and
    the header sm90_gemm.cuh they both include), one nvcc per source, in
-   parallel; prints each kernel's registers and spills. Then counts, in
+   parallel; prints each kernel's registers and spills, and any warning of
+   ptxas that it serialised a kernel's wgmma. Then counts, in
    each built library's SASS (``cuobjdump -sass``), every kernel's
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions:
    ``WGMMA_KERNELS`` (``fused_ce_bwd_q``, ``fused_ce_bwd_dx`` and
@@ -837,9 +838,13 @@ def main():
     seconds = cuda_build.build(cuda_build.sources())
     print(f"  nvcc seconds: {seconds}", flush=True)
     for src in cuda_build.sources():
-        log = cuda_build.library_path(src).with_suffix(".log")
-        for kernel, usage in ptxas_usage(log.read_text()):
+        log = cuda_build.library_path(src).with_suffix(".log").read_text()
+        for kernel, usage in ptxas_usage(log):
             print(f"  ptxas {kernel}: {usage}", flush=True)
+        # e.g. wgmma serialised where ptxas cannot keep a group in flight
+        for line in log.splitlines():
+            if "Performance Loss" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
     sass = {}
     for src in cuda_build.sources():
         sass.update(sass_counts(cuda_build.library_path(src)))

@@ -18,6 +18,17 @@ float32, shaped ``(b, h, s)``:
   (``ds = p * (dp - (rowsum(do * o) - g_lse))``), which ring attention's
   logsumexp merge relies on.
 
+Kernels (``csrc/flash_attn.cu``, head dims 64 and 128). The forward is
+written for Hopper: per (batch, head, 128-row q-tile), one producer
+warpgroup streams K and V tiles of 128 keys by TMA (rank-4 tensor maps over
+(d, s, head, batch), built by the C entry point at each launch) through a
+3-stage mbarrier ring, and two consumer warpgroups run ``wgmma`` for
+``S = Q K^T`` and ``O += P V`` (P from registers) around an online softmax
+on the accumulators. dq and dk/dv keep FlashAttention-2's layout on
+``mma.sync`` with ``cp.async`` double buffering. ``chip_smoke.py`` checks
+each kernel against its plain version below and counts the wgmma
+(``HGMMA``) and TMA (``UTMALDG``) instructions in each kernel's SASS.
+
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version of each kernel (kept beside it here); a CUDA tensor launches the
 kernel, or raises when the card is not sm_90. There is no fallback from a

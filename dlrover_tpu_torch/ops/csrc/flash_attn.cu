@@ -17,7 +17,7 @@
 // The forward is written for Hopper: a block of one producer and two
 // consumer warpgroups owns a 128-row Q tile of one (batch, head). The
 // producer's one thread (40 registers after setmaxnreg) loads Q once and
-// streams 128-key K and V tiles through a 2-stage ring by TMA, each stage
+// streams 128-key K and V tiles through a 3-stage ring by TMA, each stage
 // behind a full and an empty mbarrier; each tile is a rank-4 box over
 // (d, s, head, batch) under 128-byte swizzle, so a ragged tile reads zeros
 // at its own sequence's end. Each consumer warpgroup (232 registers) owns
@@ -25,11 +25,12 @@
 // online softmax on the accumulator registers (row max and sum over the
 // quad; exp2 with the scale folded in), then O += P V by wgmma with P
 // converted to bf16 in registers as the A operand (the accumulator layout
-// is already the A fragment's) and V read MN-major. Only the diagonal tile
-// and a tile reaching past sk mask; the k loop stops at the diagonal; the
-// longest causal q-tiles launch first (the q-tile is the grid's slowest
-// index). While one consumer warpgroup runs its softmax, the other's wgmma
-// keeps the tensor cores busy.
+// is already the A fragment's) and V read MN-major. A tile's S product is
+// issued with the previous tile's P V, so each warpgroup's softmax runs
+// while the tensor cores work, and the two warpgroups interleave besides.
+// Only the diagonal tile and a tile reaching past sk mask; the k loop stops
+// at the diagonal; the longest causal q-tiles launch first (the q-tile is
+// the grid's slowest index).
 //
 // The backward kernels keep the FlashAttention-2 layout on mma.sync: a
 // block of 4 warps owns one 64-row tile and loops over 64-row tiles of the
@@ -260,20 +261,19 @@ __device__ __forceinline__ float quad_sum(float v) {
 // each own 64 query rows: S = Q K^T (wgmma from shared memory, both
 // K-major), the online softmax on S's registers, then O += P V with P
 // rounded to bf16 in registers as the A operand and V read MN-major
-// ([k = key][n = d], d contiguous). Every tile is a rank-4 TMA box over
+// ([k = key][n = d], d contiguous). S of tile kt and P V of tile kt - 1
+// are issued together, so the softmax of kt runs while the tensor cores
+// finish kt - 1; the ring holds tile kt - 1's V, tile kt and the next
+// load, so it is 3 deep (230,456 bytes at d = 128). On the card this beat
+// a 2- or 3-deep ring without the overlap by 2-7 % at the main shapes
+// (run/flash_fwd_sweep.py, PERF.md). Every tile is a rank-4 TMA box over
 // (d, s, head, batch), so rows past a sequence's end read as zeros and no
 // tile reaches into the next batch; keys past sk still score 0, not -inf,
 // so the last k tile masks them.
 // ---------------------------------------------------------------------------
 constexpr int FWD_ROWS = 128;  // query rows a block
 constexpr int FWD_KEYS = 128;  // keys a K / V tile
-#ifndef FLASH_FWD_STAGES
-#define FLASH_FWD_STAGES 2
-#endif
-#ifndef FLASH_FWD_OVERLAP
-#define FLASH_FWD_OVERLAP 0
-#endif
-constexpr int FWD_STAGES = FLASH_FWD_STAGES;
+constexpr int FWD_STAGES = 3;
 constexpr int FWD_THREADS = 384;
 
 // S for a tile of FWD_KEYS keys from k0, in the accumulator layout
@@ -422,7 +422,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint64_t off = (uint64_t)(((kk / 4) * L::BOX_BYTES + (kk % 4) * 32) >> 4);
-        sm90::wgmma_ss<FWD_KEYS>(sc, dq + off, dk + off, 1);
+        sm90::wgmma_ss<FWD_KEYS>(sc, dq + off, dk + off);
       }
       sm90::wgmma_commit();
     };
@@ -434,7 +434,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
-        sm90::wgmma_rs<D, true>(acc, pa[kk], dv + (uint64_t)((kk * 16 * 128) >> 4), 1);
+        sm90::wgmma_rs<D, true>(acc, pa[kk], dv + (uint64_t)((kk * 16 * 128) >> 4));
       sm90::wgmma_commit();
     };
     auto rescale = [&](const float (&corr)[2], const float (&rowsum)[2]) {
@@ -447,9 +447,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     float sc[FWD_KEYS / 2];         // S, then P, over the tile's keys
     uint32_t pa[FWD_KEYS / 16][4];  // P as the A operand, one k16 step each
     float corr[2], rowsum[2];
-#if FLASH_FWD_OVERLAP
     // the softmax of tile kt runs while the tensor cores do tile kt - 1's
-    // P V: S of kt and P V of kt - 1 are issued together
+    // P V: S of kt and P V of kt - 1 are issued together. Tile 0 goes
+    // first on its own: with the P V issue under a branch in the loop,
+    // ptxas serialises the wgmmas and the kernel ran 25 % slower.
     if (nk > 0) {
       sm90::mbar_wait(full, 0);
       issue_s(sc, 0);
@@ -484,25 +485,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kk = 0; kk < FWD_KEYS / 16; ++kk) sm90::fence_regs(pa[kk]);
     }
-#else
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % FWD_STAGES, k0 = kt * FWD_KEYS;
-      sm90::mbar_wait(full + 8 * s, (kt / FWD_STAGES) & 1);
-      issue_s(sc, s);
-      sm90::wgmma_wait<0>();
-      sm90::fence_acc(sc);
-      if (masks(k0)) mask_scores(sc, k0, row, t, sk, causal);
-      softmax_step(sc, m_r, corr, rowsum, sl2);
-      rescale(corr, rowsum);
-      pack_p(pa, sc);
-      issue_pv(pa, s);
-      sm90::wgmma_wait<0>();
-      sm90::fence_acc(acc);
-#pragma unroll
-      for (int kk = 0; kk < FWD_KEYS / 16; ++kk) sm90::fence_regs(pa[kk]);
-      if (threadIdx.x % 128 == 0) sm90::mbar_arrive(empty + 8 * s);
-    }
-#endif
 
     // an empty row (l == 0) is guarded as l = 1, as the TPU kernel does
     const long qstride = (long)h * D;

@@ -171,14 +171,14 @@ __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db)
       : "l"(da), "l"(db), "r"(1), "n"(int(TA)), "n"(int(TB)));
 }
 
-// Narrower shapes, for flash attention: d (64 x N f32) = A (64 x 16) @ B
-// (16 x N) + (scale_d ? d : 0), N = 64 or 128, bf16 operands. wgmma_ss reads
-// both operands from shared memory (both K-major); wgmma_rs takes A from
-// registers as four bf16x2 words a thread in the layout of mma.sync's
-// m16n8k16 A fragment (warp w of the warpgroup holds rows 16 w .. 16 w + 15),
-// the layout in which the accumulators of a previous product already lie
-// (acc[4 i + 2 h + e] is row 8 h, column 8 i + e of the thread's quad), so
-// an accumulator tile converts to an A operand without moving between
+// Narrower shapes, for flash attention: d (64 x N f32) += A (64 x 16) @ B
+// (16 x N), N = 64 or 128, bf16 operands. wgmma_ss reads both operands
+// from shared memory (both K-major); wgmma_rs takes A from registers as four
+// bf16x2 words a thread in the layout of mma.sync's m16n8k16 A fragment
+// (warp w of the warpgroup holds rows 16 w .. 16 w + 15), the layout in
+// which the accumulators of a previous product already lie (lane l holds
+// acc[4 i + 2 h + e] = C[16 w + l / 4 + 8 h][8 i + 2 (l % 4) + e]), so an
+// accumulator tile converts to an A operand without moving between
 // threads. TB: B is MN-major.
 #define SM90_ACC32 SM90_ACC8(0), SM90_ACC8(8), SM90_ACC8(16), SM90_ACC8(24)
 #define SM90_REGS32                                                                  \
@@ -188,8 +188,7 @@ __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db)
   "%24, %25, %26, %27, %28, %29, %30, %31"
 
 template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
-                                         int scale_d) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
   static_assert(N == 64 || N == 128, "n64 or n128");
   if constexpr (N == 128) {
     asm volatile(
@@ -197,20 +196,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_REGS64 "}, "
         "%64, %65, p, 1, 1, 0, 0;\n}\n"
         : SM90_ACC64
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(1));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_REGS32 "}, "
         "%32, %33, p, 1, 1, 0, 0;\n}\n"
         : SM90_ACC32
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(1));
   }
 }
 
 template <int N, bool TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
-                                         int scale_d) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
   static_assert(N == 64 || N == 128, "n64 or n128");
   if constexpr (N == 128) {
     asm volatile(
@@ -218,14 +217,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_REGS64 "}, "
         "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : SM90_ACC64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(int(TB)));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(int(TB)));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_REGS32 "}, "
         "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : SM90_ACC32
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(int(TB)));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(int(TB)));
   }
 }
 

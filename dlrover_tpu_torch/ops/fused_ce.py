@@ -30,12 +30,13 @@ kernels' ``p`` are. The TPU kernel upcasts both operands to f32 and keeps
 x's dtype, ``dw`` in w's. The plain versions below repeat this rounding, so
 a kernel and its plain version differ only in the order of their sums.
 
-Kernels (``csrc/fused_ce.cu``). ``bwd_q`` and ``bwd_dx`` run the Hopper
-main loop of ``csrc/sm90_gemm.cuh``: TMA loads into a 4-stage mbarrier ring,
-``wgmma`` from shared memory, one producer and two consumer warpgroups on a
-128 x 256 tile; the C entry points build the operands' tensor maps at each
-launch (the lm-head chunk's map starts at column ``c0`` and is ``cw``
-wide). ``fwd`` and ``bwd_dw`` run the older ``mma.sync`` + ``cp.async``
+Kernels (``csrc/fused_ce.cu``). ``bwd_q``, ``bwd_dx`` and ``bwd_dw`` run
+the Hopper main loop of ``csrc/sm90_gemm.cuh``: TMA loads into a 4-stage
+mbarrier ring, ``wgmma`` from shared memory, one producer and two consumer
+warpgroups on a 128 x 256 tile; the C entry points build the operands'
+tensor maps at each launch (the lm-head chunk's map starts at column ``c0``
+and is ``cw`` wide; ``bwd_dw`` reads x and q token-major, as wgmma's
+transposed operands). ``fwd`` runs the older ``mma.sync`` + ``cp.async``
 loop of ``fused_ce.cu`` (128 x 128 tiles, 3 stages); ``merge`` is no GEMM.
 ``chip_smoke.py`` checks each kernel against its plain version below and
 counts the wgmma (``HGMMA``) and TMA (``UTMALDG``) instructions in each

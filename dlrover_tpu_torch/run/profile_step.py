@@ -15,6 +15,8 @@ with ``torch.profiler`` and reports, per step:
   embedding, gradient accumulation);
 - device time by kernel family (the port's flash and fused-CE kernels,
   cuBLAS GEMMs, everything else) and the top kernels by name;
+- for each of the port's kernels (by name, a template by its head dim),
+  its device ms and launches a step and its mean device ms a launch;
 - the device's busy share of the profiled host wall time (the union of
   kernel and copy intervals), and so its idle share; and the busy time
   against the median wall time of as many steps again taken without the
@@ -28,6 +30,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import json
+import re
 import statistics
 import time
 from typing import Dict, List, Optional
@@ -98,6 +101,7 @@ def summarize(prof, steps: int, wall_s: float, top: int = 12) -> dict:
     busy_us = _busy_us([(e.time_range.start, e.time_range.end)
                         for e in kernels])
     by_name: Dict[str, float] = {}
+    launches: Dict[str, int] = {}
     families: Dict[str, float] = {}
     scopes: Dict[str, float] = {key: 0.0 for key in SCOPES}
     scopes["rest of the step"] = 0.0
@@ -105,6 +109,7 @@ def summarize(prof, steps: int, wall_s: float, top: int = 12) -> dict:
     for e in kernels:
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
+        launches[e.name] = launches.get(e.name, 0) + 1
         fam = _family(e.name)
         families[fam] = families.get(fam, 0.0) + us
         scope = _scope_of(e.time_range.start, spans)
@@ -119,6 +124,16 @@ def summarize(prof, steps: int, wall_s: float, top: int = 12) -> dict:
         return [(name[:100], per_step(us)) for name, us in
                 sorted(table.items(), key=lambda kv: -kv[1])[:n]]
 
+    port = {}
+    for name, us in by_name.items():
+        m = re.search(r"((?:flash|fused_ce)_\w+?_kernel(?:<\d+>)?)", name)
+        if m and _family(name).endswith("(port)"):
+            port[m.group(1)] = {
+                "ms_per_step": per_step(us),
+                "launches_per_step": launches[name] / steps,
+                "ms_per_launch": us / launches[name] / 1e3,
+            }
+
     return {
         "steps_profiled": steps,
         "wall_ms_per_step": wall_s / steps * 1e3,
@@ -128,6 +143,7 @@ def summarize(prof, steps: int, wall_s: float, top: int = 12) -> dict:
         "scopes_ms_per_step": {k: per_step(v) for k, v in scopes.items()},
         "families_ms_per_step": {k: per_step(v) for k, v in families.items()},
         "top_kernels_ms_per_step": top_of(by_name, top),
+        "port_kernels": dict(sorted(port.items())),
         "top_kernels_by_scope_ms_per_step": {
             k: top_of(v, 4) for k, v in by_scope_kernel.items()},
     }

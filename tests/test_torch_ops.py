@@ -141,13 +141,27 @@ def test_mha_reference_lse_only_gradient_matches_jax():
     assert not np.asarray(ref[2]).any()
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hkv", [4, 2], ids=["group1", "group2"])
-def test_flash_attention_cpu_matches_pallas_interpret(causal, hkv):
+# (causal, hkv, s, d) with h = 4, and the case's id. The first four run
+# two q and k blocks of 64 at d = 16; the rest run s = 192, three JAX
+# blocks, which is no multiple of the card kernel's 128-row forward tile,
+# at the head dims it is built for, with group 4
+_FLASH_INTERPRET_CASES = [
+    pytest.param(True, 4, 128, 16, id="group1-True"),
+    pytest.param(True, 2, 128, 16, id="group2-True"),
+    pytest.param(False, 4, 128, 16, id="group1-False"),
+    pytest.param(False, 2, 128, 16, id="group2-False"),
+] + [
+    pytest.param(causal, 1, 192, d, id=f"s192-d{d}-group4-{causal}")
+    for d in (64, 128) for causal in (True, False)
+]
+
+
+@pytest.mark.parametrize("causal,hkv,s,d", _FLASH_INTERPRET_CASES)
+def test_flash_attention_cpu_matches_pallas_interpret(causal, hkv, s, d):
     """Out, lse and the q/k/v grads (lse cotangent included) of the port's
     flash attention on the CPU against the Pallas fwd/dq/dkv kernels in
-    interpret mode, with two q and k blocks each."""
-    q, k, v, g_out, g_lse = _qkv(1, 128, 4, hkv, 16, seed=6)
+    interpret mode, with JAX blocks of 64."""
+    q, k, v, g_out, g_lse = _qkv(1, s, 4, hkv, d, seed=6)
     ref = _jax_value_and_grads(
         lambda q, k, v: jattn.flash_attention_with_lse(
             q, k, v, causal, 64, 64, True),
