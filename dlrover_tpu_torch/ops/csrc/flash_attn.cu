@@ -449,8 +449,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     float corr[2], rowsum[2];
     // the softmax of tile kt runs while the tensor cores do tile kt - 1's
     // P V: S of kt and P V of kt - 1 are issued together. Tile 0 goes
-    // first on its own: with the P V issue under a branch in the loop,
-    // ptxas serialises the wgmmas and the kernel ran 25 % slower.
+    // first on its own, so no wgmma issue sits under a branch of the loop:
+    // folded in, it ran slower on the card (PERF.md).
     if (nk > 0) {
       sm90::mbar_wait(full, 0);
       issue_s(sc, 0);
