@@ -216,17 +216,15 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int 
 // the warp's 16 x D f32 accumulator -> bf16 rows of dst (bounded by nrows)
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst, long stride, const float (&acc)[D / 8][4],
-                                           int row, int nrows, float scale0, float scale1,
-                                           int lane) {
+                                           int row, int nrows, int lane) {
   const int t = lane % 4;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int rr = row + 8 * half;
     if (rr >= nrows) continue;
-    const float sc = half ? scale1 : scale0;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      __nv_bfloat162 v = __floats2bfloat162_rn(acc[n][2 * half] * sc, acc[n][2 * half + 1] * sc);
+      __nv_bfloat162 v = __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dst + (long)rr * stride + 8 * n + 2 * t) = v;
     }
   }
@@ -266,7 +264,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 // finish kt - 1; the ring holds tile kt - 1's V, tile kt and the next
 // load, so it is 3 deep (230,456 bytes at d = 128). On the card this beat
 // a 2- or 3-deep ring without the overlap by 2-7 % at the main shapes
-// (run/flash_fwd_sweep.py, PERF.md). Every tile is a rank-4 TMA box over
+// (PERF.md). Every tile is a rank-4 TMA box over
 // (d, s, head, batch), so rows past a sequence's end read as zeros and no
 // tile reaches into the next batch; keys past sk still score 0, not -inf,
 // so the last k tile masks them.
@@ -587,7 +585,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     accumulate<D>(acc, s, Kb, lane);
     __syncthreads();
   }
-  store_rows<D>(dq + qoff, qstride, acc, q0 + row0 + g, sq, 1.0f, 1.0f, lane);
+  store_rows<D>(dq + qoff, qstride, acc, q0 + row0 + g, sq, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -695,8 +693,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // the next prefetch overwrites this buffer
   }
   cp_async_wait<0>();  // with no q-tile at all, K and V may still be landing
-  store_rows<D>(dk + koff, kstride, dk_acc, k0 + row0 + g, sk, 1.0f, 1.0f, lane);
-  store_rows<D>(dv + koff, kstride, dv_acc, k0 + row0 + g, sk, 1.0f, 1.0f, lane);
+  store_rows<D>(dk + koff, kstride, dk_acc, k0 + row0 + g, sk, lane);
+  store_rows<D>(dv + koff, kstride, dv_acc, k0 + row0 + g, sk, lane);
 }
 
 template <int D>
