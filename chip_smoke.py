@@ -16,17 +16,17 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    each built library's SASS (``cuobjdump -sass``), every kernel's
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions:
    ``WGMMA_KERNELS`` (``fused_ce_bwd_q``, ``fused_ce_bwd_dx`` and
-   ``fused_ce_bwd_dw`` on the main loop of sm90_gemm.cuh, ``flash_fwd`` on
-   its own warp-specialised loop) must have both; ``NO_WGMMA_KERNELS``
-   (``fused_ce_fwd`` and ``fused_ce_merge``, ``flash_bwd_dq`` and
-   ``flash_bwd_dkv``, still on mma.sync + cp.async or no GEMM) must show
-   none.
+   ``fused_ce_bwd_dw`` on the main loop of sm90_gemm.cuh, ``flash_fwd``,
+   ``flash_bwd_dq`` and ``flash_bwd_dkv`` on their own warp-specialised
+   loops) must have both; ``NO_WGMMA_KERNELS`` (``fused_ce_fwd`` on
+   mma.sync + cp.async and ``fused_ce_merge``, no GEMM) must show none.
 3. kernels: each flash-attention kernel (fwd, dq, dk/dv) against its plain
    PyTorch version on the same bf16 inputs on the card, for the main-path
    shape and for non-causal, ragged, group-1, head-dim-64, ViT-B/16
-   (non-causal, s 196, head dim 64, batch 64) and two cases that cut the
-   forward's 128-row tile (s 130 with batches meeting inside a tile, and
-   s 200 at head dim 64); each
+   (non-causal, s 196, head dim 64, batch 64), two cases that cut the
+   128-row tiles (s 130 with batches meeting inside a tile, and s 200 at
+   head dim 64) and one of group 8 (s 300: every dk/dv tile takes the
+   most query heads, and both the 64- and 128-row tiles are cut); each
    fused-CE kernel (fwd, merge, bwd_q, bwd_dx, bwd_dw) against its plain
    version for the main-path shape and for ragged, ragged-d (every edge of
    the wgmma tiles), ViT, all-masked and last-column cases; with the
@@ -108,6 +108,9 @@ CASES = [
     # box would reach into the next batch's rows, with group 4
     ("tile_edge_gqa4", dict(b=3, s=130, h=8, hkv=2, d=128, causal=True)),
     ("tile_edge_d64", dict(b=2, s=200, h=4, hkv=4, d=64, causal=False)),
+    # one kv head for eight query heads: the most blocks adding into each
+    # dk/dv tile, and s 300 cuts the 64- and the 128-row tiles
+    ("mqa_group8", dict(b=2, s=300, h=8, hkv=1, d=128, causal=True)),
 ]
 
 
@@ -196,9 +199,8 @@ def ptxas_usage(log):
 # the kernels that run wgmma with TMA loads (HGMMA and UTMALDG in their
 # SASS), and those that must show neither; every kernel is in one of them
 WGMMA_KERNELS = ("fused_ce_bwd_q", "fused_ce_bwd_dx", "fused_ce_bwd_dw",
-                 "flash_fwd")
-NO_WGMMA_KERNELS = ("fused_ce_fwd", "fused_ce_merge", "flash_bwd_dq",
-                    "flash_bwd_dkv")
+                 "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+NO_WGMMA_KERNELS = ("fused_ce_fwd", "fused_ce_merge")
 
 
 def sass_counts(library):

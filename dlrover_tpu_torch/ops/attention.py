@@ -18,16 +18,30 @@ float32, shaped ``(b, h, s)``:
   (``ds = p * (dp - (rowsum(do * o) - g_lse))``), which ring attention's
   logsumexp merge relies on.
 
-Kernels (``csrc/flash_attn.cu``, head dims 64 and 128). The forward is
-written for Hopper: per (batch, head, 128-row q-tile), one producer
-warpgroup streams K and V tiles of 128 keys by TMA (rank-4 tensor maps over
-(d, s, head, batch), built by the C entry point at each launch) through a
-3-stage mbarrier ring, and two consumer warpgroups run ``wgmma`` for
-``S = Q K^T`` and ``O += P V`` (P from registers) around an online softmax
-on the accumulators. dq and dk/dv keep FlashAttention-2's layout on
-``mma.sync`` with ``cp.async`` double buffering. ``chip_smoke.py`` checks
-each kernel against its plain version below and counts the wgmma
-(``HGMMA``) and TMA (``UTMALDG``) instructions in each kernel's SASS.
+Kernels (``csrc/flash_attn.cu``, head dims 64 and 128), all three written
+for Hopper on one design: a block of one producer and two consumer
+warpgroups owns a 128-row tile of one (batch, head); the producer loads the
+block's own tiles once and streams tiles of the other sequence axis by TMA
+(rank-4 tensor maps over (d, s, head, batch), built by the C entry point at
+each launch) through a 3-stage mbarrier ring; each consumer warpgroup owns
+64 of the rows and runs ``wgmma``, with probabilities and gradients passed
+from the accumulators to the next product as bf16 register operands.
+
+- forward: 128-key K and V tiles; ``S = Q K^T`` and ``O += P V`` around an
+  online softmax on the accumulators.
+- dq: a 128-query block streams 64-key K and V tiles; ``S = Q K^T``,
+  ``dP = dO V^T``, ``dS = P (dP - delta) scale``, ``dQ += dS K``; dQ of one
+  tile runs on the tensor cores while the next tile's dS is computed.
+- dk/dv: a 128-key block of one *query* head streams 64-query Q and dO
+  tiles with their lse and delta; ``S^T = K Q^T``, ``dP^T = V dO^T``,
+  ``dV += P^T dO``, ``dK += dS^T Q``, so no transpose is stored. One block a
+  query head (not a kv head) balances the causal grid; with GQA the
+  group's blocks add into zeroed f32 sums by atomics, which the wrapper
+  casts to k's dtype (so the last bits of dk and dv vary from run to run).
+
+``chip_smoke.py`` checks each kernel against its plain version below and
+counts the wgmma (``HGMMA``) and TMA (``UTMALDG``) instructions in each
+kernel's SASS.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version of each kernel (kept beside it here); a CUDA tensor launches the
@@ -155,7 +169,7 @@ def _kernels():
         dims = [i, i, i, i, i, i, f, i, p]  # b sq sk h hkv d scale causal stream
         lib.dlrover_flash_fwd.argtypes = [p] * 5 + dims
         lib.dlrover_flash_bwd_dq.argtypes = [p] * 7 + dims
-        lib.dlrover_flash_bwd_dkv.argtypes = [p] * 8 + dims
+        lib.dlrover_flash_bwd_dkv.argtypes = [p] * 10 + dims
         lib.dlrover_flash_supports_head_dim.argtypes = [i]
         for fn in (lib.dlrover_flash_fwd, lib.dlrover_flash_bwd_dq,
                    lib.dlrover_flash_bwd_dkv,
@@ -259,28 +273,41 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool):
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool):
     """(dk, dv), summed over each kv head's query group: the dk/dv kernel
-    on the card."""
+    on the card. With a group of one the kernel stores dk and dv; with more,
+    the group's query heads add into zeroed f32 sums, cast here to k's
+    dtype."""
     if _on_cpu(q):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal)
     b, sq, sk, h, hkv, d = _check_cuda(q, k, v, dout, lse, delta)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dk = dv = dk_acc = dv_acc = None
+    if h == hkv:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+    else:
+        sums = torch.zeros((2, *k.shape), dtype=torch.float32, device=k.device)
+        dk_acc, dv_acc = sums
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(q.device):
         rc = _kernels().dlrover_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, sk, h, hkv, d, 1.0 / math.sqrt(d), int(causal),
-            _stream(q),
+            lse.data_ptr(), delta.data_ptr(), ptr(dk), ptr(dv), ptr(dk_acc),
+            ptr(dv_acc), b, sq, sk, h, hkv, d, 1.0 / math.sqrt(d),
+            int(causal), _stream(q),
         )
     _raise_on(rc, "bwd_dkv")
     launch_counts["bwd_dkv"] += 1
+    if dk_acc is not None:
+        dk, dv = sums.to(k.dtype)
     return dk, dv
 
 
 def attention_delta(out, g_out, g_lse):
     """``rowsum(do * o) - g_lse`` as a contiguous f32 (b, h, s) vector: the
-    lse cotangent folds in here."""
-    delta = torch.einsum("bshd,bshd->bhs", g_out.float(), out.float())
+    lse cotangent folds in here. One f32 product (``out`` converted inside
+    the multiply), summed over the head dim."""
+    delta = (g_out.float() * out).sum(dim=-1).transpose(1, 2)
     return (delta - g_lse.float()).contiguous()
 
 

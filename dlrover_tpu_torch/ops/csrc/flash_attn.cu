@@ -12,42 +12,32 @@
 //
 // What bounds them: at the training shapes (s = 2048, d = 128) every kernel
 // does O(s^2 d) tensor-core work on O(s d) bytes, so all three are bound by
-// operations.
+// operations: the tensor cores' rate, and what keeps them waiting (the
+// softmax and the gradient arithmetic on the accumulators, the loads, a
+// causal grid's longest block).
 //
-// The forward is written for Hopper: a block of one producer and two
-// consumer warpgroups owns a 128-row Q tile of one (batch, head). The
-// producer's one thread (40 registers after setmaxnreg) loads Q once and
-// streams 128-key K and V tiles through a 3-stage ring by TMA, each stage
-// behind a full and an empty mbarrier; each tile is a rank-4 box over
-// (d, s, head, batch) under 128-byte swizzle, so a ragged tile reads zeros
-// at its own sequence's end. Each consumer warpgroup (232 registers) owns
-// 64 of the rows: S = Q K^T by wgmma m64n128k16 from shared memory, the
-// online softmax on the accumulator registers (row max and sum over the
-// quad; exp2 with the scale folded in), then O += P V by wgmma with P
-// converted to bf16 in registers as the A operand (the accumulator layout
-// is already the A fragment's) and V read MN-major. A tile's S product is
-// issued with the previous tile's P V, so each warpgroup's softmax runs
-// while the tensor cores work, and the two warpgroups interleave besides.
-// Only the diagonal tile and a tile reaching past sk mask; the k loop stops
-// at the diagonal; the longest causal q-tiles launch first (the q-tile is
-// the grid's slowest index).
-//
-// The backward kernels keep the FlashAttention-2 layout on mma.sync: a
-// block of 4 warps owns one 64-row tile and loops over 64-row tiles of the
-// other sequence axis; each warp owns 16 of the rows, and its scores,
-// softmax probabilities and output accumulator stay in registers as
-// m16n8k16 fragments (a score fragment is re-packed in registers as the A
-// operand of the next product). Only the streamed 64 x d bf16 tiles pass
-// through shared memory, double-buffered with cp.async and read into
-// fragments with ldmatrix (.trans where the product needs the transpose). A
-// dq block owns one (b, h, q-tile) and stops at the causal diagonal; a
-// dk/dv block owns one (b, kv-head, k-tile) and loops over group x q-tiles,
-// so the group's query heads sum on chip and no block writes another
-// block's output (no atomics).
+// All three kernels share one design, written for Hopper: a block of one
+// producer and two consumer warpgroups owns a 128-row tile of one (batch,
+// head) and loops over 64- or 128-row tiles of the other sequence axis. The
+// producer's one thread (after setmaxnreg, 24-40 registers) loads the
+// block's own tiles once and streams the others through a 3-stage ring by
+// TMA, each stage behind a full and an empty mbarrier; each tile is a
+// rank-4 box over (d, s, head, batch) under 128-byte swizzle, so a ragged
+// tile reads zeros at its own sequence's end and never the next batch's
+// rows. Each consumer warpgroup (232-240 registers) owns 64 of the rows and
+// runs wgmma m64nNk16: products of two tiles from shared memory (both
+// K-major), and products whose A operand is a probability or gradient tile
+// converted to bf16 in registers (the m64 accumulator layout is the A
+// fragment's) against a tile read MN-major. The arithmetic between products
+// runs on the accumulator registers, overlapped with the tensor cores'
+// next product. Zero fill is not a mask (a key past sk scores 0, so its p
+// would be exp(-lse)): every tile that reaches past sq or sk or crosses
+// the causal diagonal masks explicitly, and a tile wholly below the
+// diagonal skips the test.
 //
 // Plain C interface (bound with ctypes). Each entry returns the
-// cudaError_t of its launch, 0 on success; the forward returns
-// cudaErrorInvalidValue if a tensor map cannot be encoded.
+// cudaError_t of its launch, 0 on success, or cudaErrorInvalidValue if a
+// tensor map cannot be encoded.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -59,179 +49,12 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 64;  // query rows per tile
-constexpr int BK = 64;  // key rows per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG = -1e30f;
-
-static_assert(BQ == 16 * NWARPS && BK == 16 * NWARPS,
-              "each warp owns 16 rows of a 64-row tile");
-
-// a 64 x D bf16 tile in shared memory, rows padded by 16 bytes so the eight
-// row addresses of an ldmatrix fall in distinct banks
-template <int D>
-struct Tile {
-  static constexpr int LD = D + 8;
-  static constexpr int ELEMS = 64 * LD;
-  static constexpr int BYTES = ELEMS * 2;
-};
-
-// ---- PTX wrappers -----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; a false predicate zero-fills
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8 f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---- fragment helpers ---------------------------------------------------------
-//
-// Lane l of a warp: g = l / 4 and t = l % 4. A 16 x 8 accumulator fragment
-// c[4] holds (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, same cols) in
-// c[2..3]. For ldmatrix.x4, lane l addresses row l % 8 of matrix l / 8.
-
-// A operand (16 x 16, k-step kk) from the warp's 16 rows of a row-major tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int row0,
-                                       int kk, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldmatrix_x4(a, tile + (row0 + r + 8 * (m % 2)) * ld + 16 * kk + 8 * (m / 2));
-}
-
-// B operands of n-tiles 2jp and 2jp+1 for X @ T^T, T a row-major tile whose
-// rows are the n index (k-step kk over T's columns)
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const bf16* tile, int ld,
-                                            int jp, int kk, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldmatrix_x4(b, tile + (16 * jp + 8 * (m / 2) + r) * ld + 16 * kk + 8 * (m % 2));
-}
-
-// B operands of n-tiles 2np and 2np+1 for X @ T, T a row-major tile whose
-// rows are the k index (k-step kk over T's rows)
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const bf16* tile, int ld,
-                                            int kk, int np, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldmatrix_x4_trans(b, tile + (16 * kk + 8 * (m % 2) + r) * ld + 16 * np + 8 * (m / 2));
-}
-
-// s (16 x 64, as 8 n-tiles) = rows [row0, row0+16) of A @ B^T over D
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[8][4], const bf16* A, int row0,
-                                       const bf16* B, int lane) {
-  constexpr int LD = Tile<D>::LD;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, A, LD, row0, kk, lane);
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      uint32_t b[4];
-      load_b_rows(b, B, LD, jp, kk, lane);
-      mma(s[2 * jp], a, b[0], b[1]);
-      mma(s[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x D, as D/8 n-tiles) += p (16 x 64 in registers) @ T (64 x D tile)
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&p)[8][4],
-                                           const bf16* T, int lane) {
-  constexpr int LD = Tile<D>::LD;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    // the score fragments of n-tiles 2kk, 2kk+1 are the A operand of k-step kk
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b[4];
-      load_b_cols(b, T, LD, kk, np, lane);
-      mma(acc[2 * np], a, b[0], b[1]);
-      mma(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// rows [row0, row0 + 64) of a (nrows, D) matrix, rows `stride` elements
-// apart -> a shared tile, asynchronously; rows past nrows read as zeros
-template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int row0,
-                                                int nrows, long stride) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < 64 * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = row0 + r < nrows;
-    cp_async16(dst + r * Tile<D>::LD + c, ok ? src + (long)(row0 + r) * stride + c : src, ok);
-  }
-}
-
-// the warp's 16 x D f32 accumulator -> bf16 rows of dst (bounded by nrows)
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, long stride, const float (&acc)[D / 8][4],
-                                           int row, int nrows, int lane) {
-  const int t = lane % 4;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int rr = row + 8 * half;
-    if (rr >= nrows) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      __nv_bfloat162 v = __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long)rr * stride + 8 * n + 2 * t) = v;
-    }
-  }
-}
-
-__device__ __forceinline__ bool visible(int qpos, int kpos, int sq, int sk, int causal) {
-  return qpos < sq && kpos < sk && (!causal || kpos <= qpos);
 }
 
 // 2^x on the special-function unit; 2^(-huge) = 0
@@ -249,6 +72,18 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// An accumulator tile (m64 x N, N / 2 floats a thread) -> bf16 A operands,
+// one a k16 step: pa[kk][j] is (row + 8 (j % 2), columns 16 kk + 8 (j / 2)
+// + 2 t, + 1), the layout of an m64nNk16 accumulator and of a wgmma A
+// fragment alike
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[N / 16][4], const float (&p)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(p[8 * kk + 2 * j], p[8 * kk + 2 * j + 1]);
 }
 
 // ---------------------------------------------------------------------------
@@ -310,16 +145,6 @@ __device__ __forceinline__ void softmax_step(float (&sc)[FWD_KEYS / 2], float (&
     sc[i] = exp2_approx(fmaf(sc[i], sl2, -base[(i / 2) % 2]));
     rowsum[(i / 2) % 2] += sc[i];
   }
-}
-
-// p (accumulator layout) -> bf16 A operands, one a k16 step: pa[kk][j] is
-// (row + 8 (j % 2), keys 16 kk + 8 (j / 2) + 2 t, + 1)
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[FWD_KEYS / 16][4],
-                                       const float (&p)[FWD_KEYS / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(p[8 * kk + 2 * j], p[8 * kk + 2 * j + 1]);
 }
 
 template <int D>
@@ -457,7 +282,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       if (masks(0)) mask_scores(sc, 0, row, t, sk, causal);
       softmax_step(sc, m_r, corr, rowsum, sl2);
       rescale(corr, rowsum);
-      pack_p(pa, sc);
+      pack_a<FWD_KEYS>(pa, sc);
     }
     for (int kt = 1; kt < nk; ++kt) {
       const int s = kt % FWD_STAGES, prev = (kt - 1) % FWD_STAGES, k0 = kt * FWD_KEYS;
@@ -474,7 +299,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int kk = 0; kk < FWD_KEYS / 16; ++kk) sm90::fence_regs(pa[kk]);
       if (threadIdx.x % 128 == 0) sm90::mbar_arrive(empty + 8 * prev);
       rescale(corr, rowsum);
-      pack_p(pa, sc);
+      pack_a<FWD_KEYS>(pa, sc);
     }
     if (nk > 0) {
       issue_pv(pa, (nk - 1) % FWD_STAGES);
@@ -505,203 +330,492 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// backward dq: grid (q-tiles, h, b)
-//   p = exp(scale q.k - lse), ds = p (do.v - delta) scale, dq = sum_k ds k
+// backward, on wgmma + TMA. Both kernels: a block owns BWD_ROWS rows of one
+// (batch, head) in two 64-row halves, one a consumer warpgroup, and streams
+// tiles of BWD_COLS rows of the other axis through a ring of BWD_STAGES
+// stages. Their score tiles are 64 x 64 (m64n64k16), so S and dP take 32
+// f32 registers a thread each beside the gradient accumulators.
 // ---------------------------------------------------------------------------
+constexpr int BWD_ROWS = 128;  // rows a block owns: queries (dq), keys (dk/dv)
+constexpr int BWD_COLS = 64;   // rows of a streamed tile: keys (dq), queries (dk/dv)
+constexpr int BWD_STAGES = 3;
+constexpr int BWD_THREADS = 384;
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int sq, int sk, int h, int hkv,
-                    float scale, int causal) {
-  using T = Tile<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + T::ELEMS;
-  bf16* Ks = dOs + T::ELEMS;     // two buffers
-  bf16* Vs = Ks + 2 * T::ELEMS;  // two buffers
+struct BwdSmem {
+  static constexpr int OWN_BOX = BWD_ROWS * 128;       // one [128 rows][64] box
+  static constexpr int OWN_TILE = D / 64 * OWN_BOX;    // an owned Q, dO, K or V tile
+  static constexpr int COL_BOX = BWD_COLS * 128;       // one [64 rows][64] box
+  static constexpr int COL_TILE = D / 64 * COL_BOX;    // a streamed tile
+  static constexpr int STAGE_BYTES = 2 * COL_TILE;     // K and V (dq), Q and dO (dk/dv)
+  static constexpr int VEC_BYTES = 2 * BWD_COLS * 4;   // a dk/dv stage's lse and delta
+  // two owned tiles, the ring, (dk/dv) the ring's vectors, own_full +
+  // full[] + empty[], and slack to round up to 1024
+  static constexpr int DQ_BYTES =
+      1024 + 2 * OWN_TILE + BWD_STAGES * STAGE_BYTES + (1 + 2 * BWD_STAGES) * 8;
+  static constexpr int DKV_BYTES = DQ_BYTES + BWD_STAGES * VEC_BYTES;
+  static_assert(DKV_BYTES <= 232448, "fits a block's shared memory");
+};
 
-  const int nq = (sq + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - blockIdx.x) * BQ;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const int hk = hh / (h / hkv);
-  const long qstride = (long)h * D, kstride = (long)hkv * D;
-  const long qoff = (long)bb * sq * qstride + (long)hh * D;
-  const long koff = (long)bb * sk * kstride + (long)hk * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = 16 * warp;
-
-  const int k_lim = causal ? min(sk, min(q0 + BQ, sq)) : sk;
-  const int nkt = (k_lim + BK - 1) / BK;
-  load_tile_async<D>(Qs, q + qoff, q0, sq, qstride);
-  load_tile_async<D>(dOs, dout + qoff, q0, sq, qstride);
-  load_tile_async<D>(Ks, k + koff, 0, sk, kstride);
-  load_tile_async<D>(Vs, v + koff, 0, sk, kstride);
-  cp_async_commit();
-
-  const float* lseh = lse + ((long)bb * h + hh) * sq;
-  const float* deltah = delta + ((long)bb * h + hh) * sq;
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qpos = q0 + row0 + g + 8 * i;
-    lse_r[i] = qpos < sq ? lseh[qpos] : 0.0f;
-    delta_r[i] = qpos < sq ? deltah[qpos] : 0.0f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nkt) {
-      load_tile_async<D>(Ks + (buf ^ 1) * T::ELEMS, k + koff, (kt + 1) * BK, sk, kstride);
-      load_tile_async<D>(Vs + (buf ^ 1) * T::ELEMS, v + koff, (kt + 1) * BK, sk, kstride);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kb = Ks + buf * T::ELEMS;
-    const bf16* Vb = Vs + buf * T::ELEMS;
-    const int k0 = kt * BK;
-
-    float s[8][4], dp[8][4];
-    scores<D>(s, Qs, row0, Kb, lane);
-    scores<D>(dp, dOs, row0, Vb, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        const int qpos = q0 + row0 + g + 8 * i, kpos = k0 + 8 * j + 2 * t + (e % 2);
-        const float p =
-            visible(qpos, kpos, sq, sk, causal) ? __expf(s[j][e] * scale - lse_r[i]) : 0.0f;
-        s[j][e] = p * (dp[j][e] - delta_r[i]) * scale;  // ds
-      }
-    accumulate<D>(acc, s, Kb, lane);
-    __syncthreads();
-  }
-  store_rows<D>(dq + qoff, qstride, acc, q0 + row0 + g, sq, lane);
+// offsets (bytes >> 4, to add to a descriptor) of k16 step kk along d of a
+// K-major tile of 64-wide boxes BOX bytes apart
+template <int BOX>
+__device__ __forceinline__ uint64_t kstep(int kk) {
+  return (uint64_t)(((kk / 4) * BOX + (kk % 4) * 32) >> 4);
 }
 
-// ---------------------------------------------------------------------------
-// backward dk/dv: grid (k-tiles, hkv, b); loops over the group's query heads
-// and their q-tiles, so dk/dv of one kv head are summed on chip. Each warp
-// owns 16 keys and computes the transposed products directly:
-//   s^T = k q^T, p^T = exp(scale s^T - lse), dp^T = v do^T,
-//   dv += p^T do,  ds^T = p^T (dp^T - delta) scale,  dk += ds^T q
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
-                     int h, int hkv, float scale, int causal) {
-  using T = Tile<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + T::ELEMS;
-  bf16* Qs = Vs + T::ELEMS;       // two buffers
-  bf16* dOs = Qs + 2 * T::ELEMS;  // two buffers
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * T::ELEMS);  // [2][BQ]
-  float* delta_s = lse_s + 2 * BQ;                               // [2][BQ]
-
-  const int ki = blockIdx.x, hk = blockIdx.y, bb = blockIdx.z;
-  const int group = h / hkv;
-  const int k0 = ki * BK;
-  const long qstride = (long)h * D, kstride = (long)hkv * D;
-  const long koff = (long)bb * sk * kstride + (long)hk * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = 16 * warp;  // the warp's keys within the tile
-
-  const int nq = (sq + BQ - 1) / BQ;
-  const int qt0 = causal ? k0 / BQ : 0;  // q-tiles wholly above the diagonal skip
-  const int per_head = max(nq - qt0, 0);
-  const int n_iter = group * per_head;
-
-  // (query head, q-tile) of iteration `it` -> its tiles into buffer `buf`
-  auto load_q_tiles = [&](int it, int buf) {
-    const int hq = hk * group + it / per_head;
-    const int qs = (qt0 + it % per_head) * BQ;
-    const long qoff = (long)bb * sq * qstride + (long)hq * D;
-    load_tile_async<D>(Qs + buf * T::ELEMS, q + qoff, qs, sq, qstride);
-    load_tile_async<D>(dOs + buf * T::ELEMS, dout + qoff, qs, sq, qstride);
-    const long voff = ((long)bb * h + hq) * sq;
-    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-      const bool ok = qs + i < sq;
-      lse_s[buf * BQ + i] = ok ? lse[voff + qs + i] : 0.0f;
-      delta_s[buf * BQ + i] = ok ? delta[voff + qs + i] : 0.0f;
-    }
-  };
-
-  load_tile_async<D>(Ks, k + koff, k0, sk, kstride);
-  load_tile_async<D>(Vs, v + koff, k0, sk, kstride);
-  if (n_iter > 0) load_q_tiles(0, 0);
-  cp_async_commit();
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+// A 64 x 64 score tile in the accumulator layout (sc[4 i + 2 h + e] is row
+// `row` + 8 h, column col0 + 8 i + 2 t + e): every pair that is not visible
+// (a query past sq, a key past sk, or a key after its query when causal)
+// scores NEG, so its p = exp2(NEG sl2 - lse) is 0. Rows are queries and
+// columns keys in dq, the reverse in dk/dv.
+template <bool ROWS_ARE_KEYS>
+__device__ __forceinline__ void mask_tile(float (&sc)[BWD_COLS / 2], int row, int col0, int t,
+                                          int sq, int sk, int causal) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int i = 0; i < BWD_COLS / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      dk_acc[n][e] = 0.0f;
-      dv_acc[n][e] = 0.0f;
+      const int r = row + 8 * (e / 2), cl = col0 + 8 * i + 2 * t + (e % 2);
+      const int qpos = ROWS_ARE_KEYS ? cl : r, kpos = ROWS_ARE_KEYS ? r : cl;
+      if (qpos >= sq || kpos >= sk || (causal && kpos > qpos)) sc[4 * i + e] = NEG;
     }
-
-  for (int it = 0; it < n_iter; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_iter) load_q_tiles(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Qb = Qs + buf * T::ELEMS;
-    const bf16* dOb = dOs + buf * T::ELEMS;
-    const float* lse_b = lse_s + buf * BQ;
-    const float* delta_b = delta_s + buf * BQ;
-    const int q0 = (qt0 + it % per_head) * BQ;
-
-    float p[8][4];  // p^T: rows = the warp's keys, cols = the tile's queries
-    scores<D>(p, Ks, row0, Qb, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e % 2);
-        const int kpos = k0 + row0 + g + 8 * (e / 2);
-        p[j][e] = visible(q0 + col, kpos, sq, sk, causal)
-                      ? __expf(p[j][e] * scale - lse_b[col])
-                      : 0.0f;
-      }
-    accumulate<D>(dv_acc, p, dOb, lane);  // dv += p^T do
-
-    float ds[8][4];
-    scores<D>(ds, Vs, row0, dOb, lane);  // dp^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e % 2);
-        ds[j][e] = p[j][e] * (ds[j][e] - delta_b[col]) * scale;
-      }
-    accumulate<D>(dk_acc, ds, Qb, lane);  // dk += ds^T q
-    __syncthreads();  // the next prefetch overwrites this buffer
-  }
-  cp_async_wait<0>();  // with no q-tile at all, K and V may still be landing
-  store_rows<D>(dk + koff, kstride, dk_acc, k0 + row0 + g, sk, lane);
-  store_rows<D>(dv + koff, kstride, dv_acc, k0 + row0 + g, sk, lane);
 }
 
+// ---------------------------------------------------------------------------
+// backward dq: grid (h, b, q-tiles of BWD_ROWS), the longest causal q-tiles
+// first.
+//   p = exp(scale q.k - lse), ds = p (do.v - delta) scale, dq = sum_k ds k
+// The producer's one thread loads the block's Q and dO once and streams
+// 64-key K and V tiles (the K tile of a stage serves both S and dQ). Each
+// consumer warpgroup owns 64 query rows, keeps lse and delta of its
+// thread's two rows in registers and runs, for key tile kt:
+//   S = Q K^T and dP = dO V^T (wgmma from shared memory, both K-major, one
+//   commit group each), then P = exp2(sl2 S - lse log2 e) and
+//   dS = P (dP - delta) on the accumulators, then dQ += dS K with dS in
+//   bf16 registers as the A operand and K read MN-major ([k = key][n = d],
+//   as the forward reads V). The scale multiplies dQ once, at the store.
+// dQ of tile kt - 1 is issued behind S and dP of tile kt, so P and dS of kt
+// are computed while the tensor cores run dQ of kt - 1; the ring holds tile
+// kt - 1's K for that, tile kt and the next load. Tile 0 runs outside the
+// loop, as the forward's does, so no wgmma issue sits under a branch.
+// What bounds it: 3 products of 64 x 64 x d a tile, two of them with both
+// operands in shared memory (at n = 64 those read as many bytes as the
+// shared memory delivers while the tensor cores run them), and the exp2 of
+// 4,096 scores a warpgroup; the ring keeps the loads out of the way. A 2-
+// stage ring ran 30 % slower on the card, a 4-stage one no faster.
+// ---------------------------------------------------------------------------
 template <int D>
-constexpr int dq_smem() { return 6 * Tile<D>::BYTES; }  // Q, dO, 2 K, 2 V
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int sq, int sk, int h, int hkv, float scale,
+                    int causal) {
+  using L = BwdSmem<D>;
+  extern __shared__ unsigned char dq_smem[];
+  const uint32_t qs = (sm90::smem_u32(dq_smem) + 1023u) & ~1023u;
+  const uint32_t dos = qs + L::OWN_TILE;
+  const uint32_t ring = dos + L::OWN_TILE;
+  const uint32_t own_full = ring + BWD_STAGES * L::STAGE_BYTES;
+  const uint32_t full = own_full + 8, empty = full + 8 * BWD_STAGES;
+
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BWD_ROWS;
+  const int hk = hh / (h / hkv);
+  const int k_lim = causal ? min(sk, min(q0 + BWD_ROWS, sq)) : sk;
+  const int nk = (k_lim + BWD_COLS - 1) / BWD_COLS;  // stops at the diagonal
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(own_full, 1);
+#pragma unroll
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);   // the producer's arrive, plus the bytes
+      sm90::mbar_init(empty + 8 * s, 2);  // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      sm90::mbar_expect_tx(own_full, 2 * L::OWN_TILE);
+#pragma unroll
+      for (int j = 0; j < D / 64; ++j) {
+        sm90::tma_load_4d(qs + j * L::OWN_BOX, &q_map, own_full, 64 * j, q0, hh, bb);
+        sm90::tma_load_4d(dos + j * L::OWN_BOX, &do_map, own_full, 64 * j, q0, hh, bb);
+      }
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % BWD_STAGES;
+        sm90::mbar_wait(empty + 8 * s, ((kt / BWD_STAGES) & 1) ^ 1);
+        const uint32_t ks = ring + s * L::STAGE_BYTES, vs = ks + L::COL_TILE;
+        const uint32_t bar = full + 8 * s;
+        sm90::mbar_expect_tx(bar, L::STAGE_BYTES);
+#pragma unroll
+        for (int j = 0; j < D / 64; ++j) {
+          sm90::tma_load_4d(ks + j * L::COL_BOX, &k_map, bar, 64 * j, kt * BWD_COLS, hk, bb);
+          sm90::tma_load_4d(vs + j * L::COL_BOX, &v_map, bar, 64 * j, kt * BWD_COLS, hk, bb);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;  // this warpgroup's 64 rows of the tile
+    const int lane = threadIdx.x % 32, t = lane % 4;
+    const int row = q0 + 64 * c + 16 * ((threadIdx.x / 32) % 4) + lane / 4;  // and row + 8
+    const float sl2 = scale * LOG2E;  // exp(scale x - lse) = exp2(sl2 x - lse log2 e)
+    const float* lseh = lse + ((long)bb * h + hh) * sq;
+    const float* deltah = delta + ((long)bb * h + hh) * sq;
+    float lse2[2], dlt[2];  // rows past sq are never stored
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = row + 8 * r < sq;
+      lse2[r] = ok ? lseh[row + 8 * r] * LOG2E : 0.0f;
+      dlt[r] = ok ? deltah[row + 8 * r] : 0.0f;
+    }
+    // Q and dO: K-major, this warpgroup's 64 rows from row 64 c of each
+    // [128][64] box. K and V: K-major for S and dP; K again MN-major for
+    // dQ: [keys][64 of d] boxes COL_BOX apart (LBO), 8-key groups 1024
+    // apart (SBO), a k16 step 16 keys down.
+    const uint64_t dqd = sm90::smem_desc(qs + c * 64 * 128, 16, 1024);
+    const uint64_t dod = sm90::smem_desc(dos + c * 64 * 128, 16, 1024);
+
+    float acc[D / 2];  // dQ: acc[4 i + 2 h + e] is (row + 8 h, 8 i + 2 t + e)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    sm90::mbar_wait(own_full, 0);
+
+    auto masks = [&](int k0) {
+      return k0 + BWD_COLS > sk || (causal && k0 + BWD_COLS - 1 > q0 + 64 * c);
+    };
+    // S = Q K^T and dP = dO V^T for the tiles of stage s: two commit groups
+    auto issue_s_dp = [&](float (&sc)[BWD_COLS / 2], float (&dp)[BWD_COLS / 2], int s) {
+      const uint64_t dk = sm90::smem_desc(ring + s * L::STAGE_BYTES, 16, 1024);
+      const uint64_t dv = sm90::smem_desc(ring + s * L::STAGE_BYTES + L::COL_TILE, 16, 1024);
+#pragma unroll
+      for (int i = 0; i < BWD_COLS / 2; ++i) sc[i] = dp[i] = 0.0f;
+      sm90::fence_acc(sc);
+      sm90::fence_acc(dp);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss<BWD_COLS>(sc, dqd + kstep<L::OWN_BOX>(kk), dk + kstep<L::COL_BOX>(kk));
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss<BWD_COLS>(dp, dod + kstep<L::OWN_BOX>(kk), dv + kstep<L::COL_BOX>(kk));
+      sm90::wgmma_commit();
+    };
+    // dQ += dS K for the K tile of stage s, issued and committed
+    auto issue_dq = [&](uint32_t (&dsa)[BWD_COLS / 16][4], int s) {
+      const uint64_t dk = sm90::smem_desc(ring + s * L::STAGE_BYTES, L::COL_BOX, 1024);
+      sm90::fence_acc(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BWD_COLS / 16; ++kk)
+        sm90::wgmma_rs<D, true>(acc, dsa[kk], dk + (uint64_t)((kk * 16 * 128) >> 4));
+      sm90::wgmma_commit();
+    };
+    auto probs = [&](float (&sc)[BWD_COLS / 2], int k0) {
+      if (masks(k0)) mask_tile<false>(sc, row, k0, t, sq, sk, causal);
+#pragma unroll
+      for (int i = 0; i < BWD_COLS / 2; ++i)
+        sc[i] = exp2_approx(fmaf(sc[i], sl2, -lse2[(i / 2) % 2]));
+    };
+    auto grads = [&](const float (&p)[BWD_COLS / 2], float (&dp)[BWD_COLS / 2]) {
+#pragma unroll
+      for (int i = 0; i < BWD_COLS / 2; ++i) dp[i] = p[i] * (dp[i] - dlt[(i / 2) % 2]);
+    };
+
+    float sc[BWD_COLS / 2], dp[BWD_COLS / 2];  // S then P, dP then dS
+    uint32_t dsa[BWD_COLS / 16][4];            // dS as the A operand
+    if (nk > 0) {
+      sm90::mbar_wait(full, 0);
+      issue_s_dp(sc, dp, 0);
+      sm90::wgmma_wait<1>();
+      sm90::fence_acc(sc);
+      probs(sc, 0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(dp);
+      grads(sc, dp);
+      pack_a<BWD_COLS>(dsa, dp);
+    }
+    for (int kt = 1; kt < nk; ++kt) {
+      const int s = kt % BWD_STAGES, prev = (kt - 1) % BWD_STAGES;
+      sm90::mbar_wait(full + 8 * s, (kt / BWD_STAGES) & 1);
+      issue_s_dp(sc, dp, s);
+      issue_dq(dsa, prev);
+      sm90::wgmma_wait<2>();  // S is in
+      sm90::fence_acc(sc);
+      probs(sc, kt * BWD_COLS);
+      sm90::wgmma_wait<1>();  // dP is in; dQ of kt - 1 may still run
+      sm90::fence_acc(dp);
+      grads(sc, dp);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < BWD_COLS / 16; ++kk) sm90::fence_regs(dsa[kk]);
+      if (threadIdx.x % 128 == 0) sm90::mbar_arrive(empty + 8 * prev);
+      pack_a<BWD_COLS>(dsa, dp);
+    }
+    if (nk > 0) {
+      issue_dq(dsa, (nk - 1) % BWD_STAGES);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < BWD_COLS / 16; ++kk) sm90::fence_regs(dsa[kk]);
+    }
+
+    const long qstride = (long)h * D;
+    bf16* dqh = dq + (long)bb * sq * qstride + (long)hh * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row + 8 * r;
+      if (qpos >= sq) continue;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(dqh + (long)qpos * qstride + 8 * i + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * r] * scale, acc[4 * i + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward dk/dv: grid (h, b, k-tiles of BWD_ROWS), the longest causal
+// k-tiles (the first) first. A block owns the k-tile of one QUERY head:
+//   s^T = k q^T, p^T = exp(scale s^T - lse), dp^T = v do^T,
+//   dv += p^T do,  ds^T = p^T (dp^T - delta) scale,  dk += ds^T q
+// summed over that head's q-tiles. One block a query head, not a kv head,
+// balances the causal grid: a kv head's column of group x q-tiles would
+// make the first k-tile's block group times longer than a query head's.
+// With group 1 the block stores dk and dv in bf16; with group > 1 the
+// group's blocks add their f32 sums into a zeroed (b, sk, hkv, d) buffer
+// by float2 atomics (red.global.add on column pairs; the wrapper casts the
+// sums to bf16), so the order of the group's terms, and the last bits of
+// the sum, vary from run to run. Scalar atomics cost 20 % of the kernel
+// at the main case on the card, the pairs 8 %.
+// The producer warp loads K and V once; lane 0 streams 64-query Q and dO
+// tiles by TMA and the warp's 32 lanes copy the tile's lse (times log2 e)
+// and delta into the stage beside them, bounded by sq, before each lane
+// arrives on the stage's full barrier. Each consumer warpgroup owns 64 keys
+// and computes the products transposed, so no transpose is ever stored:
+//   S^T = K Q^T and dP^T = V dO^T (wgmma from shared memory, both K-major,
+//   one commit group each); P^T = exp2(sl2 S^T - lse) with lse a column's,
+//   read from the stage; dV += P^T dO (P^T in bf16 registers, dO MN-major)
+//   issued while dS^T = P^T (dP^T - delta) is computed; dK += dS^T Q (Q
+//   MN-major); the scale multiplies dK once, at the store.
+// What bounds it: 4 products of 64 x 64 x d a tile, and S^T and dP^T read
+// both operands from shared memory as dq's S and dP do. Each tile waits
+// for its own dK product before the next tile's S^T: issuing S^T of the
+// next tile first (dK and dV in flight across the loop) made ptxas
+// serialise the wgmma (C7515) and ran 15 % slower on the card, so the two
+// warpgroups' turns on the tensor cores are what overlaps.
+// ---------------------------------------------------------------------------
 template <int D>
-constexpr int dkv_smem() {  // K, V, 2 Q, 2 dO, 2 x (lse, delta)
-  return 6 * Tile<D>::BYTES + 4 * BQ * (int)sizeof(float);
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dk_acc,
+                     float* __restrict__ dv_acc, int sq, int sk, int h, int hkv, float scale,
+                     int causal) {
+  using L = BwdSmem<D>;
+  extern __shared__ unsigned char dkv_smem[];
+  const uint32_t raw = sm90::smem_u32(dkv_smem);
+  const uint32_t ks = (raw + 1023u) & ~1023u;
+  const uint32_t vs = ks + L::OWN_TILE;
+  const uint32_t ring = vs + L::OWN_TILE;
+  const uint32_t vecs = ring + BWD_STAGES * L::STAGE_BYTES;  // [stage][lse, delta][64]
+  const uint32_t own_full = vecs + BWD_STAGES * L::VEC_BYTES;
+  const uint32_t full = own_full + 8, empty = full + 8 * BWD_STAGES;
+  float* vec_ptr = reinterpret_cast<float*>(dkv_smem + (vecs - raw));
+
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int k0 = blockIdx.z * BWD_ROWS;
+  const int hk = hh / (h / hkv);
+  const int nq = (sq + BWD_COLS - 1) / BWD_COLS;
+  const int qt0 = causal ? min(k0 / BWD_COLS, nq) : 0;  // q-tiles wholly above the diagonal skip
+  const int n_it = nq - qt0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(own_full, 1);
+#pragma unroll
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      sm90::mbar_init(full + 8 * s, 32);  // the producer warp's lanes; lane 0's with the bytes
+      sm90::mbar_init(empty + 8 * s, 2);  // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 32) {
+      if (lane == 0) {
+        sm90::mbar_expect_tx(own_full, 2 * L::OWN_TILE);
+#pragma unroll
+        for (int j = 0; j < D / 64; ++j) {
+          sm90::tma_load_4d(ks + j * L::OWN_BOX, &k_map, own_full, 64 * j, k0, hk, bb);
+          sm90::tma_load_4d(vs + j * L::OWN_BOX, &v_map, own_full, 64 * j, k0, hk, bb);
+        }
+      }
+      const float* lseh = lse + ((long)bb * h + hh) * sq;
+      const float* deltah = delta + ((long)bb * h + hh) * sq;
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % BWD_STAGES, q0 = (qt0 + it) * BWD_COLS;
+        sm90::mbar_wait(empty + 8 * s, ((it / BWD_STAGES) & 1) ^ 1);
+        float* v = vec_ptr + s * 2 * BWD_COLS;
+#pragma unroll
+        for (int j = lane; j < BWD_COLS; j += 32) {
+          const bool ok = q0 + j < sq;
+          v[j] = ok ? lseh[q0 + j] * LOG2E : 0.0f;
+          v[BWD_COLS + j] = ok ? deltah[q0 + j] : 0.0f;
+        }
+        const uint32_t bar = full + 8 * s;
+        if (lane == 0) {
+          const uint32_t qst = ring + s * L::STAGE_BYTES, dost = qst + L::COL_TILE;
+          sm90::mbar_expect_tx(bar, L::STAGE_BYTES);
+#pragma unroll
+          for (int j = 0; j < D / 64; ++j) {
+            sm90::tma_load_4d(qst + j * L::COL_BOX, &q_map, bar, 64 * j, q0, hh, bb);
+            sm90::tma_load_4d(dost + j * L::COL_BOX, &do_map, bar, 64 * j, q0, hh, bb);
+          }
+        } else {
+          sm90::mbar_arrive(bar);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = wg - 1;  // this warpgroup's 64 keys of the tile
+    const int lane = threadIdx.x % 32, t = lane % 4;
+    const int key = k0 + 64 * c + 16 * ((threadIdx.x / 32) % 4) + lane / 4;  // and key + 8
+    const float sl2 = scale * LOG2E;
+    // K and V: K-major, this warpgroup's 64 keys from row 64 c of each
+    // [128][64] box. Q and dO: K-major for S^T and dP^T; MN-major for dK
+    // and dV ([queries][64 of d] boxes COL_BOX apart, 8-query groups 1024
+    // apart, a k16 step 16 queries down).
+    const uint64_t dkd = sm90::smem_desc(ks + c * 64 * 128, 16, 1024);
+    const uint64_t dvd = sm90::smem_desc(vs + c * 64 * 128, 16, 1024);
+
+    float dk_r[D / 2], dv_r[D / 2];  // [4 i + 2 h + e] is (key + 8 h, 8 i + 2 t + e)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_r[i] = dv_r[i] = 0.0f;
+    sm90::mbar_wait(own_full, 0);
+
+    float st[BWD_COLS / 2], dpt[BWD_COLS / 2];  // S^T then P^T, dP^T then dS^T
+    uint32_t pa[BWD_COLS / 16][4], dsa[BWD_COLS / 16][4];
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % BWD_STAGES, q0 = (qt0 + it) * BWD_COLS;
+      const uint32_t qst = ring + s * L::STAGE_BYTES, dost = qst + L::COL_TILE;
+      const float2* lse_v = reinterpret_cast<const float2*>(vec_ptr + s * 2 * BWD_COLS);
+      const float2* dlt_v = lse_v + BWD_COLS / 2;
+      sm90::mbar_wait(full + 8 * s, (it / BWD_STAGES) & 1);
+
+      const uint64_t dq_k = sm90::smem_desc(qst, 16, 1024);
+      const uint64_t ddo_k = sm90::smem_desc(dost, 16, 1024);
+#pragma unroll
+      for (int i = 0; i < BWD_COLS / 2; ++i) st[i] = dpt[i] = 0.0f;
+      sm90::fence_acc(st);
+      sm90::fence_acc(dpt);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss<BWD_COLS>(st, dkd + kstep<L::OWN_BOX>(kk), dq_k + kstep<L::COL_BOX>(kk));
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss<BWD_COLS>(dpt, dvd + kstep<L::OWN_BOX>(kk), ddo_k + kstep<L::COL_BOX>(kk));
+      sm90::wgmma_commit();
+
+      sm90::wgmma_wait<1>();  // S^T is in
+      sm90::fence_acc(st);
+      if (q0 + BWD_COLS > sq || k0 + 64 * c + 64 > sk || (causal && q0 < k0 + 64 * c + 63))
+        mask_tile<true>(st, key, q0, t, sq, sk, causal);
+#pragma unroll
+      for (int i = 0; i < BWD_COLS / 8; ++i) {
+        const float2 l2 = lse_v[4 * i + t];  // columns 8 i + 2 t, + 1
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[4 * i + e] = exp2_approx(fmaf(st[4 * i + e], sl2, -(e % 2 ? l2.y : l2.x)));
+      }
+      pack_a<BWD_COLS>(pa, st);
+      // dV += P^T dO, while dS^T is computed
+      const uint64_t ddo_mn = sm90::smem_desc(dost, L::COL_BOX, 1024);
+      sm90::fence_acc(dv_r);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BWD_COLS / 16; ++kk)
+        sm90::wgmma_rs<D, true>(dv_r, pa[kk], ddo_mn + (uint64_t)((kk * 16 * 128) >> 4));
+      sm90::wgmma_commit();
+
+      sm90::wgmma_wait<1>();  // dP^T is in; dV may still run
+      sm90::fence_acc(dpt);
+#pragma unroll
+      for (int i = 0; i < BWD_COLS / 8; ++i) {
+        const float2 dl = dlt_v[4 * i + t];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[4 * i + e] = st[4 * i + e] * (dpt[4 * i + e] - (e % 2 ? dl.y : dl.x));
+      }
+      pack_a<BWD_COLS>(dsa, dpt);
+      // dK += dS^T Q
+      const uint64_t dq_mn = sm90::smem_desc(qst, L::COL_BOX, 1024);
+      sm90::fence_acc(dk_r);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BWD_COLS / 16; ++kk)
+        sm90::wgmma_rs<D, true>(dk_r, dsa[kk], dq_mn + (uint64_t)((kk * 16 * 128) >> 4));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(dv_r);
+      sm90::fence_acc(dk_r);
+#pragma unroll
+      for (int kk = 0; kk < BWD_COLS / 16; ++kk) {
+        sm90::fence_regs(pa[kk]);
+        sm90::fence_regs(dsa[kk]);
+      }
+      // the stage's vectors were read before this warpgroup issued dK's
+      // wgmma, which every warp of it joins, so they are read once its
+      // products are done
+      if (threadIdx.x % 128 == 0) sm90::mbar_arrive(empty + 8 * s);
+    }
+
+    const long kstride = (long)hkv * D;
+    const long base = (long)bb * sk * kstride + (long)hk * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = key + 8 * r;
+      if (kpos >= sk) continue;
+      const long off = base + (long)kpos * kstride + 2 * t;
+      if (dk_acc != nullptr) {
+        if (n_it == 0) continue;  // the buffer is zeroed
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          atomicAdd(reinterpret_cast<float2*>(dk_acc + off + 8 * i),
+                    make_float2(dk_r[4 * i + 2 * r] * scale, dk_r[4 * i + 2 * r + 1] * scale));
+          atomicAdd(reinterpret_cast<float2*>(dv_acc + off + 8 * i),
+                    make_float2(dv_r[4 * i + 2 * r], dv_r[4 * i + 2 * r + 1]));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * i) =
+              __floats2bfloat162_rn(dk_r[4 * i + 2 * r] * scale, dk_r[4 * i + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * i) =
+              __floats2bfloat162_rn(dv_r[4 * i + 2 * r], dv_r[4 * i + 2 * r + 1]);
+        }
+      }
+    }
+  }
 }
 
 template <typename Kernel>
@@ -711,13 +825,13 @@ int prepare(Kernel kernel, int smem_bytes) {
 }
 
 // a (b, s, heads, D) bf16 tensor as a rank-4 tensor map over (d, s, head,
-// batch), read in [FWD_ROWS][64] boxes of one head of one sequence
+// batch), read in [rows][64] boxes of one head of one sequence
 template <int D>
-int map_heads(CUtensorMap* map, const void* base, int b, int s, int heads) {
+int map_heads(CUtensorMap* map, const void* base, int b, int s, int heads, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)s, (cuuint64_t)heads, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)heads * D * 2, (cuuint64_t)D * 2,
                                  (cuuint64_t)s * heads * D * 2};
-  const cuuint32_t box[4] = {64, FWD_ROWS, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   return sm90::encode_tiled(map, base, 4, dims, strides, box);
 }
 
@@ -725,11 +839,10 @@ template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b,
                int sq, int sk, int h, int hkv, float scale, int causal,
                cudaStream_t stream) {
-  static_assert(FWD_KEYS == FWD_ROWS, "one box shape for Q, K and V");
   CUtensorMap q_map, k_map, v_map;
-  int err = map_heads<D>(&q_map, q, b, sq, h);
-  if (!err) err = map_heads<D>(&k_map, k, b, sk, hkv);
-  if (!err) err = map_heads<D>(&v_map, v, b, sk, hkv);
+  int err = map_heads<D>(&q_map, q, b, sq, h, FWD_ROWS);
+  if (!err) err = map_heads<D>(&k_map, k, b, sk, hkv, FWD_KEYS);
+  if (!err) err = map_heads<D>(&v_map, v, b, sk, hkv, FWD_KEYS);
   if (!err) err = prepare(flash_fwd_kernel<D>, FwdSmem<D>::BYTES);
   if (err) return err;
   dim3 grid(h, b, (sq + FWD_ROWS - 1) / FWD_ROWS);
@@ -738,32 +851,50 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
   return (int)cudaGetLastError();
 }
 
+// the backward's four maps: q and do of (b, sq, h), k and v of (b, sk,
+// hkv), the owned pair in boxes of BWD_ROWS rows and the streamed pair in
+// boxes of BWD_COLS
+template <int D>
+int bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* dout, const void* k,
+             const void* v, int b, int sq, int sk, int h, int hkv, bool q_owned) {
+  const int q_rows = q_owned ? BWD_ROWS : BWD_COLS, k_rows = q_owned ? BWD_COLS : BWD_ROWS;
+  int err = map_heads<D>(&maps[0], q, b, sq, h, q_rows);
+  if (!err) err = map_heads<D>(&maps[1], dout, b, sq, h, q_rows);
+  if (!err) err = map_heads<D>(&maps[2], k, b, sk, hkv, k_rows);
+  if (!err) err = map_heads<D>(&maps[3], v, b, sk, hkv, k_rows);
+  return err;
+}
+
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int b, int sq, int sk, int h,
               int hkv, float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = dq_smem<D>();
-  int err = prepare(flash_bwd_dq_kernel<D>, smem);
+  constexpr int smem = BwdSmem<D>::DQ_BYTES;
+  CUtensorMap maps[4];
+  int err = bwd_maps<D>(maps, q, dout, k, v, b, sq, sk, h, hkv, true);
+  if (!err) err = prepare(flash_bwd_dq_kernel<D>, smem);
   if (err) return err;
-  dim3 grid((sq + BQ - 1) / BQ, h, b);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, sq, sk, h, hkv, scale, causal);
+  dim3 grid(h, b, (sq + BWD_ROWS - 1) / BWD_ROWS);
+  flash_bwd_dq_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (bf16*)dq,
+      sq, sk, h, hkv, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, int b, int sq,
-               int sk, int h, int hkv, float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = dkv_smem<D>();
-  int err = prepare(flash_bwd_dkv_kernel<D>, smem);
+               const void* lse, const void* delta, void* dk, void* dv, void* dk_acc,
+               void* dv_acc, int b, int sq, int sk, int h, int hkv, float scale, int causal,
+               cudaStream_t stream) {
+  constexpr int smem = BwdSmem<D>::DKV_BYTES;
+  CUtensorMap maps[4];
+  int err = bwd_maps<D>(maps, q, dout, k, v, b, sq, sk, h, hkv, false);
+  if (!err) err = prepare(flash_bwd_dkv_kernel<D>, smem);
   if (err) return err;
-  dim3 grid((sk + BK - 1) / BK, hkv, b);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, sq, sk, h, hkv, scale,
-      causal);
+  dim3 grid(h, b, (sk + BWD_ROWS - 1) / BWD_ROWS);
+  flash_bwd_dkv_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, (float*)dk_acc, (float*)dv_acc, sq, sk, h, hkv, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -795,17 +926,20 @@ int dlrover_flash_bwd_dq(const void* q, const void* k, const void* v, const void
   return (int)cudaErrorInvalidValue;
 }
 
+// dk_acc and dv_acc: null when h == hkv (dk and dv are stored in bf16),
+// else zeroed f32 (b, sk, hkv, d) buffers the group's blocks add into (dk
+// and dv are then not written)
 int dlrover_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                          const void* lse, const void* delta, void* dk, void* dv, int b,
-                          int sq, int sk, int h, int hkv, int d, float scale, int causal,
-                          void* stream) {
+                          const void* lse, const void* delta, void* dk, void* dv,
+                          void* dk_acc, void* dv_acc, int b, int sq, int sk, int h, int hkv,
+                          int d, float scale, int causal, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, h, hkv, scale,
-                           causal, s);
+    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, dk_acc, dv_acc, b, sq, sk, h,
+                           hkv, scale, causal, s);
   if (d == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk, h, hkv, scale,
-                          causal, s);
+    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, dk_acc, dv_acc, b, sq, sk, h,
+                          hkv, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -43,7 +43,7 @@ def test_every_kernel_is_held_and_has_one_sass_expectation():
     assert not wgmma & plain
     assert wgmma | plain == held
     assert wgmma == {"fused_ce_bwd_q", "fused_ce_bwd_dx", "fused_ce_bwd_dw",
-                     "flash_fwd"}
+                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
     # each table's source is the file the kernel is defined in
     for name, _, _ in chip_smoke.KERNELS:
         assert chip_smoke.SOURCE.endswith(f"/{kernels[name]}.cu")
@@ -55,15 +55,17 @@ def test_sass_check_holds_each_kernel_instance():
     """check_sass fails a wgmma kernel instance without HGMMA or UTMALDG, a
     plain one with either, and a kernel missing from the SASS."""
     good = {"flash_fwd<64>": (12, 3), "flash_fwd<128>": (16, 6),
-            "flash_bwd_dq<64>": (0, 0), "flash_bwd_dq<128>": (0, 0),
-            "flash_bwd_dkv<64>": (0, 0), "flash_bwd_dkv<128>": (0, 0),
+            "flash_bwd_dq<64>": (12, 5), "flash_bwd_dq<128>": (24, 10),
+            "flash_bwd_dkv<64>": (16, 5), "flash_bwd_dkv<128>": (32, 10),
             "fused_ce_fwd": (0, 0), "fused_ce_merge": (0, 0),
             "fused_ce_bwd_q": (4, 5), "fused_ce_bwd_dx": (4, 2),
             "fused_ce_bwd_dw": (4, 6)}
     chip_smoke.check_sass(good)
     for inst, bad in (("flash_fwd<64>", (12, 0)),
                       ("fused_ce_bwd_dw", (0, 6)),
-                      ("flash_bwd_dkv<128>", (1, 0))):
+                      ("flash_bwd_dkv<128>", (32, 0)),
+                      ("flash_bwd_dq<64>", (0, 5)),
+                      ("fused_ce_fwd", (1, 0))):
         with pytest.raises(chip_smoke.SmokeFailure, match=re.escape(inst)):
             chip_smoke.check_sass({**good, inst: bad})
     missing = {k: v for k, v in good.items() if k != "fused_ce_merge"}

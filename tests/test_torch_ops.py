@@ -141,27 +141,31 @@ def test_mha_reference_lse_only_gradient_matches_jax():
     assert not np.asarray(ref[2]).any()
 
 
-# (causal, hkv, s, d) with h = 4, and the case's id. The first four run
-# two q and k blocks of 64 at d = 16; the rest run s = 192, three JAX
-# blocks, which is no multiple of the card kernel's 128-row forward tile,
-# at the head dims it is built for, with group 4
+# (causal, h, hkv, s, d) and the case's id. The first four run two q and
+# k blocks of 64 at d = 16 with h = 4; the next four run s = 192, three JAX
+# blocks, which is no multiple of the card kernels' 128-row tiles, at the
+# head dims they are built for, with group 4; the last two run group 8 (one
+# kv head), the group at which every dk/dv tile takes the most query heads
 _FLASH_INTERPRET_CASES = [
-    pytest.param(True, 4, 128, 16, id="group1-True"),
-    pytest.param(True, 2, 128, 16, id="group2-True"),
-    pytest.param(False, 4, 128, 16, id="group1-False"),
-    pytest.param(False, 2, 128, 16, id="group2-False"),
+    pytest.param(True, 4, 4, 128, 16, id="group1-True"),
+    pytest.param(True, 4, 2, 128, 16, id="group2-True"),
+    pytest.param(False, 4, 4, 128, 16, id="group1-False"),
+    pytest.param(False, 4, 2, 128, 16, id="group2-False"),
 ] + [
-    pytest.param(causal, 1, 192, d, id=f"s192-d{d}-group4-{causal}")
+    pytest.param(causal, 4, 1, 192, d, id=f"s192-d{d}-group4-{causal}")
     for d in (64, 128) for causal in (True, False)
+] + [
+    pytest.param(causal, 8, 1, 128, 16, id=f"group8-{causal}")
+    for causal in (True, False)
 ]
 
 
-@pytest.mark.parametrize("causal,hkv,s,d", _FLASH_INTERPRET_CASES)
-def test_flash_attention_cpu_matches_pallas_interpret(causal, hkv, s, d):
+@pytest.mark.parametrize("causal,h,hkv,s,d", _FLASH_INTERPRET_CASES)
+def test_flash_attention_cpu_matches_pallas_interpret(causal, h, hkv, s, d):
     """Out, lse and the q/k/v grads (lse cotangent included) of the port's
     flash attention on the CPU against the Pallas fwd/dq/dkv kernels in
     interpret mode, with JAX blocks of 64."""
-    q, k, v, g_out, g_lse = _qkv(1, s, 4, hkv, d, seed=6)
+    q, k, v, g_out, g_lse = _qkv(1, s, h, hkv, d, seed=6)
     ref = _jax_value_and_grads(
         lambda q, k, v: jattn.flash_attention_with_lse(
             q, k, v, causal, 64, 64, True),
@@ -188,6 +192,35 @@ def test_flash_plain_kernel_versions_match_autograd():
     dk, dv = tattn.flash_bwd_dkv_plain(tq, tk, tv, tg, lse, delta, True)
     for a, b in zip((dq, dk, dv), ref[2:]):
         np.testing.assert_allclose(a.numpy(), b, **F32_TOL)
+
+
+@pytest.mark.parametrize("h,hkv", [(8, 1), (4, 4)])
+def test_flash_bwd_dkv_cpu_path_returns_k_dtype_and_shape(h, hkv):
+    """dk and dv come back in k's dtype and shape, with a group (where the
+    card's kernel adds into f32 sums) and without."""
+    q, k, v, g_out, _ = _qkv(2, 12, h, hkv, 16, seed=10)
+    tq, tk, tv, tg = (_t(a).to(torch.bfloat16) for a in (q, k, v, g_out))
+    out, lse = tattn.flash_fwd(tq, tk, tv, True)
+    delta = tattn.attention_delta(out, tg, torch.zeros_like(lse))
+    dk, dv = tattn.flash_bwd_dkv(tq, tk, tv, tg, lse, delta, True)
+    for g, ref in ((dk, tk), (dv, tv)):
+        assert g.dtype == torch.bfloat16 and g.shape == ref.shape
+        assert torch.isfinite(g.float()).all()
+
+
+def test_attention_delta_is_rowsum_of_do_times_o_minus_g_lse():
+    """delta = sum_d do * o - g_lse, f32 (b, h, s) and contiguous, from bf16
+    o and do: each product is exact in f32, only the sum's order differs."""
+    rng = _rng(11)
+    o = _t(rng.standard_normal((2, 5, 3, 16))).to(torch.bfloat16)
+    do = _t(rng.standard_normal((2, 5, 3, 16))).to(torch.bfloat16)
+    g_lse = _t(rng.standard_normal((2, 3, 5)).astype(np.float32))
+    got = tattn.attention_delta(o, do, g_lse)
+    ref = (np.einsum("bshd,bshd->bhs", do.float().numpy().astype(np.float64),
+                     o.float().numpy().astype(np.float64))
+           - g_lse.numpy())
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
 
 
 def test_flash_wrappers_cpu_path_launches_nothing():
