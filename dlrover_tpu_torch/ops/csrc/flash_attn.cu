@@ -19,21 +19,21 @@
 // All three kernels share one design, written for Hopper: a block of one
 // producer and two consumer warpgroups owns a 128-row tile of one (batch,
 // head) and loops over 64- or 128-row tiles of the other sequence axis. The
-// producer's one thread (after setmaxnreg, 24-40 registers) loads the
-// block's own tiles once and streams the others through a 3-stage ring by
-// TMA, each stage behind a full and an empty mbarrier; each tile is a
-// rank-4 box over (d, s, head, batch) under 128-byte swizzle, so a ragged
-// tile reads zeros at its own sequence's end and never the next batch's
-// rows. Each consumer warpgroup (232-240 registers) owns 64 of the rows and
-// runs wgmma m64nNk16: products of two tiles from shared memory (both
-// K-major), and products whose A operand is a probability or gradient tile
-// converted to bf16 in registers (the m64 accumulator layout is the A
-// fragment's) against a tile read MN-major. The arithmetic between products
-// runs on the accumulator registers, overlapped with the tensor cores'
-// next product. Zero fill is not a mask (a key past sk scores 0, so its p
-// would be exp(-lse)): every tile that reaches past sq or sk or crosses
-// the causal diagonal masks explicitly, and a tile wholly below the
-// diagonal skips the test.
+// producer warpgroup (24-40 registers after setmaxnreg; one thread issues
+// the TMA loads) loads the block's own tiles once and streams the others
+// through a 3-stage ring, each stage behind a full and an empty mbarrier;
+// each tile is a rank-4 box over (d, s, head, batch) under 128-byte
+// swizzle, so a ragged tile reads zeros at its own sequence's end and
+// never the next batch's rows. Each consumer warpgroup (232-240
+// registers) owns 64 of the rows and runs wgmma m64nNk16: products of two
+// tiles from shared memory (both K-major), and products whose A operand is
+// a probability or gradient tile converted to bf16 in registers (the m64
+// accumulator layout is the A fragment's) against a tile read MN-major.
+// The arithmetic between products runs on the accumulator registers,
+// overlapped with the tensor cores' next product. Zero fill is not a mask
+// (a key past sk scores 0, so its p would be exp(-lse)): every tile that
+// reaches past sq or sk or crosses the causal diagonal masks explicitly,
+// and a tile wholly below the diagonal skips the test.
 //
 // Plain C interface (bound with ctypes). Each entry returns the
 // cudaError_t of its launch, 0 on success, or cudaErrorInvalidValue if a
@@ -402,8 +402,9 @@ __device__ __forceinline__ void mask_tile(float (&sc)[BWD_COLS / 2], int row, in
 // What bounds it: 3 products of 64 x 64 x d a tile, two of them with both
 // operands in shared memory (at n = 64 those read as many bytes as the
 // shared memory delivers while the tensor cores run them), and the exp2 of
-// 4,096 scores a warpgroup; the ring keeps the loads out of the way. A 2-
-// stage ring ran 30 % slower on the card, a 4-stage one no faster.
+// 4,096 scores a warpgroup; the ring keeps the loads out of the way. At
+// the main case a 2-stage ring ran 32 % slower on the card and a 4-stage
+// one no faster (PERF.md).
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
@@ -596,8 +597,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 // group's blocks add their f32 sums into a zeroed (b, sk, hkv, d) buffer
 // by float2 atomics (red.global.add on column pairs; the wrapper casts the
 // sums to bf16), so the order of the group's terms, and the last bits of
-// the sum, vary from run to run. Scalar atomics cost 20 % of the kernel
-// at the main case on the card, the pairs 8 %.
+// the sum, vary from run to run. At the main case (group 4) scalar
+// atomics ran 22 % slower on the card than the pairs, and the pairs 7 %
+// slower than the same case at group 1, which needs none (PERF.md).
 // The producer warp loads K and V once; lane 0 streams 64-query Q and dO
 // tiles by TMA and the warp's 32 lanes copy the tile's lse (times log2 e)
 // and delta into the stage beside them, bounded by sq, before each lane
@@ -612,7 +614,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 // both operands from shared memory as dq's S and dP do. Each tile waits
 // for its own dK product before the next tile's S^T: issuing S^T of the
 // next tile first (dK and dV in flight across the loop) made ptxas
-// serialise the wgmma (C7515) and ran 15 % slower on the card, so the two
+// serialise the wgmma (C7515) and ran 16 % slower on the card, so the two
 // warpgroups' turns on the tensor cores are what overlaps.
 // ---------------------------------------------------------------------------
 template <int D>

@@ -55,16 +55,16 @@ def test_sass_check_holds_each_kernel_instance():
     """check_sass fails a wgmma kernel instance without HGMMA or UTMALDG, a
     plain one with either, and a kernel missing from the SASS."""
     good = {"flash_fwd<64>": (12, 3), "flash_fwd<128>": (16, 6),
-            "flash_bwd_dq<64>": (12, 5), "flash_bwd_dq<128>": (24, 10),
-            "flash_bwd_dkv<64>": (16, 5), "flash_bwd_dkv<128>": (32, 10),
+            "flash_bwd_dq<64>": (24, 4), "flash_bwd_dq<128>": (40, 8),
+            "flash_bwd_dkv<64>": (16, 4), "flash_bwd_dkv<128>": (24, 8),
             "fused_ce_fwd": (0, 0), "fused_ce_merge": (0, 0),
             "fused_ce_bwd_q": (4, 5), "fused_ce_bwd_dx": (4, 2),
             "fused_ce_bwd_dw": (4, 6)}
     chip_smoke.check_sass(good)
     for inst, bad in (("flash_fwd<64>", (12, 0)),
                       ("fused_ce_bwd_dw", (0, 6)),
-                      ("flash_bwd_dkv<128>", (32, 0)),
-                      ("flash_bwd_dq<64>", (0, 5)),
+                      ("flash_bwd_dkv<128>", (24, 0)),
+                      ("flash_bwd_dq<64>", (0, 4)),
                       ("fused_ce_fwd", (1, 0))):
         with pytest.raises(chip_smoke.SmokeFailure, match=re.escape(inst)):
             chip_smoke.check_sass({**good, inst: bad})
