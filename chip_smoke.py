@@ -15,11 +15,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    ptxas that it serialised a kernel's wgmma. Then counts, in
    each built library's SASS (``cuobjdump -sass``), every kernel's
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions:
-   ``WGMMA_KERNELS`` (``fused_ce_bwd_q``, ``fused_ce_bwd_dx`` and
-   ``fused_ce_bwd_dw`` on the main loop of sm90_gemm.cuh, ``flash_fwd``,
-   ``flash_bwd_dq`` and ``flash_bwd_dkv`` on their own warp-specialised
-   loops) must have both; ``NO_WGMMA_KERNELS`` (``fused_ce_fwd`` on
-   mma.sync + cp.async and ``fused_ce_merge``, no GEMM) must show none.
+   ``WGMMA_KERNELS`` (``fused_ce_fwd``, ``fused_ce_bwd_q``,
+   ``fused_ce_bwd_dx`` and ``fused_ce_bwd_dw`` on the main loop of
+   sm90_gemm.cuh, ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` on
+   their own warp-specialised loops) must have both; ``NO_WGMMA_KERNELS``
+   (``fused_ce_merge``, no GEMM) must show neither.
 3. kernels: each flash-attention kernel (fwd, dq, dk/dv) against its plain
    PyTorch version on the same bf16 inputs on the card, for the main-path
    shape and for non-causal, ragged, group-1, head-dim-64, ViT-B/16
@@ -29,14 +29,17 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    most query heads, and both the 64- and 128-row tiles are cut); each
    fused-CE kernel (fwd, merge, bwd_q, bwd_dx, bwd_dw) against its plain
    version for the main-path shape and for ragged, ragged-d (every edge of
-   the wgmma tiles), ViT, all-masked and last-column cases; with the
-   tolerances below. Then each kernel's time, its plain version's time,
-   the least time the card could take (bound), and one PyTorch call of the
-   same function as the library yardstick (timed only; the port never
-   calls it): SDPA's forward for flash_fwd, SDPA's backward for dq and
-   dk/dv together, ``torch.mm(..., out_dtype=torch.float32)`` of the same
-   product for the CE kernels, with each CE kernel's achieved TFLOP/s and
-   its time over the library's. Each kernel's timing block starts after a
+   the wgmma tiles), ViT, all-masked, last-column and half-tile cases;
+   with the tolerances below. Then each kernel's time, its plain version's
+   time, the least time the card could take (bound), and one PyTorch call
+   of the same function as the library yardstick (timed only; the port
+   never calls it): SDPA's forward for flash_fwd, SDPA's backward for dq
+   and dk/dv together, ``torch.mm(..., out_dtype=torch.float32)`` of the
+   same product for the CE kernels, with each CE kernel's achieved TFLOP/s
+   and its time over the library's. SDPA (forward and backward) and the
+   merge are timed by replaying a captured CUDA graph (``graph_ms``), so
+   host launch gaps do not enter them; the rest by CUDA events around
+   back-to-back calls (``cuda_ms``). Each kernel's timing block starts after a
    synchronise and an idle gap of ``IDLE_GAP_S``, so no block inherits the
    clocks or heat of the one before, and the SM clock and power draw are
    printed after it. Last, the whole forward and backward of the fused CE
@@ -148,8 +151,11 @@ CE_CASES = [
     # the ViT-B/16 path's shape: one pooled row per image of a micro-batch
     ("vit", dict(n=64, d=768, v=1000, targets="ragged")),
     ("all_masked", dict(n=256, d=1024, v=5000, targets="all_masked")),
-    # 32001 = 250 * 128 + 1: the last forward tile is one column wide
+    # 32001 = 125 * 256 + 1: the last forward tile is one column wide
     ("last_column", dict(n=512, d=1024, v=32001, targets="last_column")),
+    # 384 = 256 + 128: the second forward tile is half real columns; n 130
+    # leaves the second token tile 2 rows, none of them consumer 1's
+    ("half_tile", dict(n=130, d=1024, v=384, targets="ragged")),
 ]
 
 
@@ -198,9 +204,10 @@ def ptxas_usage(log):
 
 # the kernels that run wgmma with TMA loads (HGMMA and UTMALDG in their
 # SASS), and those that must show neither; every kernel is in one of them
-WGMMA_KERNELS = ("fused_ce_bwd_q", "fused_ce_bwd_dx", "fused_ce_bwd_dw",
-                 "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-NO_WGMMA_KERNELS = ("fused_ce_fwd", "fused_ce_merge")
+WGMMA_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_q", "fused_ce_bwd_dx",
+                 "fused_ce_bwd_dw", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv")
+NO_WGMMA_KERNELS = ("fused_ce_merge",)
 
 
 def sass_counts(library):
@@ -277,6 +284,28 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, stream=None, reps=20, iters=5):
+    """Mean device milliseconds of one ``fn()``, read from a CUDA graph
+    that holds ``reps`` calls back to back and is replayed ``iters`` times
+    between CUDA events. A replay is one launch, so no host launch gap and
+    no Python overhead enters the time: it is what a short kernel (the
+    merge) or a call of several kernels (SDPA's backward through autograd)
+    costs the device. ``stream`` is the capture stream; an autograd
+    backward runs on the stream that its forward ran on, so a backward is
+    captured on the stream its forward was run on."""
+    stream = stream or torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):  # capture wants warm calls on a side stream
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(torch, graph.replay, iters=iters, warmup=1) / reps
 
 
 def visible_pairs(sq, sk, causal):
@@ -393,18 +422,21 @@ def phase_timing(torch, F, attention, inputs):
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         print(f"  {name} timed; sm clock, power: {clocks_line()}", flush=True)
 
-    # library yardstick: SDPA in (b, h, s, d), timed only
+    # library yardstick: SDPA in (b, h, s, d), timed only, by graph replay
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     settle(torch)
-    sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+    sdpa_fwd = graph_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=c, enable_gqa=True))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=c,
-                                         enable_gqa=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=c,
+                                             enable_gqa=True)
     dot = do.transpose(1, 2)
     settle(torch)
-    sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True))
+    sdpa_bwd = graph_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), stream=side)
     print(f"  sdpa timed; sm clock, power: {clocks_line()}", flush=True)
     return times, sdpa_fwd, sdpa_bwd
 
@@ -591,11 +623,13 @@ def phase_ce_timing(torch, fce, chunked_ce, inputs):
     times = {}
     for name, (kernel, plain, library) in runs.items():
         settle(torch)
+        # the merge's launches are shorter than the host's: graph replay
+        timer = graph_ms if name == "fused_ce_merge" else cuda_ms
         # plain, kernel, kernel, plain: the two orders average out drift
-        p1 = cuda_ms(torch, plain, iters=5)
-        k1 = cuda_ms(torch, kernel)
-        k2 = cuda_ms(torch, kernel)
-        p2 = cuda_ms(torch, plain, iters=5)
+        p1 = timer(torch, plain, iters=5)
+        k1 = timer(torch, kernel)
+        k2 = timer(torch, kernel)
+        p2 = timer(torch, plain, iters=5)
         lib = cuda_ms(torch, library) if library else None
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, lib)
         print(f"  {name} timed; sm clock, power: {clocks_line()}", flush=True)
@@ -860,8 +894,8 @@ def main():
     for kname, (k_ms, p_ms) in times.items():
         print(f"  {kname}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
               f"{bound[kname][0]:.4f} ms ({bound[kname][1]})", flush=True)
-    print(f"  library: sdpa fwd {sdpa_fwd:.4f} ms, sdpa bwd (dq, dk, dv "
-          f"together) {sdpa_bwd:.4f} ms", flush=True)
+    print(f"  library (graph replay): sdpa fwd {sdpa_fwd:.4f} ms, sdpa bwd "
+          f"(dq, dk, dv together) {sdpa_bwd:.4f} ms", flush=True)
     bwd_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
     print(f"  flash_bwd_dq + flash_bwd_dkv: {bwd_ms:.4f} ms, "
           f"{bwd_ms / sdpa_bwd:.2f}x sdpa bwd", flush=True)
@@ -900,14 +934,18 @@ def main():
 
     kernels = []
     for kname, _, replaces in KERNELS:
-        kernels.append({
+        entry = {
             "name": kname, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "launches": counts[kname],
             "max_abs_err": errors[kname], "ms": times[kname][0],
             "plain_ms": times[kname][1], "bound_ms": bound[kname][0],
             "bound_by": bound[kname][1],
-            "library_ms": sdpa_fwd if kname == "flash_fwd" else None,
-        })
+            "library_ms": sdpa_fwd if kname == "flash_fwd" else sdpa_bwd,
+        }
+        if kname != "flash_fwd":
+            # one SDPA backward computes dq, dk and dv: the pair's yardstick
+            entry["library_of"] = "pair"
+        kernels.append(entry)
     for kname, _, replaces in CE_KERNELS:
         kernels.append({
             "name": kname, "route": "cuda", "source": CE_SOURCE,

@@ -77,6 +77,21 @@ class LlamaConfig:
         return LlamaConfig()
 
     @staticmethod
+    def llama3_70b() -> "LlamaConfig":
+        return LlamaConfig(
+            dim=8192, n_layers=80, n_heads=64, n_kv_heads=8, ffn_dim=28672
+        )
+
+    @staticmethod
+    def gpt2_xl_class() -> "LlamaConfig":
+        """~1.5B-param config matching the reference's flash-checkpoint
+        benchmark subject (GPT-2 xl); head dim 64."""
+        return LlamaConfig(
+            vocab_size=50304, dim=1600, n_layers=48, n_heads=25,
+            n_kv_heads=25, ffn_dim=3712, max_seq_len=1024, rope_theta=10000.0
+        )
+
+    @staticmethod
     def tiny(**kw) -> "LlamaConfig":
         base = dict(
             vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,

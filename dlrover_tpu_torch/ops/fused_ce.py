@@ -9,9 +9,9 @@ return ``(nll_sum, n_valid)`` in f32 and ignore ``targets < 0``.
 ``fused_cross_entropy`` is a `torch.autograd.Function`:
 
 - **forward** (scope ``fused_ce_fwd``): the ``fwd`` kernel writes, for each
-  token and each ``FWD_TILE``-column vocab tile, the tile's max, sum of exp
-  and gold logit; the ``merge`` kernel folds them into per-token ``logz``
-  and ``gold``. ``nll_sum`` and ``n_valid`` are two reductions outside.
+  ``FWD_TILE``-column vocab tile and each token, the tile's max, sum of exp
+  and gold logit (partials ``(3, ntiles, n)``, token-minor); the ``merge``
+  kernel folds them into per-token ``logz`` and ``gold``. ``nll_sum`` and ``n_valid`` are two reductions outside.
 - **backward** (scope ``fused_ce_bwd``): ``row_scale = valid * g_nll`` is
   computed outside the kernels, as in the JAX package. Then, for each vocab
   chunk of ``BWD_CHUNK`` columns, the ``bwd_q`` kernel recomputes the
@@ -30,14 +30,14 @@ kernels' ``p`` are. The TPU kernel upcasts both operands to f32 and keeps
 x's dtype, ``dw`` in w's. The plain versions below repeat this rounding, so
 a kernel and its plain version differ only in the order of their sums.
 
-Kernels (``csrc/fused_ce.cu``). ``bwd_q``, ``bwd_dx`` and ``bwd_dw`` run
-the Hopper main loop of ``csrc/sm90_gemm.cuh``: TMA loads into a 4-stage
-mbarrier ring, ``wgmma`` from shared memory, one producer and two consumer
-warpgroups on a 128 x 256 tile; the C entry points build the operands'
-tensor maps at each launch (the lm-head chunk's map starts at column ``c0``
+Kernels (``csrc/fused_ce.cu``). ``fwd``, ``bwd_q``, ``bwd_dx`` and
+``bwd_dw`` run one Hopper main loop, that of ``csrc/sm90_gemm.cuh``: TMA
+loads into a 4-stage mbarrier ring, ``wgmma`` from shared memory, one
+producer and two consumer warpgroups on a 128 x 256 tile, so the forward's
+vocab tile is 256 columns; the C entry points build the operands' tensor
+maps at each launch (a backward chunk's lm-head map starts at column ``c0``
 and is ``cw`` wide; ``bwd_dw`` reads x and q token-major, as wgmma's
-transposed operands). ``fwd`` runs the older ``mma.sync`` + ``cp.async``
-loop of ``fused_ce.cu`` (128 x 128 tiles, 3 stages); ``merge`` is no GEMM.
+transposed operands). ``merge`` is no GEMM.
 ``chip_smoke.py`` checks each kernel against its plain version below and
 counts the wgmma (``HGMMA``) and TMA (``UTMALDG``) instructions in each
 kernel's SASS.
@@ -70,8 +70,9 @@ from dlrover_tpu_torch.ops.chunked_ce import (
 
 _NEG_INF = -1e30
 
-#: vocab columns of one forward block (BN in csrc/fused_ce.cu)
-FWD_TILE = 128
+#: vocab columns of one forward block (FWD_TILE in csrc/fused_ce.cu, the
+#: main loop's N tile)
+FWD_TILE = 256
 #: vocab columns per backward chunk: the (tokens, BWD_CHUNK) q buffer is
 #: 33.5 MB at 2048 tokens
 BWD_CHUNK = 8192
@@ -161,7 +162,7 @@ def _chunks(vp: int):
 
 
 def fused_ce_fwd_plain(x, wc, tgt, v: int) -> torch.Tensor:
-    """Per-tile partials ``(3, n, ntiles)`` f32: each FWD_TILE-column
+    """Per-tile partials ``(3, ntiles, n)`` f32: each FWD_TILE-column
     vocab tile's row max, sum of exp(l - max) over its real columns, and the
     gold logit where the target falls in it (else 0)."""
     n, vp = x.shape[0], wc.shape[1]
@@ -177,16 +178,16 @@ def fused_ce_fwd_plain(x, wc, tgt, v: int) -> torch.Tensor:
     g = torch.zeros((n, ntiles), dtype=torch.float32, device=x.device)
     rows = torch.arange(n, device=x.device)
     g[rows, safe // FWD_TILE] = torch.where(hit, logits[rows, safe], 0.0)
-    return torch.stack([m, s, g])
+    return torch.stack([m, s, g]).transpose(1, 2).contiguous()
 
 
 def fused_ce_merge_plain(part):
     """``(logz, gold)`` (n,) f32 from the per-tile partials."""
     m, s, g = part
-    mx = m.max(dim=1).values
-    total = (s * torch.exp(m - mx[:, None])).sum(dim=1)
+    mx = m.max(dim=0).values
+    total = (s * torch.exp(m - mx)).sum(dim=0)
     logz = mx + torch.log(torch.where(total == 0, 1.0, total))
-    return logz, g.sum(dim=1)
+    return logz, g.sum(dim=0)
 
 
 def fused_ce_bwd_q_plain(x, wc, tgt, logz, row_scale, v: int, c0: int,
@@ -283,7 +284,7 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def fused_ce_fwd(x, wc, tgt, v: int) -> torch.Tensor:
-    """Per-tile partials ``(3, n, ntiles)``: the forward kernel on the card."""
+    """Per-tile partials ``(3, ntiles, n)``: the forward kernel on the card."""
     if _on_cpu(x):
         return fused_ce_fwd_plain(x, wc, tgt, v)
     n, d = x.shape
@@ -294,7 +295,7 @@ def fused_ce_fwd(x, wc, tgt, v: int) -> torch.Tensor:
     _check(x.device, x=(x, torch.bfloat16, (n, d)),
            wc=(wc, torch.bfloat16, (d, vp)), tgt=(tgt, torch.int32, (n,)))
     ntiles = -(-v // FWD_TILE)
-    part = torch.empty((3, n, ntiles), dtype=torch.float32, device=x.device)
+    part = torch.empty((3, ntiles, n), dtype=torch.float32, device=x.device)
     if n:
         with torch.cuda.device(x.device):
             rc = _kernels().dlrover_ce_fwd(
@@ -309,8 +310,8 @@ def fused_ce_merge(part):
     """``(logz, gold)``: the merge kernel on the card."""
     if _on_cpu(part):
         return fused_ce_merge_plain(part)
-    _, n, ntiles = part.shape
-    _check(part.device, part=(part, torch.float32, (3, n, ntiles)))
+    _, ntiles, n = part.shape
+    _check(part.device, part=(part, torch.float32, (3, ntiles, n)))
     logz = torch.empty(n, dtype=torch.float32, device=part.device)
     gold = torch.empty(n, dtype=torch.float32, device=part.device)
     if n:

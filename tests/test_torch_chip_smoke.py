@@ -42,8 +42,10 @@ def test_every_kernel_is_held_and_has_one_sass_expectation():
     plain = set(chip_smoke.NO_WGMMA_KERNELS)
     assert not wgmma & plain
     assert wgmma | plain == held
-    assert wgmma == {"fused_ce_bwd_q", "fused_ce_bwd_dx", "fused_ce_bwd_dw",
-                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
+    assert wgmma == {"fused_ce_fwd", "fused_ce_bwd_q", "fused_ce_bwd_dx",
+                     "fused_ce_bwd_dw", "flash_fwd", "flash_bwd_dq",
+                     "flash_bwd_dkv"}
+    assert plain == {"fused_ce_merge"}
     # each table's source is the file the kernel is defined in
     for name, _, _ in chip_smoke.KERNELS:
         assert chip_smoke.SOURCE.endswith(f"/{kernels[name]}.cu")
@@ -57,7 +59,7 @@ def test_sass_check_holds_each_kernel_instance():
     good = {"flash_fwd<64>": (12, 3), "flash_fwd<128>": (16, 6),
             "flash_bwd_dq<64>": (24, 4), "flash_bwd_dq<128>": (40, 8),
             "flash_bwd_dkv<64>": (16, 4), "flash_bwd_dkv<128>": (24, 8),
-            "fused_ce_fwd": (0, 0), "fused_ce_merge": (0, 0),
+            "fused_ce_fwd": (4, 5), "fused_ce_merge": (0, 0),
             "fused_ce_bwd_q": (4, 5), "fused_ce_bwd_dx": (4, 2),
             "fused_ce_bwd_dw": (4, 6)}
     chip_smoke.check_sass(good)
@@ -65,7 +67,9 @@ def test_sass_check_holds_each_kernel_instance():
                       ("fused_ce_bwd_dw", (0, 6)),
                       ("flash_bwd_dkv<128>", (24, 0)),
                       ("flash_bwd_dq<64>", (0, 4)),
-                      ("fused_ce_fwd", (1, 0))):
+                      # the forward runs the wgmma loop: plain SASS fails
+                      ("fused_ce_fwd", (0, 0)),
+                      ("fused_ce_merge", (1, 0))):
         with pytest.raises(chip_smoke.SmokeFailure, match=re.escape(inst)):
             chip_smoke.check_sass({**good, inst: bad})
     missing = {k: v for k, v in good.items() if k != "fused_ce_merge"}
@@ -91,3 +95,101 @@ def test_bwd_dw_bound_at_the_main_chunk():
     assert by == "operations"
     assert bound_ms == pytest.approx(0.1390, abs=5e-5)
     assert fce.BWD_CHUNK == 8192
+
+
+def test_ce_fwd_and_merge_bounds_at_the_main_shape():
+    """n 2048, d 4096, v 128256: the forward's 2 n d v FLOPs over 989
+    TFLOP/s; the merge reads 3 f32 partials for each token of each of the
+    501 256-column tiles and writes logz and gold (half the bytes of
+    128-column tiles)."""
+    bounds = chip_smoke.ce_bounds(2048, 4096, 128256, 8192, fce.FWD_TILE)
+    assert fce.FWD_TILE == 256
+    assert bounds["fused_ce_fwd"] == (pytest.approx(2.1757, abs=5e-5),
+                                      "operations")
+    merge_bytes = 3 * 2048 * 501 * 4 + 2 * 2048 * 4
+    assert chip_smoke.ce_work(2048, 4096, 128256, 8192,
+                              fce.FWD_TILE)["fused_ce_merge"] == (
+        None, merge_bytes)
+    assert bounds["fused_ce_merge"] == (
+        pytest.approx(merge_bytes / 3.35e12 * 1e3), "bytes")
+    assert bounds["fused_ce_merge"][0] == pytest.approx(0.0037, abs=5e-5)
+
+
+class _FakeCuda:
+    """The parts of ``torch.cuda`` that ``graph_ms`` and ``cuda_ms`` touch,
+    recording what runs where: each call of the timed function notes
+    whether a graph was capturing, and each event reads a fixed 60 ms."""
+
+    def __init__(self):
+        self.capturing = False
+        self.calls = []
+        self.replays = 0
+        self.streams = []
+        fake = self
+
+        class Stream:
+            def wait_stream(self, other):
+                pass
+
+        class Graph:
+            def replay(self):
+                fake.replays += 1
+
+        class GraphContext:
+            def __init__(self, graph, stream=None):
+                fake.streams.append(stream)
+
+            def __enter__(self):
+                fake.capturing = True
+
+            def __exit__(self, *exc):
+                fake.capturing = False
+
+        class StreamContext:
+            def __init__(self, stream):
+                pass
+
+            def __enter__(self):
+                pass
+
+            def __exit__(self, *exc):
+                pass
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                pass
+
+            def record(self):
+                pass
+
+            def elapsed_time(self, end):
+                return 60.0
+
+        self.Stream, self.CUDAGraph, self.Event = Stream, Graph, Event
+        self.graph, self.stream = GraphContext, StreamContext
+        self.current_stream = Stream
+
+    def synchronize(self):
+        pass
+
+
+@pytest.mark.parametrize("given_stream", [False, True])
+def test_graph_ms_times_replays_of_a_captured_graph(given_stream):
+    """graph_ms warms ``fn`` up outside capture, captures ``reps`` calls in
+    one graph on the given stream (or a new one), and reads the events
+    around ``iters`` replays as ``reps * iters`` calls."""
+    cuda = _FakeCuda()
+    fake_torch = type("FakeTorch", (), {"cuda": cuda})()
+    calls = []
+    stream = cuda.Stream() if given_stream else None
+    ms = chip_smoke.graph_ms(
+        fake_torch, lambda: calls.append(cuda.capturing), stream=stream,
+        reps=4, iters=3)
+    assert calls == [False] * 3 + [True] * 4
+    assert cuda.replays == 1 + 3  # one warm-up replay, then the timed ones
+    assert ms == pytest.approx(60.0 / 3 / 4)
+    (captured_on,) = cuda.streams
+    if given_stream:
+        assert captured_on is stream
+    else:
+        assert isinstance(captured_on, cuda.Stream)

@@ -27,18 +27,18 @@ def _t(a, grad=False):
     return torch.tensor(np.asarray(a), requires_grad=grad)
 
 
-def _inputs(case, seed=0):
+def _inputs(case, seed=0, v=V):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(B, T, D)).astype(np.float32)
-    w = (0.1 * rng.normal(size=(D, V))).astype(np.float32)
-    t = rng.integers(0, V, size=(B, T)).astype(np.int32)
+    w = (0.1 * rng.normal(size=(D, v))).astype(np.float32)
+    t = rng.integers(0, v, size=(B, T)).astype(np.int32)
     if case == "masked_tail":
         t[:, -2:] = -1
         t[0, 0] = -1
     elif case == "all_masked":
         t[:] = -1
     elif case == "last_column":
-        t[:, ::2] = V - 1
+        t[:, ::2] = v - 1
         t[2, -1] = -1
     return x, w, t
 
@@ -50,12 +50,29 @@ def _port(x, w, t, g_nll):
     return nll.item(), n.item(), tx.grad.numpy(), tw.grad.numpy()
 
 
-@pytest.mark.parametrize("case", ["masked_tail", "all_masked", "last_column"])
+def _pallas_logz_gold(x2, w, t1, bt, bv):
+    """Per-token ``(logz, gold)`` of the Pallas forward kernel, run as
+    the JAX package's fused CE runs it: operands padded to its tiles."""
+    n, v = x2.shape[0], w.shape[1]
+    bt, bv, n_pad, v_pad = jfce._tile_geometry(n, v, bt, bv)
+    xp, wp, tp = jfce._pad_operands(jnp.asarray(x2), jnp.asarray(w),
+                                    jnp.asarray(t1), n_pad, v_pad)
+    logz, gold = jfce._fused_ce_fwd_pallas(xp, wp, tp, v, bt, bv, True)
+    return np.asarray(logz)[:n], np.asarray(gold)[:n]
+
+
+@pytest.mark.parametrize("case,v", [
+    ("masked_tail", V), ("all_masked", V), ("last_column", V),
+    # 384 = 256 + 128: one full forward tile of the port and one half tile
+    ("masked_tail", 384), ("last_column", 384),
+], ids=["masked_tail", "all_masked", "last_column", "masked_tail_v384",
+        "last_column_v384"])
 @pytest.mark.parametrize("bt,bv", [(8, 128), (64, 512)])
-def test_matches_pallas_interpret(case, bt, bv):
-    """nll_sum, n_valid, dx and dw against the Pallas kernels with JAX
-    tiles (8, 128) and (64, 512), under a cotangent of 1.5."""
-    x, w, t = _inputs(case)
+def test_matches_pallas_interpret(case, v, bt, bv):
+    """logz and gold of every token, nll_sum, n_valid, dx and dw against
+    the Pallas kernels with JAX tiles (8, 128) and (64, 512), under a
+    cotangent of 1.5."""
+    x, w, t = _inputs(case, v=v)
 
     def jf(x, w):
         return jfce.fused_cross_entropy(x, w, jnp.asarray(t), block_t=bt,
@@ -63,6 +80,13 @@ def test_matches_pallas_interpret(case, bt, bv):
 
     (j_nll, j_n), vjp = jax.vjp(jf, jnp.asarray(x), jnp.asarray(w))
     j_dx, j_dw = vjp((jnp.float32(1.5), jnp.float32(0.0)))
+    x2, t1 = x.reshape(-1, D), t.reshape(-1)
+    j_logz, j_gold = _pallas_logz_gold(x2, w, t1, bt, bv)
+    tt = _t(t1)
+    logz, gold = fce.fused_ce_merge(fce.fused_ce_fwd(
+        _t(x2), fce.compute_weight(_t(w), torch.float32), tt, v))
+    np.testing.assert_allclose(logz.numpy(), j_logz, **F32_TOL)
+    np.testing.assert_allclose(gold.numpy(), j_gold, **F32_TOL)
     nll, n, dx, dw = _port(x, w, t, 1.5)
     np.testing.assert_allclose(nll, float(j_nll), rtol=1e-5, atol=1e-6)
     assert n == float(j_n) == float((t >= 0).sum())
@@ -89,41 +113,53 @@ def _dense(x, w, t):
             tw.grad)
 
 
-@pytest.mark.parametrize("case", ["masked_tail", "last_column"])
-def test_plain_kernel_versions_match_autograd(case):
+@pytest.mark.parametrize("case,v,vp,widths", [
+    ("masked_tail", V, 304, [64, 64, 64, 64, 48]),
+    ("last_column", V, 304, [64, 64, 64, 64, 48]),
+    ("last_column", 384, 384, [64] * 6),
+], ids=["masked_tail", "last_column", "last_column_v384"])
+def test_plain_kernel_versions_match_autograd(case, v, vp, widths):
     """Each plain version (what the card's kernels are held to) against
     autograd through the dense CE: fwd + merge give logz and gold, q is
     d(1.5 nll)/d(logits) chunk by chunk, and dx and dw sum and write the
     chunks. 64-column chunks over V = 300 (padded to 304): five chunks,
-    the last 48 wide; three 128-column forward tiles, the last 44 wide."""
-    x, w, t = _inputs(case, seed=1)
+    the last 48 wide; two 256-column forward tiles, the last 44 wide. Over
+    v = 384: six chunks, and a full tile then a half one (128 wide) that
+    holds the targets of the last_column case."""
+    x, w, t = _inputs(case, seed=1, v=v)
     x2, t1 = x.reshape(-1, D), t.reshape(-1)
     logz_r, gold_r, dlogits, dx_r, dw_r = _dense(x2, w, t1)
 
     tx, tt = _t(x2), _t(t1)
     wc = fce.compute_weight(_t(w), torch.float32)
-    assert tuple(wc.shape) == (D, 304) and not wc[:, V:].any()
-    part = fce.fused_ce_fwd_plain(tx, wc, tt, V)
-    assert fce.FWD_TILE == 128 and tuple(part.shape) == (3, B * T, 3)
+    assert tuple(wc.shape) == (D, vp) and not wc[:, v:].any()
+    part = fce.fused_ce_fwd_plain(tx, wc, tt, v)
+    assert fce.FWD_TILE == 256 and tuple(part.shape) == (3, 2, B * T)
+    # the last tile's partials cover only its real columns
+    last = v - fce.FWD_TILE
+    lt = torch.tensor(x2 @ w[:, fce.FWD_TILE:])
+    assert lt.shape[1] == last
+    np.testing.assert_allclose(part[0, 1].numpy(), lt.max(dim=1).values,
+                               **F32_TOL)
     logz, gold = fce.fused_ce_merge_plain(part)
     np.testing.assert_allclose(logz.numpy(), logz_r.numpy(), **F32_TOL)
     np.testing.assert_allclose(gold.numpy(), gold_r.numpy(), **F32_TOL)
 
     scale = (tt >= 0).float() * 1.5
     dx = torch.zeros(x2.shape)
-    dw = torch.empty((D, V))
-    widths = []
-    for c0 in range(0, 304, 64):
-        cw = min(64, 304 - c0)
-        widths.append(cw)
-        q = fce.fused_ce_bwd_q_plain(tx, wc, tt, logz, scale, V, c0, cw)
-        real = min(cw, V - c0)
+    dw = torch.empty((D, v))
+    seen = []
+    for c0 in range(0, vp, 64):
+        cw = min(64, vp - c0)
+        seen.append(cw)
+        q = fce.fused_ce_bwd_q_plain(tx, wc, tt, logz, scale, v, c0, cw)
+        real = min(cw, v - c0)
         np.testing.assert_allclose(q[:, :real].numpy(),
                                    dlogits[:, c0:c0 + real].numpy(), **F32_TOL)
         assert not q[:, real:].any()  # padded columns carry no gradient
         fce.fused_ce_bwd_dx_plain(q, wc, c0, dx)
-        fce.fused_ce_bwd_dw_plain(tx, q, V, c0, dw)
-    assert widths == [64, 64, 64, 64, 48]
+        fce.fused_ce_bwd_dw_plain(tx, q, v, c0, dw)
+    assert seen == widths
     np.testing.assert_allclose(dx.numpy(), dx_r.numpy(), **F32_TOL)
     np.testing.assert_allclose(dw.numpy(), dw_r.numpy(), **F32_TOL)
 

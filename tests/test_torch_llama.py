@@ -141,6 +141,26 @@ def test_params_from_jax_casts_and_keeps_bf16_bits():
     assert t32.dtype == torch.float32
 
 
+@pytest.mark.parametrize("preset", ["llama3_8b", "llama3_70b",
+                                    "gpt2_xl_class"])
+def test_presets_match_jax(preset):
+    """Each port preset has the JAX preset's value in every field the two
+    configs share, and the same parameter count."""
+    import dataclasses
+
+    jcfg = getattr(jllama.LlamaConfig, preset)()
+    tcfg = getattr(tllama.LlamaConfig, preset)()
+    shared = ({f.name for f in dataclasses.fields(tcfg)}
+              & {f.name for f in dataclasses.fields(jcfg)}) - {
+                  "dtype", "param_dtype"}
+    assert {"vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
+            "ffn_dim", "max_seq_len", "rope_theta"} <= shared
+    for name in sorted(shared):
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+    assert tcfg.head_dim == jcfg.head_dim
+    assert tllama.param_count(tcfg) == jllama.param_count(jcfg)
+
+
 def test_init_params_layout_matches_jax(np_params):
     cfg = tllama.LlamaConfig.tiny()
     params = tllama.init_params(cfg, torch.Generator().manual_seed(0))
