@@ -39,11 +39,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    and its time over the library's. SDPA (forward and backward) and the
    merge are timed by replaying a captured CUDA graph (``graph_ms``), so
    host launch gaps do not enter them; the rest by CUDA events around
-   back-to-back calls (``cuda_ms``). Each kernel's timing block starts after a
-   synchronise and an idle gap of ``IDLE_GAP_S``, so no block inherits the
-   clocks or heat of the one before, and the SM clock and power draw are
-   printed after it. Last, the whole forward and backward of the fused CE
-   against the chunked CE at the main-path shape.
+   back-to-back calls (``cuda_ms``). Each kernel's timing block starts
+   after a synchronise and an idle gap of ``IDLE_GAP_S``, so no block
+   inherits the clocks or heat of the one before, and the SM clock and
+   power draw are printed after it. Last, the whole forward and backward
+   of the fused CE against the chunked CE at the main-path shape.
 4. main path: 4 training steps of the Llama-3-8B-width model cut to 4 of
    32 layers (seq 2048, micro-batch 1, global batch 2) through the port's
    ``ElasticTrainer``, with every kernel launch counter at 0 just before
@@ -292,9 +292,9 @@ def graph_ms(torch, fn, stream=None, reps=20, iters=5):
     between CUDA events. A replay is one launch, so no host launch gap and
     no Python overhead enters the time: it is what a short kernel (the
     merge) or a call of several kernels (SDPA's backward through autograd)
-    costs the device. ``stream`` is the capture stream; an autograd
-    backward runs on the stream that its forward ran on, so a backward is
-    captured on the stream its forward was run on."""
+    costs the device. ``stream`` is the capture stream: an autograd
+    backward runs on the stream its forward ran on, so to capture a
+    backward, pass that stream."""
     stream = stream or torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):

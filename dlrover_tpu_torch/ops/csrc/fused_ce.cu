@@ -169,6 +169,7 @@ fused_ce_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
 constexpr int MERGE_TOKENS = 16;
 constexpr int MERGE_GROUPS = 32;
 constexpr int MERGE_THREADS = MERGE_TOKENS * MERGE_GROUPS;
+static_assert(2 * MERGE_TOKENS == 32, "a warp is two token groups");
 
 // (m, s) <- the online-softmax fold of (m, s) and (mo, so)
 __device__ __forceinline__ void fold(float& m, float& s, float mo, float so) {

@@ -11,7 +11,8 @@ return ``(nll_sum, n_valid)`` in f32 and ignore ``targets < 0``.
 - **forward** (scope ``fused_ce_fwd``): the ``fwd`` kernel writes, for each
   ``FWD_TILE``-column vocab tile and each token, the tile's max, sum of exp
   and gold logit (partials ``(3, ntiles, n)``, token-minor); the ``merge``
-  kernel folds them into per-token ``logz`` and ``gold``. ``nll_sum`` and ``n_valid`` are two reductions outside.
+  kernel folds them into per-token ``logz`` and ``gold``. ``nll_sum`` and
+  ``n_valid`` are two reductions outside.
 - **backward** (scope ``fused_ce_bwd``): ``row_scale = valid * g_nll`` is
   computed outside the kernels, as in the JAX package. Then, for each vocab
   chunk of ``BWD_CHUNK`` columns, the ``bwd_q`` kernel recomputes the

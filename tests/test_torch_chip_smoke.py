@@ -122,7 +122,6 @@ class _FakeCuda:
 
     def __init__(self):
         self.capturing = False
-        self.calls = []
         self.replays = 0
         self.streams = []
         fake = self
