@@ -55,6 +55,27 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    1000 classes) through ``run/vit_classify.py``: micro-batch 64, global
    batch 128, 4 steps, counters at 0 just before and read just after;
    checks the losses and that the flash and fused-CE kernels ran.
+4c. flash checkpoint (``dlrover_tpu_torch/checkpoint``) at the main path's
+   size, whose train state is 23,077,502,976 bytes of f32 params and adam
+   moments. First the machine's facts: ``df -B1 /dev/shm``, MemAvailable,
+   the free bytes under the checkpoint directory and the PCIe link; fails,
+   naming the shortfall, if shm or the disk cannot hold the state. Then:
+   a save run (``run/llama_pretrain.py --ckpt-dir``, 6 steps, a memory
+   save after each, every 4th persisted to disk, launch counters at 0 just
+   before and read just after), every save required to take the device
+   snapshot, with each save's pause, its background stage and
+   device-to-host GB/s, tokens/s beside phase 4's and peak memory; then 2
+   steps under ``DLROVER_TPU_DEVICE_SNAPSHOT=0`` (the pause is the whole
+   device-to-host copy); a child that trains 2 steps, saves step 2 to
+   memory, prints the CRC32 of every leaf it staged and is SIGKILLed; a
+   second child that must restore step 2 from shm with every CRC equal,
+   and trains steps 3-4 to the losses of the uninterrupted runs (phase 4's
+   and the save run's) within ``CKPT_RESUME_SPREAD_FACTOR`` times their
+   spread; then the killed child's step persisted from shm (as an agent
+   persists a dead worker's segment) and, with the segment unlinked, a
+   third child that must restore it from the disk tier with every leaf's
+   CRC32 equal to its manifest's and to the killed child's. Bounds are
+   printed beside the times.
 5. reference: a small Llama (head dim 128) and a small ViT (head dim 64,
    100 patches, 300 classes) on the card, bf16 with the kernels, against
    the same weights on the CPU in f32 with the plain versions: loss and
@@ -63,15 +84,24 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is not available.
+``--ckpt-child ROLE DIR`` runs one of phase 4c's children (it is not run
+by hand).
 """
 
 import dataclasses
 import json
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 # kernel vs plain version, both from the same bf16 inputs: the kernel
 # rounds p and ds to bf16 before its tensor-core products, so the error
@@ -157,6 +187,24 @@ CE_CASES = [
     # leaves the second token tile 2 rows, none of them consumer 1's
     ("half_tile", dict(n=130, d=1024, v=384, targets="ragged")),
 ]
+
+
+# flash checkpoint (phase 4c). The resumed run's steps 3-4 against an
+# uninterrupted run's: not bitwise, since flash dk/dv add a GQA group's
+# heads by atomics in an order that varies, so the tolerance is this factor
+# times the largest difference between two uninterrupted runs of the same
+# call at steps 3-4, and never under the floor (about ten f32 ulps of a
+# loss of 12.6), since one pair's spread may come out zero
+CKPT_RESUME_SPREAD_FACTOR = 4.0
+CKPT_RESUME_LOSS_FLOOR = 1e-5
+CKPT_JOB = "chip_smoke_ckpt"  # the phase's shm segment: one, reused
+CKPT_CHILD_TIMEOUT_S = 600
+# a PCIe link's transfer rate a lane (GT/s) by generation; gens 1-2 encode
+# 8b/10b, later ones 128b/130b
+PCIE_GT_PER_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}
+# the H100 SXM's link, taken when nvidia-smi cannot read the link
+H100_PCIE = (5, 16)
+CRC_CHUNK = 256 << 20  # bytes a device-to-host copy for a leaf's CRC32
 
 
 class SmokeFailure(Exception):
@@ -769,6 +817,395 @@ def phase_vit(torch, attention, fce, chunked_calls):
     return counts, result
 
 
+def ckpt_state_bytes(n_params):
+    """Bytes of the train state's tensors: f32 params and adam's f32 mu and
+    nu (the three 4-byte scalars of step, count and lr_scale aside)."""
+    return 3 * 4 * n_params
+
+
+def snapshot_bound_ms(nbytes):
+    """The device snapshot reads every byte once and writes it once."""
+    return 2 * nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def pcie_bytes_per_s(gen, width):
+    """One direction of a PCIe link: lanes times the lane's transfer rate
+    times the encoding's payload share, in bytes."""
+    payload = 8 / 10 if gen <= 2 else 128 / 130
+    return PCIE_GT_PER_S[gen] * 1e9 * width * payload / 8
+
+
+def pcie_link(line):
+    """(gen, width, note) from nvidia-smi's ``pcie.link.gen.max,
+    pcie.link.width.max`` line; the H100 SXM's Gen5 x16 where it reads no
+    number ([N/A] in a sandbox)."""
+    try:
+        gen, width = (int(x) for x in line.split(","))
+        return gen, width, "as nvidia-smi reads it"
+    except ValueError:
+        return (*H100_PCIE, f"nvidia-smi reads {line.strip()!r}: the H100 "
+                "SXM's Gen5 x16")
+
+
+def check_space(path, need, what, statvfs=os.statvfs):
+    """The bytes free under ``path``; fails, naming the shortfall, when
+    they are fewer than ``need``."""
+    st = statvfs(path)
+    free = st.f_bavail * st.f_frsize
+    check(free >= need, f"{what} {path} has {free} bytes free, the state "
+          f"needs {need}: {need - free} bytes short")
+    return free
+
+
+def crc_table(named, crc_of=lambda v: zlib.crc32(memoryview(v)),
+              workers=8):
+    """{name: ``crc_of(value)``}, by default the zlib.crc32 of a bytes-like
+    value, computed by a pool (the crc releases the interpreter lock)."""
+    def one(item):
+        name, value = item
+        return name, crc_of(value)
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return dict(pool.map(one, named.items()))
+
+
+def compare_crcs(want, got, label):
+    """Every leaf of ``want`` in ``got`` with the same CRC32, and no other."""
+    check(sorted(got) == sorted(want),
+          f"{label}: leaves differ: missing {sorted(set(want) - set(got))[:3]}"
+          f", extra {sorted(set(got) - set(want))[:3]}")
+    bad = [n for n in want if got[n] != want[n]]
+    check(not bad, f"{label}: {len(bad)} leaves differ in CRC32, first "
+          f"{bad[0] if bad else ''}: {want.get(bad[0]) if bad else ''} vs "
+          f"{got.get(bad[0]) if bad else ''}")
+
+
+def state_crcs(torch, state):
+    """The CRC32 of every leaf of a train state under its JAX name, the
+    device tensors copied to the host in CRC_CHUNK pieces through a pinned
+    buffer of each worker's."""
+    from dlrover_tpu_torch.checkpoint.shm_handler import as_bytes, flatten_state
+
+    local = threading.local()
+
+    def crc(value):
+        flat = as_bytes(value)
+        if not flat.is_cuda:
+            return zlib.crc32(memoryview(flat.numpy()))
+        if not hasattr(local, "buf"):
+            local.buf = torch.empty(CRC_CHUNK, dtype=torch.uint8,
+                                    pin_memory=True)
+        out = 0
+        for o in range(0, flat.numel(), CRC_CHUNK):
+            n = min(CRC_CHUNK, flat.numel() - o)
+            local.buf[:n].copy_(flat[o:o + n])
+            out = zlib.crc32(memoryview(local.buf[:n].numpy()), out)
+        return out
+
+    return crc_table({leaf.name: leaf.value
+                      for leaf in flatten_state(state)}, crc)
+
+
+def segment_crcs(job):
+    """The CRC32 of every leaf staged in the job's shm segment, under its
+    leaf name, and the staged step."""
+    from dlrover_tpu_torch.checkpoint.shm_handler import (
+        SharedMemoryHandler, shm_name)
+
+    h = SharedMemoryHandler(shm_name(job, 0, 0))
+    try:
+        meta = h.read_meta()
+        check(meta is not None, f"nothing staged in {h.name}")
+        crcs = crc_table(
+            {m.path.rsplit("#", 1)[0]: m for m in meta.leaves},
+            lambda m: zlib.crc32(memoryview(h.leaf_bytes(m).numpy())))
+        return meta.step, crcs
+    finally:
+        h.close()
+
+
+def manifest_crcs(ckpt_dir, step):
+    """The CRC32 of every leaf in a persisted step's local-tier manifest."""
+    from dlrover_tpu_torch.checkpoint.saver import local_tier_dir, step_dir
+    from dlrover_tpu_torch.checkpoint.shm_handler import CheckpointMeta
+
+    path = os.path.join(step_dir(local_tier_dir(ckpt_dir, 0), step),
+                        "proc-0", "meta.json")
+    with open(path) as f:
+        meta = CheckpointMeta.from_json(f.read())
+    return {m.path.rsplit("#", 1)[0]: m.crc32 for m in meta.leaves}
+
+
+def unlink_segment(job):
+    from dlrover_tpu_torch.checkpoint.shm_handler import (
+        SharedMemoryHandler, shm_name)
+
+    h = SharedMemoryHandler(shm_name(job, 0, 0))
+    if h.attach():
+        h.close(unlink=True)
+
+
+def _ckpt_args(steps, ckpt_dir, save_every):
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    return llama_pretrain.parse_args([
+        "--model", "8b", "--layers", "4", "--seq", "2048",
+        "--micro-batch", "1", "--global-batch", "2", "--steps", str(steps),
+        "--device", "cuda", "--seed", "0", "--ckpt-dir", ckpt_dir,
+        "--save-every", str(save_every),
+    ])
+
+
+def _print_saves(label, saves, nbytes):
+    for save in saves:
+        st = save["stage"] or {}
+        copy_s = st.get("copy_s")
+        rate = (f"{st['device_bytes'] / copy_s / 1e9:.2f} GB/s"
+                if copy_s else "n/a")
+        persist = (f", persist {st['persist_s']:.3f}s"
+                   if "persist_s" in st else "")
+        print(f"  [{label}] save step {save['step']}: blocking "
+              f"{save['blocking_s'] * 1e3:.2f} ms (registering the segment "
+              f"{st.get('register_s', float('nan')):.3f}s of it), mode "
+              f"{save['mode']}; stage {st.get('stage_s', float('nan')):.3f}s"
+              f" (device-to-host "
+              f"{copy_s if copy_s is None else round(copy_s, 4)}s of "
+              f"{st.get('device_bytes')} bytes, {rate}){persist}",
+              flush=True)
+        check(st.get("device_bytes") == nbytes,
+              f"save {save['step']} staged {st.get('device_bytes')} device "
+              f"bytes, not the state's {nbytes}")
+
+
+def _run_child(role, ckpt_dir, kill_on=None):
+    """Run ``chip_smoke.py --ckpt-child role ckpt_dir``, echoing its
+    output; returns its JSON result. With ``kill_on``, SIGKILL it at the
+    line that starts with that word. Fails on a child that fails."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ckpt-child", role,
+         ckpt_dir], stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, DLROVER_TPU_JOB_NAME=CKPT_JOB))
+    timer = threading.Timer(CKPT_CHILD_TIMEOUT_S, proc.kill)
+    timer.start()
+    result = None
+    try:
+        for line in iter(proc.stdout.readline, ""):
+            if line.startswith("CKPT_CHILD_JSON "):
+                result = json.loads(line.split(" ", 1)[1])
+                continue
+            print(f"  [child {role}] {line.rstrip()}", flush=True)
+            if kill_on and line.startswith(kill_on):
+                proc.send_signal(signal.SIGKILL)
+    finally:
+        timer.cancel()
+        proc.kill()
+        proc.wait(timeout=60)
+    want = -signal.SIGKILL if kill_on else 0
+    check(proc.returncode == want,
+          f"child {role} exited {proc.returncode}, not {want}")
+    check(result is not None, f"child {role} printed no result")
+    return result
+
+
+def ckpt_child(role, ckpt_dir):
+    """One child of phase 4c, on the card; prints its result as one JSON
+    line. crash: trains steps 1-2 saving each to memory, prints the staged
+    leaves' CRC32 and waits to be killed. resume: restores (it must find
+    step 2 in shm), prints the restored leaves' CRC32, trains steps 3-4.
+    disk: restores (from disk, the segment gone) and prints the CRC32s."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    if role == "crash":
+        result = llama_pretrain.run(_ckpt_args(2, ckpt_dir, 0))
+        print(f"step_s {result['step_s']}", flush=True)
+        _print_saves("crash", result["saves"], ckpt_state_bytes(
+            result["params"]))
+        step, crcs = segment_crcs(CKPT_JOB)
+        print("CKPT_CHILD_JSON " + json.dumps({
+            "losses": result["losses"], "staged_step": step, "crc": crcs,
+            "modes": [s["mode"] for s in result["saves"]]}), flush=True)
+        print("READY to be killed", flush=True)
+        time.sleep(CKPT_CHILD_TIMEOUT_S)
+        return 1  # not killed
+    args = _ckpt_args(4, ckpt_dir, 0)
+    _, trainer, state, next_batch, _ = llama_pretrain.build(args)
+    torch.cuda.synchronize()
+    ckpt, start, restore = llama_pretrain.open_checkpoint(args, state,
+                                                          next_batch)
+    check(restore is not None, f"child {role} restored nothing")
+    crcs = state_crcs(torch, state)
+    losses, step_s = [], []
+    if role == "resume":
+        for _ in range(start, args.steps):
+            state, loss, seconds = llama_pretrain.timed_step(
+                trainer, state, next_batch())
+            losses.append(loss)
+            step_s.append(seconds)
+    ckpt.close()
+    print("CKPT_CHILD_JSON " + json.dumps({
+        "restore": restore, "crc": crcs, "losses": losses,
+        "step_s": step_s}), flush=True)
+    return 0
+
+
+def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
+    """Flash checkpoint at the main path's size (module docstring, 4c)."""
+    from dlrover_tpu_torch.checkpoint.saver import CheckpointPersister
+    from dlrover_tpu_torch.checkpoint.shm_handler import HEADER_SPACE
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    t0 = time.perf_counter()
+    n_params = llama.param_count(llama_pretrain.model_config("8b", 4))
+    nbytes = ckpt_state_bytes(n_params)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        for cmd in (["df", "-B1", "/dev/shm"], ["df", "-B1", workdir]):
+            out = subprocess.run(cmd, capture_output=True, text=True)
+            print("  " + out.stdout.strip().replace("\n", "\n  "), flush=True)
+        with open("/proc/meminfo") as f:
+            print("  " + [l for l in f if l.startswith("MemAvailable")][0]
+                  .strip(), flush=True)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+             "pcie.link.width.current", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        print(f"  pcie link (gen, width) now: {out.stdout.strip()}",
+              flush=True)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=pcie.link.gen.max,"
+             "pcie.link.width.max", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        gen, width, note = pcie_link(out.stdout.strip().splitlines()[0]
+                                     if out.stdout.strip() else "")
+        shm_free = check_space("/dev/shm", nbytes + HEADER_SPACE, "shm")
+        # one persisted step: the local disk tier and the object tier
+        disk_free = check_space(workdir, 2 * nbytes, "disk")
+        snap_ms = snapshot_bound_ms(nbytes)
+        copy_s = nbytes / pcie_bytes_per_s(gen, width)
+        print(f"  state {n_params} params, {nbytes} bytes; shm free "
+              f"{shm_free}, disk free {disk_free}; bounds: snapshot "
+              f"{snap_ms:.2f} ms (2 x bytes / 3.35 TB/s), device-to-host "
+              f"{copy_s:.4f} s (bytes / PCIe Gen{gen} x{width}, {note})",
+              flush=True)
+
+        # the save run: a memory save after every step, step 4 persisted
+        d_save = os.path.join(workdir, "save")
+        torch.cuda.empty_cache()
+        _reset_counts(attention, fce, chunked_calls)
+        with mock.patch.dict(os.environ, DLROVER_TPU_JOB_NAME=CKPT_JOB):
+            result = llama_pretrain.run(
+                _ckpt_args(6, d_save, 4),
+                log=lambda m: print(f"  [save run] {m}", flush=True))
+        counts = _launch_counts(attention, fce)
+        print(f"  [save run] kernel launches: {counts}; chunked CE calls "
+              f"{chunked_calls[0]}", flush=True)
+        for name in counts:
+            check(counts[name] > 0,
+                  f"kernel {name} never launched in the checkpointed run")
+        check(chunked_calls[0] == 0, "the chunked CE ran in the save run")
+        losses = result["losses"]
+        check(len(losses) == 6 and all(math.isfinite(x) for x in losses),
+              f"save run losses {losses}")
+        _print_saves("save run", result["saves"], nbytes)
+        modes = [s["mode"] for s in result["saves"]]
+        check(modes == ["device_snapshot"] * 6,
+              f"the save run staged as {modes}, not device_snapshot")
+        paused = [s + v["blocking_s"] for s, v in
+                  zip(result["step_s"], result["saves"])]
+        tokens = result["tokens_per_step"]
+        # steps 3-4 follow memory saves whose segment is registered, before
+        # save 5 waits for step 4's persist
+        print(f"  [save run] step_s {result['step_s']}; tokens/s with each "
+              f"save's pause: steps 3-4 {tokens * 2 / sum(paused[2:4]):.1f}"
+              f", steps 2-6 {tokens * 5 / sum(paused[1:]):.1f}; steps "
+              f"alone: steps 3-4 {tokens * 2 / sum(result['step_s'][2:4]):.1f}"
+              f", steps 2-6 {result['tokens_per_s']:.1f}; phase 4 "
+              f"{main_result['tokens_per_s']:.1f}; max_memory_allocated "
+              f"{result['max_memory_bytes']} bytes (phase 4 "
+              f"{main_result['max_memory_bytes']})", flush=True)
+        check((result["saves"][3]["stage"] or {}).get("persist_s")
+              is not None, "save 4 was not persisted")
+        committed = CheckpointPersister(CKPT_JOB, 0).committed_step(d_save)
+        check(committed == 4, f"the save run committed step {committed}")
+        shutil.rmtree(d_save)  # the disk leg needs its room
+
+        # the pause without the snapshot: the whole device-to-host copy
+        d_gather = os.path.join(workdir, "gather")
+        torch.cuda.empty_cache()
+        with mock.patch.dict(os.environ, DLROVER_TPU_JOB_NAME=CKPT_JOB,
+                             DLROVER_TPU_DEVICE_SNAPSHOT="0"):
+            gather = llama_pretrain.run(_ckpt_args(2, d_gather, 0),
+                                        log=lambda m: None)
+        _print_saves("host gather", gather["saves"], nbytes)
+        modes = [s["mode"] for s in gather["saves"]]
+        check(modes == ["host_gather"] * 2,
+              f"DLROVER_TPU_DEVICE_SNAPSHOT=0 staged as {modes}")
+        shutil.rmtree(d_gather, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # a crash: the first child is SIGKILLed once step 2 is staged
+        d_crash = os.path.join(workdir, "crash")
+        crash = _run_child("crash", d_crash, kill_on="READY")
+        check(crash["staged_step"] == 2 and crash["modes"] == [
+            "device_snapshot"] * 2, f"crash child staged {crash}")
+        resume = _run_child("resume", d_crash)
+        restore = resume["restore"]
+        print(f"  restore after SIGKILL: step {restore['step']}, tier "
+              f"{restore['tier']}, {restore['seconds']:.3f}s (register "
+              f"{restore['register_s']:.3f}s, host-to-device "
+              f"{restore['bytes'] / (restore['seconds'] - restore['register_s']) / 1e9:.2f}"
+              f" GB/s over the rest)", flush=True)
+        check(restore["tier"] == "shm" and restore["step"] == 2,
+              f"the resumed child restored {restore}, not step 2 from shm")
+        compare_crcs(crash["crc"], resume["crc"], "shm restore")
+        print(f"  every leaf's CRC32 equal ({len(resume['crc'])} leaves)",
+              flush=True)
+        runs = [main_result["losses"][2:4], losses[2:4]]
+        spread = max(abs(a - b) for a, b in zip(*runs))
+        tol = max(CKPT_RESUME_SPREAD_FACTOR * spread, CKPT_RESUME_LOSS_FLOOR)
+        diff = max(abs(a - b) for a, b in zip(resume["losses"], runs[0]))
+        print(f"  resumed steps 3-4 (step_s {resume['step_s']}) losses "
+              f"{resume['losses']} vs phase 4's "
+              f"{runs[0]} and the save run's {runs[1]}: diff {diff:.3e}, "
+              f"uninterrupted spread {spread:.3e}, tol {tol:.3e} (max of "
+              f"{CKPT_RESUME_SPREAD_FACTOR} x spread, "
+              f"{CKPT_RESUME_LOSS_FLOOR})", flush=True)
+        check(diff <= tol, f"resumed losses differ by {diff} > {tol}")
+
+        # the killed child's step persisted from shm, as an agent persists
+        # a dead worker's segment; the segment lost; a restore from disk
+        t_persist = time.perf_counter()
+        check(CheckpointPersister(CKPT_JOB, 0).persist_step(d_crash, 2),
+              "the killed child's step 2 was not persisted from shm")
+        print(f"  persist of step 2 from shm: "
+              f"{time.perf_counter() - t_persist:.3f}s", flush=True)
+        unlink_segment(CKPT_JOB)
+        disk = _run_child("disk", d_crash)
+        restore = disk["restore"]
+        print(f"  restore from disk: step {restore['step']}, tier "
+              f"{restore['tier']}, {restore['seconds']:.3f}s for "
+              f"{restore['bytes']} bytes (CRC-verified)", flush=True)
+        check(restore["tier"] == "disk" and restore["step"] == 2,
+              f"the disk child restored {restore}, not step 2 from disk")
+        compare_crcs(manifest_crcs(d_crash, 2), disk["crc"], "disk restore")
+        compare_crcs(crash["crc"], disk["crc"], "disk restore")
+        print(f"  every leaf's CRC32 equal to its manifest's and the killed "
+              f"child's ({len(disk['crc'])} leaves)", flush=True)
+    finally:
+        unlink_segment(CKPT_JOB)
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"  flash checkpoint phase: {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+
 def _card_vs_cpu(torch, label, params_cpu, batch_cpu, batch_gpu, loss_cpu,
                  loss_gpu):
     """Loss and every grad: bf16 + kernels on the card against f32 + plain
@@ -921,10 +1358,15 @@ def main():
 
     print("== phase 4: main path (Llama-3-8B width, 4 of 32 layers)",
           flush=True)
-    counts, _ = phase_main_path(torch, attention, fce, chunked_calls)
+    counts, main_result = phase_main_path(torch, attention, fce,
+                                          chunked_calls)
 
     print("== phase 4b: ViT-B/16", flush=True)
     phase_vit(torch, attention, fce, chunked_calls)
+
+    print("== phase 4c: flash checkpoint (Llama-3-8B width, 4 of 32 layers)",
+          flush=True)
+    phase_checkpoint(torch, attention, fce, chunked_calls, main_result)
 
     print("== phase 5: small-model reference (card bf16 vs cpu f32)",
           flush=True)
@@ -965,6 +1407,8 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--ckpt-child"]:
+            sys.exit(ckpt_child(*sys.argv[2:4]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)

@@ -1,7 +1,7 @@
 """dlrover_tpu_torch: the PyTorch and CUDA port of dlrover_tpu for NVIDIA Hopper.
 
 The module layout mirrors the JAX package (``common``, ``ops``, ``models``,
-``train``, ``run``) so each counterpart is found by name. The port imports
+``train``, ``checkpoint``, ``run``) so each counterpart is found by name. The port imports
 ``torch`` and numpy and nothing of JAX or of ``dlrover_tpu``: where it needs
 one of that package's stdlib-only helpers it keeps its own copy.
 

@@ -1,0 +1,112 @@
+"""Checkpoint storage and deletion strategies: the port's own copy of
+dlrover_tpu/common/storage.py.
+
+Writes are atomic (a temporary file, fsync, rename), so a preemption in
+the middle of a persist never corrupts a committed checkpoint. ``write``
+takes any bytes-like object, so a leaf goes from a shm view to its file
+without a copy in between.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from abc import ABC, abstractmethod
+from typing import List
+
+
+class CheckpointDeletionStrategy(ABC):
+    @abstractmethod
+    def to_delete(self, steps: List[int]) -> List[int]:
+        """Given committed steps (ascending), return steps to delete."""
+
+
+class KeepLatestStepStrategy(CheckpointDeletionStrategy):
+    def __init__(self, max_to_keep: int = 3):
+        self.max_to_keep = max(1, max_to_keep)
+
+    def to_delete(self, steps: List[int]) -> List[int]:
+        return sorted(steps)[: -self.max_to_keep]
+
+
+class KeepStepIntervalStrategy(CheckpointDeletionStrategy):
+    """Keep every k-th step; delete the rest once a newer step commits."""
+
+    def __init__(self, keep_interval: int = 1000):
+        self.keep_interval = max(1, keep_interval)
+
+    def to_delete(self, steps: List[int]) -> List[int]:
+        steps = sorted(steps)
+        if not steps:
+            return []
+        latest = steps[-1]
+        return [
+            s for s in steps if s != latest and s % self.keep_interval != 0
+        ]
+
+
+class CheckpointStorage(ABC):
+    @abstractmethod
+    def write(self, content, path: str):
+        ...
+
+    @abstractmethod
+    def read(self, path: str) -> bytes:
+        ...
+
+    def put_file(self, src_path: str, path: str):
+        """Upload a local file to ``path``: the object-tier fanout's unit
+        of work (checkpoint/saver.py). Default: read + atomic write."""
+        with open(src_path, "rb") as f:
+            self.write(f.read(), path)
+
+    @abstractmethod
+    def exists(self, path: str) -> bool:
+        ...
+
+    @abstractmethod
+    def listdir(self, path: str) -> List[str]:
+        ...
+
+    @abstractmethod
+    def makedirs(self, path: str):
+        ...
+
+    @abstractmethod
+    def delete(self, path: str):
+        ...
+
+
+class PosixDiskStorage(CheckpointStorage):
+    """Local disk, NFS or a FUSE-mounted bucket."""
+
+    def write(self, content, path: str):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:
+            f.write(content)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def read(self, path: str) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    def exists(self, path: str) -> bool:
+        return os.path.exists(path)
+
+    def listdir(self, path: str) -> List[str]:
+        try:
+            return sorted(os.listdir(path))
+        except FileNotFoundError:
+            return []
+
+    def makedirs(self, path: str):
+        os.makedirs(path, exist_ok=True)
+
+    def delete(self, path: str):
+        if os.path.isdir(path):
+            shutil.rmtree(path, ignore_errors=True)
+        elif os.path.exists(path):
+            os.unlink(path)

@@ -192,3 +192,70 @@ def test_graph_ms_times_replays_of_a_captured_graph(given_stream):
         assert captured_on is stream
     else:
         assert isinstance(captured_on, cuda.Stream)
+
+
+def test_checkpoint_state_bytes_and_bounds():
+    """Phase 4c's state at the main path's size: 1,923,125,248 f32 params
+    and adam's mu and nu; the snapshot reads and writes each byte once at
+    3.35 TB/s; the device-to-host copy moves it over PCIe Gen5 x16 (the
+    H100 SXM's link, taken where nvidia-smi reads none)."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    n = llama.param_count(llama_pretrain.model_config("8b", 4))
+    assert n == 1_923_125_248
+    nbytes = chip_smoke.ckpt_state_bytes(n)
+    assert nbytes == 23_077_502_976
+    assert chip_smoke.snapshot_bound_ms(nbytes) == pytest.approx(13.8,
+                                                                abs=0.05)
+    gen, width, note = chip_smoke.pcie_link("[N/A], [N/A]")
+    assert (gen, width) == (5, 16) and "N/A" in note
+    assert chip_smoke.pcie_link("4, 8")[:2] == (4, 8)
+    # 32 GT/s x 16 lanes x 128/130 / 8 = 63.0 GB/s
+    assert chip_smoke.pcie_bytes_per_s(5, 16) == pytest.approx(63.015e9,
+                                                               rel=1e-4)
+    assert nbytes / chip_smoke.pcie_bytes_per_s(gen, width) == pytest.approx(
+        0.366, abs=5e-4)
+
+
+@pytest.mark.parametrize("free_blocks,ok", [(10, False), (2_000_000, True)])
+def test_check_space_refuses_a_small_volume(free_blocks, ok):
+    """check_space reads the volume's free bytes (f_bavail x f_frsize) and
+    fails, naming the shortfall, when the state does not fit."""
+    import types
+
+    def statvfs(path):
+        return types.SimpleNamespace(f_bavail=free_blocks, f_frsize=4096)
+
+    need = 1_000_000_000
+    if ok:
+        assert chip_smoke.check_space("/dev/shm", need, "shm",
+                                      statvfs) == free_blocks * 4096
+        return
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match=f"{need - 10 * 4096} bytes short"):
+        chip_smoke.check_space("/dev/shm", need, "shm", statvfs)
+
+
+def test_crc_comparison_fails_on_one_flipped_byte():
+    """The CRC32 table of staged leaves against the restored ones: equal
+    tables pass; one flipped byte, or a missing leaf, fails, naming it."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    leaves = {f"['params']['w{i}']": rng.standard_normal(1000).astype(
+        np.float32) for i in range(4)}
+    leaves["['step']"] = np.asarray(3, np.int32)
+    want = chip_smoke.crc_table(leaves)
+    chip_smoke.compare_crcs(want, chip_smoke.crc_table(
+        {k: v.copy() for k, v in leaves.items()}), "same")
+    flipped = {k: v.copy() for k, v in leaves.items()}
+    flipped["['params']['w2']"].view(np.uint8)[1234] ^= 0x01
+    with pytest.raises(chip_smoke.SmokeFailure, match=r"\['w2'\]"):
+        chip_smoke.compare_crcs(want, chip_smoke.crc_table(flipped),
+                                "flipped")
+    missing = dict(leaves)
+    del missing["['step']"]
+    with pytest.raises(chip_smoke.SmokeFailure, match="missing"):
+        chip_smoke.compare_crcs(want, chip_smoke.crc_table(missing),
+                                "missing")
