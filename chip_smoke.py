@@ -71,11 +71,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    second child that must restore step 2 from shm with every CRC equal,
    and trains steps 3-4 to the losses of the uninterrupted runs (phase 4's
    and the save run's) within ``CKPT_RESUME_SPREAD_FACTOR`` times their
-   spread; then the killed child's step persisted from shm (as an agent
-   persists a dead worker's segment) and, with the segment unlinked, a
-   third child that must restore it from the disk tier with every leaf's
-   CRC32 equal to its manifest's and to the killed child's. Bounds are
-   printed beside the times.
+   spread; then, with the segment unlinked, a third child that must
+   restore the save run's committed step 4 from the disk tier with every
+   leaf's CRC32 equal to its manifest's. The phase's shm segment is named
+   for this run (pid and a random suffix), so two runs on one machine
+   never share it. Bounds are printed beside the times.
 5. reference: a small Llama (head dim 128) and a small ViT (head dim 64,
    100 patches, 300 classes) on the card, bf16 with the kernels, against
    the same weights on the CPU in f32 with the plain versions: loss and
@@ -99,6 +99,7 @@ import sys
 import tempfile
 import threading
 import time
+import uuid
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -197,7 +198,6 @@ CE_CASES = [
 # loss of 12.6), since one pair's spread may come out zero
 CKPT_RESUME_SPREAD_FACTOR = 4.0
 CKPT_RESUME_LOSS_FLOOR = 1e-5
-CKPT_JOB = "chip_smoke_ckpt"  # the phase's shm segment: one, reused
 CKPT_CHILD_TIMEOUT_S = 600
 # a PCIe link's transfer rate a lane (GT/s) by generation; gens 1-2 encode
 # 8b/10b, later ones 128b/130b
@@ -977,14 +977,14 @@ def _print_saves(label, saves, nbytes):
               f"bytes, not the state's {nbytes}")
 
 
-def _run_child(role, ckpt_dir, kill_on=None):
-    """Run ``chip_smoke.py --ckpt-child role ckpt_dir``, echoing its
-    output; returns its JSON result. With ``kill_on``, SIGKILL it at the
+def _run_child(role, ckpt_dir, job, kill_on=None):
+    """Run ``chip_smoke.py --ckpt-child role ckpt_dir`` under the job name
+    ``job``, echoing its output; returns its JSON result. With ``kill_on``, SIGKILL it at the
     line that starts with that word. Fails on a child that fails."""
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--ckpt-child", role,
          ckpt_dir], stdout=subprocess.PIPE, text=True,
-        env=dict(os.environ, DLROVER_TPU_JOB_NAME=CKPT_JOB))
+        env=dict(os.environ, DLROVER_TPU_JOB_NAME=job))
     timer = threading.Timer(CKPT_CHILD_TIMEOUT_S, proc.kill)
     timer.start()
     result = None
@@ -1012,7 +1012,8 @@ def ckpt_child(role, ckpt_dir):
     line. crash: trains steps 1-2 saving each to memory, prints the staged
     leaves' CRC32 and waits to be killed. resume: restores (it must find
     step 2 in shm), prints the restored leaves' CRC32, trains steps 3-4.
-    disk: restores (from disk, the segment gone) and prints the CRC32s."""
+    disk: restores (from disk, the segment gone) and prints the CRC32s.
+    The job name, and so the segment, is ``DLROVER_TPU_JOB_NAME``'s."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1027,7 +1028,7 @@ def ckpt_child(role, ckpt_dir):
         print(f"step_s {result['step_s']}", flush=True)
         _print_saves("crash", result["saves"], ckpt_state_bytes(
             result["params"]))
-        step, crcs = segment_crcs(CKPT_JOB)
+        step, crcs = segment_crcs(os.environ["DLROVER_TPU_JOB_NAME"])
         print("CKPT_CHILD_JSON " + json.dumps({
             "losses": result["losses"], "staged_step": step, "crc": crcs,
             "modes": [s["mode"] for s in result["saves"]]}), flush=True)
@@ -1066,6 +1067,8 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
     n_params = llama.param_count(llama_pretrain.model_config("8b", 4))
     nbytes = ckpt_state_bytes(n_params)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    # this run's own segment: another run on the machine has another name
+    job = f"chip_smoke_ckpt_{os.getpid()}_{uuid.uuid4().hex[:8]}"
     try:
         for cmd in (["df", "-B1", "/dev/shm"], ["df", "-B1", workdir]):
             out = subprocess.run(cmd, capture_output=True, text=True)
@@ -1100,7 +1103,7 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
         d_save = os.path.join(workdir, "save")
         torch.cuda.empty_cache()
         _reset_counts(attention, fce, chunked_calls)
-        with mock.patch.dict(os.environ, DLROVER_TPU_JOB_NAME=CKPT_JOB):
+        with mock.patch.dict(os.environ, DLROVER_TPU_JOB_NAME=job):
             result = llama_pretrain.run(
                 _ckpt_args(6, d_save, 4),
                 log=lambda m: print(f"  [save run] {m}", flush=True))
@@ -1133,14 +1136,13 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
               f"{main_result['max_memory_bytes']})", flush=True)
         check((result["saves"][3]["stage"] or {}).get("persist_s")
               is not None, "save 4 was not persisted")
-        committed = CheckpointPersister(CKPT_JOB, 0).committed_step(d_save)
+        committed = CheckpointPersister(job, 0).committed_step(d_save)
         check(committed == 4, f"the save run committed step {committed}")
-        shutil.rmtree(d_save)  # the disk leg needs its room
 
         # the pause without the snapshot: the whole device-to-host copy
         d_gather = os.path.join(workdir, "gather")
         torch.cuda.empty_cache()
-        with mock.patch.dict(os.environ, DLROVER_TPU_JOB_NAME=CKPT_JOB,
+        with mock.patch.dict(os.environ, DLROVER_TPU_JOB_NAME=job,
                              DLROVER_TPU_DEVICE_SNAPSHOT="0"):
             gather = llama_pretrain.run(_ckpt_args(2, d_gather, 0),
                                         log=lambda m: None)
@@ -1153,10 +1155,10 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
 
         # a crash: the first child is SIGKILLed once step 2 is staged
         d_crash = os.path.join(workdir, "crash")
-        crash = _run_child("crash", d_crash, kill_on="READY")
+        crash = _run_child("crash", d_crash, job, kill_on="READY")
         check(crash["staged_step"] == 2 and crash["modes"] == [
             "device_snapshot"] * 2, f"crash child staged {crash}")
-        resume = _run_child("resume", d_crash)
+        resume = _run_child("resume", d_crash, job)
         restore = resume["restore"]
         print(f"  restore after SIGKILL: step {restore['step']}, tier "
               f"{restore['tier']}, {restore['seconds']:.3f}s (register "
@@ -1180,27 +1182,20 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
               f"{CKPT_RESUME_LOSS_FLOOR})", flush=True)
         check(diff <= tol, f"resumed losses differ by {diff} > {tol}")
 
-        # the killed child's step persisted from shm, as an agent persists
-        # a dead worker's segment; the segment lost; a restore from disk
-        t_persist = time.perf_counter()
-        check(CheckpointPersister(CKPT_JOB, 0).persist_step(d_crash, 2),
-              "the killed child's step 2 was not persisted from shm")
-        print(f"  persist of step 2 from shm: "
-              f"{time.perf_counter() - t_persist:.3f}s", flush=True)
-        unlink_segment(CKPT_JOB)
-        disk = _run_child("disk", d_crash)
+        # the segment lost: the save run's committed step 4 from disk
+        unlink_segment(job)
+        disk = _run_child("disk", d_save, job)
         restore = disk["restore"]
         print(f"  restore from disk: step {restore['step']}, tier "
               f"{restore['tier']}, {restore['seconds']:.3f}s for "
               f"{restore['bytes']} bytes (CRC-verified)", flush=True)
-        check(restore["tier"] == "disk" and restore["step"] == 2,
-              f"the disk child restored {restore}, not step 2 from disk")
-        compare_crcs(manifest_crcs(d_crash, 2), disk["crc"], "disk restore")
-        compare_crcs(crash["crc"], disk["crc"], "disk restore")
-        print(f"  every leaf's CRC32 equal to its manifest's and the killed "
-              f"child's ({len(disk['crc'])} leaves)", flush=True)
+        check(restore["tier"] == "disk" and restore["step"] == 4,
+              f"the disk child restored {restore}, not step 4 from disk")
+        compare_crcs(manifest_crcs(d_save, 4), disk["crc"], "disk restore")
+        print(f"  every leaf's CRC32 equal to its manifest's "
+              f"({len(disk['crc'])} leaves)", flush=True)
     finally:
-        unlink_segment(CKPT_JOB)
+        unlink_segment(job)
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"  flash checkpoint phase: {time.perf_counter() - t0:.1f}s",
           flush=True)

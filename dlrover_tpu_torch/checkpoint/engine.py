@@ -269,12 +269,6 @@ class CheckpointEngine:
         rank, world = self._ownership_world
         return (int(rank), int(world)) if world > 1 else None
 
-    def _tiering_enabled(self) -> bool:
-        """Tiered restore rides the dedup switch, at any world size."""
-        if self._dedup is not None:
-            return bool(self._dedup)
-        return flags.CKPT_DEDUP.get()
-
     def _plan(self, state) -> Tuple[List[_Stage], List[str], Dict[str, Any]]:
         """The pieces this process stages, in flatten order (under dedup
         only the owned ones: ownership.py's partition), the full leaf
@@ -592,8 +586,7 @@ class CheckpointEngine:
     def load(self, target: Any = None) -> Optional[Tuple[int, Any]]:
         """Restore ``(step, state)`` through the tier ladder: shm, then
         the node-local disk tier, then the shared object tier, each rung
-        adding the pieces the earlier ones were missing. With the dedup
-        switch off, the legacy two-rung shm -> storage restore. With a
+        adding the pieces the earlier ones were missing. With a
         target the state is the target, its tensors overwritten in place;
         without one, ``{leaf name: CPU tensor}``."""
         try:
@@ -602,14 +595,7 @@ class CheckpointEngine:
             logger.warning("in-flight staging failed before load: %s", e)
         t0 = time.perf_counter()
         self.last_restore_stats = {}
-        if not self._tiering_enabled():
-            result = self._load_from_memory(target)
-            if result is not None:
-                logger.info("restored step %s from shared memory", result[0])
-            else:
-                result = self._load_from_storage(target)
-        else:
-            result = self._load_tiered(target)
+        result = self._load_tiered(target)
         if result is not None and target is not None:
             self.last_restore_stats["seconds"] = time.perf_counter() - t0
         return result
@@ -741,7 +727,7 @@ class CheckpointEngine:
         def attempt():
             if not pieces:
                 return None
-            return self._assemble(step, pieces, target, full_data=False,
+            return self._assemble(step, pieces, target,
                                   expected_paths=expected or None,
                                   from_shm="shm" in contributed)
 
@@ -807,53 +793,6 @@ class CheckpointEngine:
                 return success(result)
         return None
 
-    def _load_from_memory(self, target: Any = None):
-        meta = self._staged_shm_meta()
-        if meta is None:
-            return None
-        if meta.world_size != 1:
-            # staged by a process of a larger world: its pieces no longer
-            # cover what this process restores; storage has them all
-            logger.info("staged shm is from a %s-process world; falling "
-                        "back to storage restore", meta.world_size)
-            return None
-        result = self._assemble(meta.step, self._read_pieces_from_shm(meta),
-                                target, full_data=False, from_shm=True)
-        if result is not None and target is not None:
-            stats = self.last_restore_stats
-            stats["tier"] = "shm"
-            stats["tiers_read"] = ["shm"]
-            stats["pieces"] = len(meta.leaves)
-            stats["bytes"] = int(sum(lm.nbytes for lm in meta.leaves))
-        return result
-
-    def _load_from_storage(self, target: Any = None):
-        """Legacy (dedup switch off) storage restore: one object rung
-        through the same manifest reader as the ladder, so CRC checks and
-        torn-dir skipping apply here too."""
-        step = self.committed_step()
-        if step < 0:
-            return None
-        sdir = step_dir(self.ckpt_dir, step)
-        pieces: Dict[str, List[Piece]] = {}
-        expected: List[str] = []
-        n_pieces, n_bytes = self._merge_tier_pieces(
-            self._storage, sdir, step, pieces, set(), expected
-        )
-        if not pieces:
-            return None
-        result = self._assemble(step, pieces, target, full_data=True,
-                                expected_paths=expected or None)
-        if result is not None:
-            if target is not None:
-                stats = self.last_restore_stats
-                stats["tier"] = "object"
-                stats["tiers_read"] = ["object"]
-                stats["pieces"] = n_pieces
-                stats["bytes"] = n_bytes
-            logger.info("restored step %s from storage %s", step, sdir)
-        return result
-
     def _read_pieces_from_shm(self, meta: CheckpointMeta
                               ) -> Dict[str, List[Piece]]:
         """The segment's pieces as views of it (no copy)."""
@@ -867,12 +806,12 @@ class CheckpointEngine:
         return pieces
 
     def _assemble(
-        self, step, pieces: Dict[str, List[Piece]], target, full_data: bool,
+        self, step, pieces: Dict[str, List[Piece]], target,
         expected_paths: Optional[List[str]] = None, from_shm: bool = False,
     ):
         """Rebuild the state from pieces. With a ``target`` every leaf is
-        checked first (shape, and that the pieces cover it unless
-        ``full_data``) and only then written in place; otherwise a flat
+        checked first (shape, and that the pieces cover it) and only then
+        written in place; otherwise a flat
         ``{leaf name: CPU tensor}`` in the manifest's order.
 
         ``expected_paths``: the checkpoint's full leaf list. A target leaf
@@ -906,12 +845,11 @@ class CheckpointEngine:
                         leaf.name, gshape, tuple(leaf.value.shape),
                     )
                     return None
-                covered = region_covered(_full(gshape), plist)
-                if not covered and not full_data:
+                if not region_covered(_full(gshape), plist):
                     logger.info("staged pieces do not cover leaf %s; "
                                 "falling back to storage", leaf.name)
                     return None
-                plan.append((leaf, plist, covered))
+                plan.append((leaf, plist))
             self.last_restore_stats = self._place(plan, from_shm)
             return step, target
         if expected_set is not None:
@@ -927,7 +865,7 @@ class CheckpointEngine:
         for path in paths:
             plist = pieces[path]
             gshape = tuple(plist[0][2])
-            if not full_data and not region_covered(_full(gshape), plist):
+            if not region_covered(_full(gshape), plist):
                 logger.info("staged pieces do not cover %s; need storage "
                             "restore", path)
                 return None
@@ -939,20 +877,20 @@ class CheckpointEngine:
             out[path] = full
         return step, out
 
-    def _place(self, plan: List[Tuple[Leaf, List[Piece], bool]],
+    def _place(self, plan: List[Tuple[Leaf, List[Piece]]],
                from_shm: bool) -> Dict[str, Any]:
         """Write checked pieces into the target in place: a tensor leaf
         on its device (a whole-leaf piece of its dtype as one copy of
         bytes, a DMA from the registered segment when ``from_shm``), a
         Python scalar by replacing it in its container."""
-        cuda = {leaf.value.device for leaf, _, _ in plan
+        cuda = {leaf.value.device for leaf, _ in plan
                 if isinstance(leaf.value, torch.Tensor) and leaf.value.is_cuda}
         stats: Dict[str, Any] = {
             "register_s": self._shm.pin() if cuda and from_shm else 0.0,
             "placed": len(plan),
         }
         with torch.no_grad():
-            for leaf, plist, covered in plan:
+            for leaf, plist in plan:
                 value = leaf.container[leaf.key]
                 if isinstance(value, (bool, int, float)):
                     _, data, _, dt = plist[0]
@@ -961,8 +899,6 @@ class CheckpointEngine:
                     continue
                 if isinstance(value, np.ndarray):
                     value = torch.from_numpy(value)
-                if not covered:
-                    value.zero_()
                 for index, data, gshape, dt in plist:
                     if (index == _full(gshape) and value.is_contiguous()
                             and torch_dtype(dt) == value.dtype):

@@ -14,12 +14,11 @@ Storage layout, the JAX package's (both disk tiers mirror it)::
     <local_root>/node-<id>/            # tier 1: node-local disk
       step-<N>/proc-<pid>/...          # same proc-dir layout
 
-Tiered persist (``DLROVER_TPU_CKPT_DEDUP``, the default): the shm copy
-lands on the node-local disk tier first (a pool of leaf writers, per-leaf
-CRC32, the manifest written last so a torn proc dir is never read as
-valid), then fans out to the object tier, and the node's commit vote
-follows the fanout, so a committed step survives losing the node. With
-the switch off, the legacy single hop shm -> object storage.
+Tiered persist: the shm copy lands on the node-local disk tier first (a
+pool of leaf writers, per-leaf CRC32, the manifest written last so a torn
+proc dir is never read as valid), then fans out to the object tier, and
+the node's commit vote follows the fanout, so a committed step survives
+losing the node.
 
 The agent's side (``AsyncCheckpointSaver``: the IPC event loop, the
 save-at-breakpoint persist, the replica push) waits for the agent slice;
@@ -132,20 +131,14 @@ class CheckpointPersister:
                                    "skipping", h.name, meta.step, step)
                     continue
                 by_step.setdefault(meta.step, []).append((meta, h))
-            tiered = flags.CKPT_DEDUP.get()
             complete_steps = []
             for s, pairs in sorted(by_step.items()):
                 for meta, h in pairs:
-                    self._write_process_ckpt(ckpt_dir, meta, h, tiered)
+                    self._write_process_ckpt(ckpt_dir, meta, h)
                 if len(pairs) == len(self.local_process_ids):
-                    if tiered:
-                        # durable on the local tier; the vote waits for
-                        # the object fanout (fan_out_step)
-                        self._pending_fanout.add(s)
-                    else:
-                        self._storage.write(b"1", os.path.join(
-                            step_dir(ckpt_dir, s),
-                            f"node-{self.node_rank}.done"))
+                    # durable on the local tier; the vote waits for the
+                    # object fanout (fan_out_step)
+                    self._pending_fanout.add(s)
                     self._persisted_steps.add(s)
                     complete_steps.append(s)
                 else:
@@ -181,18 +174,15 @@ class CheckpointPersister:
         ckpt_dir: str,
         meta: CheckpointMeta,
         handler: SharedMemoryHandler,
-        tiered: bool = False,
     ):
-        """One process's staged pieces -> a proc dir: leaf files from the
-        persist pool, straight from the segment's bytes, then the manifest
-        (with per-leaf CRC32) last, so a crash mid-write leaves a
+        """One process's staged pieces -> a local-tier proc dir: leaf files
+        from the persist pool, straight from the segment's bytes, then the
+        manifest (with per-leaf CRC32) last, so a crash mid-write leaves a
         manifest-less dir that restore skips."""
-        dest = self._local_storage if tiered else self._storage
-        root = (
-            local_tier_dir(ckpt_dir, self.node_id) if tiered else ckpt_dir
-        )
+        dest = self._local_storage
         proc_dir = os.path.join(
-            step_dir(root, meta.step), f"proc-{meta.process_id}"
+            step_dir(local_tier_dir(ckpt_dir, self.node_id), meta.step),
+            f"proc-{meta.process_id}",
         )
         dest.makedirs(proc_dir)
 

@@ -75,9 +75,8 @@ DRAIN_TIMEOUT = EnvFlag(
 )
 CKPT_DEDUP = EnvFlag(
     "DLROVER_TPU_CKPT_DEDUP", True,
-    "Replica-deduplicated tiered checkpointing kill-switch "
-    "(checkpoint/ownership.py): 0 restores the one-full-copy-per-process "
-    "stage/persist and the two-rung shm->storage restore.",
+    "Replica-deduplicated checkpoint staging kill-switch "
+    "(checkpoint/ownership.py): 0 stages one full copy per process.",
 )
 CKPT_LOCAL_DIR = EnvFlag(
     "DLROVER_TPU_CKPT_LOCAL_DIR", "",
