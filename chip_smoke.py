@@ -59,23 +59,36 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    size, whose train state is 23,077,502,976 bytes of f32 params and adam
    moments. First the machine's facts: ``df -B1 /dev/shm``, MemAvailable,
    the free bytes under the checkpoint directory and the PCIe link; fails,
-   naming the shortfall, if shm or the disk cannot hold the state. Then:
-   a save run (``run/llama_pretrain.py --ckpt-dir``, 6 steps, a memory
-   save after each, every 4th persisted to disk, launch counters at 0 just
-   before and read just after), every save required to take the device
-   snapshot, with each save's pause, its background stage and
-   device-to-host GB/s, tokens/s beside phase 4's and peak memory; then 2
-   steps under ``DLROVER_TPU_DEVICE_SNAPSHOT=0`` (the pause is the whole
-   device-to-host copy); a child that trains 2 steps, saves step 2 to
-   memory, prints the CRC32 of every leaf it staged and is SIGKILLed; a
-   second child that must restore step 2 from shm with every CRC equal,
-   and trains steps 3-4 to the losses of the uninterrupted runs (phase 4's
-   and the save run's) within ``CKPT_RESUME_SPREAD_FACTOR`` times their
-   spread; then, with the segment unlinked, a third child that must
-   restore the save run's committed step 4 from the disk tier with every
-   leaf's CRC32 equal to its manifest's. The phase's shm segment is named
-   for this run (pid and a random suffix), so two runs on one machine
-   never share it. Bounds are printed beside the times.
+   naming the shortfall, if shm or the disk cannot hold the state (the
+   disk: one persisted step on two tiers, ``ckpt_disk_peak``; each leg
+   removes its directory once its restore is checked). Then, with no saver
+   listening (a bare run, which persists inline): a save run
+   (``run/llama_pretrain.py --ckpt-dir``, 6 steps, a memory save after
+   each, every 4th persisted to disk, launch counters at 0 just before and
+   read just after), every save required to take the device snapshot,
+   with each save's pause, its background stage and device-to-host GB/s,
+   tokens/s beside phase 4's and peak memory; 2 steps under
+   ``DLROVER_TPU_DEVICE_SNAPSHOT=0`` (the pause is the whole
+   device-to-host copy); then, with the segment unlinked, a child that
+   must restore the save run's committed step 4 from the disk tier with
+   every leaf's CRC32 equal to its manifest's. Then under the port's
+   ``AsyncCheckpointSaver``, hosted in this process as an agent hosts it:
+   a child trains 3 steps, step 2 a storage save (a persist event to the
+   saver) and step 3 a memory save whose stage waits for the saver to
+   copy step 2 (the back-pressure), and the saver must commit step 2; its
+   copy and fanout seconds and step 3's wait are printed beside the bare
+   run's inline persist. Under a second saver, a child trains 2 steps,
+   saves step 2 to memory, prints the CRC32 of every leaf it staged and
+   is SIGKILLed; the saver's breakpoint persist (``save_shm_to_storage``)
+   must commit step 2 with every manifest CRC equal to the killed
+   child's; a child must restore step 2 from shm with every CRC equal and
+   train steps 3-4 to the losses of the uninterrupted runs (phase 4's and
+   the save run's) within ``CKPT_RESUME_SPREAD_FACTOR`` times their
+   spread; and, with the segment unlinked, a child must restore step 2
+   from the breakpoint persist on disk with every leaf's CRC32 equal to
+   what the killed child staged. The phase's shm segment and socket are
+   named for this run (pid and a random suffix), so two runs on one
+   machine never share them. Bounds are printed beside the times.
 5. reference: a small Llama (head dim 128) and a small ViT (head dim 64,
    100 patches, 300 classes) on the card, bf16 with the kernels, against
    the same weights on the CPU in f32 with the plain versions: loss and
@@ -199,6 +212,11 @@ CE_CASES = [
 CKPT_RESUME_SPREAD_FACTOR = 4.0
 CKPT_RESUME_LOSS_FLOOR = 1e-5
 CKPT_CHILD_TIMEOUT_S = 600
+# seconds the saver gets to copy, fan out and commit a persisted step (at
+# the disk's 0.7-0.9 GB/s, two tiers of 23.1 GB take about a minute)
+CKPT_COMMIT_TIMEOUT_S = 600
+# manifests, commit votes and the tracker beside a persisted step's leaves
+CKPT_DISK_SLACK = 64 << 20
 # a PCIe link's transfer rate a lane (GT/s) by generation; gens 1-2 encode
 # 8b/10b, later ones 128b/130b
 PCIE_GT_PER_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}
@@ -823,6 +841,14 @@ def ckpt_state_bytes(n_params):
     return 3 * 4 * n_params
 
 
+def ckpt_disk_peak(nbytes):
+    """The disk phase 4c needs at its peak: one persisted step of
+    ``nbytes``, on the local and the object tier, and ``CKPT_DISK_SLACK``.
+    Each leg removes its directory once its restore is checked, so no two
+    persisted steps are on disk at once."""
+    return 2 * nbytes + CKPT_DISK_SLACK
+
+
 def snapshot_bound_ms(nbytes):
     """The device snapshot reads every byte once and writes it once."""
     return 2 * nbytes / PEAK_BYTES_PER_S * 1e3
@@ -878,6 +904,40 @@ def compare_crcs(want, got, label):
     check(not bad, f"{label}: {len(bad)} leaves differ in CRC32, first "
           f"{bad[0] if bad else ''}: {want.get(bad[0]) if bad else ''} vs "
           f"{got.get(bad[0]) if bad else ''}")
+
+
+def check_breakpoint_step(staged, manifest, restored):
+    """A killed child's step persisted at the breakpoint: the manifest the
+    saver wrote and the disk restore both hold, leaf for leaf, the CRC32 of
+    what the child staged, so the dead process's bytes reached disk and
+    came back."""
+    compare_crcs(staged, manifest, "breakpoint manifest against the killed "
+                 "child's segment")
+    compare_crcs(staged, restored, "disk restore of the breakpoint step "
+                 "against the killed child's segment")
+
+
+def check_agent_persist(saves, persist_log, committed):
+    """The agent leg: saves of steps 1-3, step 2's persist queued to the
+    saver, which copied step 2 alone and committed it. Returns step 2's
+    pause, the seconds step 3's stage waited for the saver, and the
+    saver's copy (shm to the local tier) and fanout (to the object tier,
+    and the commit) seconds."""
+    by_step = {s["step"]: s["stage"] or {} for s in saves}
+    check(sorted(by_step) == [1, 2, 3], f"the agent child saved steps "
+          f"{sorted(by_step)}, not 1-3")
+    modes = [by_step[k].get("persist") for k in (1, 2, 3)]
+    check(modes == [None, "queued", None], f"persists of saves 1-3: "
+          f"{modes}, not save 2's queued to the saver")
+    check("wait_s" in by_step[3], "save 3's stage recorded no wait")
+    entries = [e for e in persist_log if e["step"] == 2]
+    check(len(entries) == 1 and entries[0].get("steps") == [2]
+          and "fanout_s" in entries[0], f"the saver's persists of step 2: "
+          f"{entries}")
+    check(committed == 2, f"the saver committed step {committed}, not 2")
+    blocking = {s["step"]: s["blocking_s"] for s in saves}
+    return (blocking[2], by_step[3]["wait_s"], entries[0]["copy_s"],
+            entries[0]["fanout_s"])
 
 
 def state_crcs(torch, state):
@@ -963,11 +1023,14 @@ def _print_saves(label, saves, nbytes):
         rate = (f"{st['device_bytes'] / copy_s / 1e9:.2f} GB/s"
                 if copy_s else "n/a")
         persist = (f", persist {st['persist_s']:.3f}s"
-                   if "persist_s" in st else "")
+                   if "persist_s" in st else
+                   f", persist {st['persist']}" if "persist" in st else "")
         print(f"  [{label}] save step {save['step']}: blocking "
               f"{save['blocking_s'] * 1e3:.2f} ms (registering the segment "
               f"{st.get('register_s', float('nan')):.3f}s of it), mode "
-              f"{save['mode']}; stage {st.get('stage_s', float('nan')):.3f}s"
+              f"{save['mode']}; waited {st.get('wait_s', float('nan')):.3f}"
+              f"s for the segment, then stage "
+              f"{st.get('stage_s', float('nan')):.3f}s"
               f" (device-to-host "
               f"{copy_s if copy_s is None else round(copy_s, 4)}s of "
               f"{st.get('device_bytes')} bytes, {rate}){persist}",
@@ -1009,11 +1072,13 @@ def _run_child(role, ckpt_dir, job, kill_on=None):
 
 def ckpt_child(role, ckpt_dir):
     """One child of phase 4c, on the card; prints its result as one JSON
-    line. crash: trains steps 1-2 saving each to memory, prints the staged
-    leaves' CRC32 and waits to be killed. resume: restores (it must find
-    step 2 in shm), prints the restored leaves' CRC32, trains steps 3-4.
-    disk: restores (from disk, the segment gone) and prints the CRC32s.
-    The job name, and so the segment, is ``DLROVER_TPU_JOB_NAME``'s."""
+    line. agent: trains steps 1-3, saving each to memory and step 2 to
+    storage, and prints its saves. crash: trains steps 1-2 saving each to
+    memory, prints the staged leaves' CRC32 and waits to be killed. resume:
+    restores (it must find step 2 in shm), prints the restored leaves'
+    CRC32, trains steps 3-4. disk: restores (from disk, the segment gone)
+    and prints the CRC32s. The job name, and so the segment and the
+    saver's socket, is ``DLROVER_TPU_JOB_NAME``'s."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1023,6 +1088,15 @@ def ckpt_child(role, ckpt_dir):
     torch.backends.cudnn.allow_tf32 = False
     from dlrover_tpu_torch.run import llama_pretrain
 
+    if role == "agent":
+        result = llama_pretrain.run(_ckpt_args(3, ckpt_dir, 2))
+        print(f"step_s {result['step_s']}", flush=True)
+        _print_saves("agent", result["saves"], ckpt_state_bytes(
+            result["params"]))
+        print("CKPT_CHILD_JSON " + json.dumps({
+            "losses": result["losses"], "saves": result["saves"]}),
+            flush=True)
+        return 0
     if role == "crash":
         result = llama_pretrain.run(_ckpt_args(2, ckpt_dir, 0))
         print(f"step_s {result['step_s']}", flush=True)
@@ -1056,10 +1130,22 @@ def ckpt_child(role, ckpt_dir):
     return 0
 
 
+def _wait_persisted(saver, step):
+    """Wait until the saver has logged its persist of ``step``: it logs one
+    once the persist has ended, its commit included."""
+    deadline = time.time() + CKPT_COMMIT_TIMEOUT_S
+    while not any(e["step"] == step for e in list(saver.persist_log)):
+        check(time.time() < deadline, f"the saver did not persist step "
+              f"{step} in {CKPT_COMMIT_TIMEOUT_S}s")
+        time.sleep(0.5)
+
+
 def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
     """Flash checkpoint at the main path's size (module docstring, 4c)."""
-    from dlrover_tpu_torch.checkpoint.saver import CheckpointPersister
+    from dlrover_tpu_torch.checkpoint.saver import (AsyncCheckpointSaver,
+                                                    CheckpointPersister)
     from dlrover_tpu_torch.checkpoint.shm_handler import HEADER_SPACE
+    from dlrover_tpu_torch.common.ipc import default_socket_path
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.run import llama_pretrain
 
@@ -1067,8 +1153,10 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
     n_params = llama.param_count(llama_pretrain.model_config("8b", 4))
     nbytes = ckpt_state_bytes(n_params)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    # this run's own segment: another run on the machine has another name
+    # this run's own segment and socket: another run on the machine has
+    # another name
     job = f"chip_smoke_ckpt_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    host = None
     try:
         for cmd in (["df", "-B1", "/dev/shm"], ["df", "-B1", workdir]):
             out = subprocess.run(cmd, capture_output=True, text=True)
@@ -1089,17 +1177,19 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
         gen, width, note = pcie_link(out.stdout.strip().splitlines()[0]
                                      if out.stdout.strip() else "")
         shm_free = check_space("/dev/shm", nbytes + HEADER_SPACE, "shm")
-        # one persisted step: the local disk tier and the object tier
-        disk_free = check_space(workdir, 2 * nbytes, "disk")
+        disk_free = check_space(workdir, ckpt_disk_peak(nbytes), "disk")
         snap_ms = snapshot_bound_ms(nbytes)
         copy_s = nbytes / pcie_bytes_per_s(gen, width)
         print(f"  state {n_params} params, {nbytes} bytes; shm free "
-              f"{shm_free}, disk free {disk_free}; bounds: snapshot "
+              f"{shm_free}, disk free {disk_free} (peak need "
+              f"{ckpt_disk_peak(nbytes)}); bounds: snapshot "
               f"{snap_ms:.2f} ms (2 x bytes / 3.35 TB/s), device-to-host "
               f"{copy_s:.4f} s (bytes / PCIe Gen{gen} x{width}, {note})",
               flush=True)
 
-        # the save run: a memory save after every step, step 4 persisted
+        # the save run (bare): a memory save after every step, step 4
+        # persisted inline
+        t_leg = time.perf_counter()
         d_save = os.path.join(workdir, "save")
         torch.cuda.empty_cache()
         _reset_counts(attention, fce, chunked_calls)
@@ -1134,8 +1224,9 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
               f"{main_result['tokens_per_s']:.1f}; max_memory_allocated "
               f"{result['max_memory_bytes']} bytes (phase 4 "
               f"{main_result['max_memory_bytes']})", flush=True)
-        check((result["saves"][3]["stage"] or {}).get("persist_s")
-              is not None, "save 4 was not persisted")
+        inline_s = (result["saves"][3]["stage"] or {}).get("persist_s")
+        check(inline_s is not None, "save 4 was not persisted inline")
+        save5_s = result["saves"][4]["blocking_s"]
         committed = CheckpointPersister(job, 0).committed_step(d_save)
         check(committed == 4, f"the save run committed step {committed}")
 
@@ -1153,11 +1244,62 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
         shutil.rmtree(d_gather, ignore_errors=True)
         torch.cuda.empty_cache()
 
-        # a crash: the first child is SIGKILLed once step 2 is staged
+        # the segment lost: the save run's committed step 4 from disk
+        unlink_segment(job)
+        disk = _run_child("disk", d_save, job)
+        restore = disk["restore"]
+        print(f"  restore from disk: step {restore['step']}, tier "
+              f"{restore['tier']}, {restore['seconds']:.3f}s for "
+              f"{restore['bytes']} bytes (CRC-verified)", flush=True)
+        check(restore["tier"] == "disk" and restore["step"] == 4,
+              f"the disk child restored {restore}, not step 4 from disk")
+        compare_crcs(manifest_crcs(d_save, 4), disk["crc"], "disk restore")
+        print(f"  every leaf's CRC32 equal to its manifest's "
+              f"({len(disk['crc'])} leaves)", flush=True)
+        shutil.rmtree(d_save, ignore_errors=True)
+        print(f"  bare legs: {time.perf_counter() - t_leg:.1f}s", flush=True)
+
+        # under the agent's saver: step 2 persisted through its event queue
+        t_leg = time.perf_counter()
+        d_agent = os.path.join(workdir, "agent")
+        host = AsyncCheckpointSaver(job_name=job, node_id=0)
+        host.start()
+        agent = _run_child("agent", d_agent, job)
+        _wait_persisted(host, 2)
+        pause2, wait3, copy_s, fanout_s = check_agent_persist(
+            agent["saves"], list(host.persist_log),
+            host.persister.committed_step(d_agent))
+        print(f"  [agent] step 2 persisted through the saver: pause "
+              f"{pause2 * 1e3:.2f} ms; step 3's stage waited {wait3:.3f}s "
+              f"for the saver's copy; the saver's copy to the local tier "
+              f"{copy_s:.3f}s ({nbytes / copy_s / 1e9:.2f} GB/s), fanout to "
+              f"the object tier and commit {fanout_s:.3f}s; committed step "
+              f"2. The bare run: inline persist of step 4 {inline_s:.3f}s, "
+              f"save 5's pause {save5_s:.3f}s", flush=True)
+        host.stop()
+        host = None
+        shutil.rmtree(d_agent, ignore_errors=True)
+        print(f"  agent leg: {time.perf_counter() - t_leg:.1f}s", flush=True)
+
+        # a crash under the saver: the child is SIGKILLed once step 2 is
+        # staged to memory, and the saver persists it at the breakpoint
+        t_leg = time.perf_counter()
         d_crash = os.path.join(workdir, "crash")
+        host = AsyncCheckpointSaver(job_name=job, node_id=0)
+        host.start()
         crash = _run_child("crash", d_crash, job, kill_on="READY")
         check(crash["staged_step"] == 2 and crash["modes"] == [
             "device_snapshot"] * 2, f"crash child staged {crash}")
+        t_bp = time.perf_counter()
+        ok = host.save_shm_to_storage(d_crash)
+        bp_s = time.perf_counter() - t_bp
+        committed = host.persister.committed_step(d_crash)
+        print(f"  breakpoint persist of the killed child's step: {ok}, "
+              f"{bp_s:.3f}s for two tiers of {nbytes} bytes "
+              f"({2 * nbytes / bp_s / 1e9:.2f} GB/s written), committed "
+              f"step {committed}", flush=True)
+        check(ok, "the breakpoint persist returned False")
+        check(committed == 2, f"the breakpoint persist committed {committed}")
         resume = _run_child("resume", d_crash, job)
         restore = resume["restore"]
         print(f"  restore after SIGKILL: step {restore['step']}, tier "
@@ -1182,21 +1324,33 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
               f"{CKPT_RESUME_LOSS_FLOOR})", flush=True)
         check(diff <= tol, f"resumed losses differ by {diff} > {tol}")
 
-        # the segment lost: the save run's committed step 4 from disk
+        # the segment lost: step 2 from the breakpoint persist on disk
         unlink_segment(job)
-        disk = _run_child("disk", d_save, job)
+        disk = _run_child("disk", d_crash, job)
         restore = disk["restore"]
-        print(f"  restore from disk: step {restore['step']}, tier "
-              f"{restore['tier']}, {restore['seconds']:.3f}s for "
-              f"{restore['bytes']} bytes (CRC-verified)", flush=True)
-        check(restore["tier"] == "disk" and restore["step"] == 4,
-              f"the disk child restored {restore}, not step 4 from disk")
-        compare_crcs(manifest_crcs(d_save, 4), disk["crc"], "disk restore")
-        print(f"  every leaf's CRC32 equal to its manifest's "
+        print(f"  restore of the breakpoint step from disk: step "
+              f"{restore['step']}, tier {restore['tier']}, "
+              f"{restore['seconds']:.3f}s for {restore['bytes']} bytes "
+              f"(CRC-verified)", flush=True)
+        check(restore["tier"] == "disk" and restore["step"] == 2,
+              f"the disk child restored {restore}, not step 2 from disk")
+        check_breakpoint_step(crash["crc"], manifest_crcs(d_crash, 2),
+                              disk["crc"])
+        print(f"  every leaf's CRC32, in the breakpoint manifest and "
+              f"restored from disk, equal to what the killed child staged "
               f"({len(disk['crc'])} leaves)", flush=True)
+        host.stop()
+        host = None
+        print(f"  breakpoint leg: {time.perf_counter() - t_leg:.1f}s",
+              flush=True)
     finally:
+        if host is not None:
+            host.stop()
         unlink_segment(job)
         shutil.rmtree(workdir, ignore_errors=True)
+        # the savers' socket directory, /tmp/dlrover_tpu/<job>
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
     print(f"  flash checkpoint phase: {time.perf_counter() - t0:.1f}s",
           flush=True)
 

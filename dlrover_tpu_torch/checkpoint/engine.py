@@ -39,10 +39,20 @@ the registered segment, for the shm tier), so ``requires_grad`` leaves and
 the trainer's buffers survive; a leaf the tiers cannot cover fails the
 whole restore (None) before any tensor is touched.
 
-Not ported here, each named in ROADMAP.md: the IPC to an agent's saver
-(the event queue, the shm lock, the persist back-pressure; a bare run
-persists inline, as the JAX engine does without an agent), the report to
-the master, the compile-cache default, and trace spans.
+The agent's saver. When an ``AsyncCheckpointSaver`` (saver.py) listens on
+the node's socket (common/ipc.py), a stage runs under its shm lock, from
+the segment's ``begin_write`` through the copies' synchronise to
+``publish``, so the saver never reads a torn segment; a storage save
+queues a persist event instead of persisting here; and the next stage
+first waits for the saver to report that step copied (``copied-<pid>``,
+the back-pressure). With no saver listening (a bare run) the staging
+thread persists inline, as the JAX engine does without an agent. Under
+``DLROVER_TPU_CKPT_REPLICA=1`` every stage also asks the saver to push the
+segment to the backup peer (replica.py).
+
+Not ported here, each named in ROADMAP.md: the report of a save to the
+master (it waits for the port's master client), the compile-cache default,
+and trace spans.
 """
 
 from __future__ import annotations
@@ -64,9 +74,14 @@ import torch
 
 from dlrover_tpu_torch.checkpoint import ownership
 from dlrover_tpu_torch.checkpoint.saver import (
+    CKPT_EVENT_QUEUE,
+    PERSIST_STATE_DICT,
+    SHM_LOCK,
     TRACKER_FILE,
+    CheckpointEvent,
     CheckpointPersister,
     local_tier_dir,
+    persist_mark,
     step_dir,
 )
 from dlrover_tpu_torch.checkpoint.shm_handler import (
@@ -81,6 +96,12 @@ from dlrover_tpu_torch.checkpoint.shm_handler import (
     torch_dtype,
 )
 from dlrover_tpu_torch.common import flags
+from dlrover_tpu_torch.common.ipc import (
+    SharedDict,
+    SharedLock,
+    SharedQueue,
+    default_socket_path,
+)
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.storage import (
     CheckpointStorage,
@@ -94,6 +115,10 @@ Piece = Tuple[Ranges, torch.Tensor, Tuple[int, ...], str]
 
 # a second copy of the state needs this much more than its bytes free
 HEADROOM_SLACK = 1.15
+# seconds a stage waits for the saver's shm lock, and for the saver to copy
+# the previous persisted step (the back-pressure)
+SHM_LOCK_TIMEOUT = 120.0
+PERSIST_WAIT_TIMEOUT = 120.0
 
 
 @dataclasses.dataclass
@@ -208,6 +233,7 @@ class CheckpointEngine:
         async_staging: Optional[bool] = None,
         dedup: Optional[bool] = None,
         ownership_world: Optional[Tuple[int, int]] = None,
+        socket_path: str = "",
     ):
         self.ckpt_dir = ckpt_dir
         self.job_name = job_name or flags.JOB_NAME.get()
@@ -222,6 +248,13 @@ class CheckpointEngine:
         self._shm = SharedMemoryHandler(
             shm_name(self.job_name, self.node_id, self.process_id), create=True
         )
+        self._socket_path = socket_path or default_socket_path(
+            self.job_name, self.node_id)
+        self._event_queue: Optional[SharedQueue] = None
+        self._shm_lock: Optional[SharedLock] = None
+        self._persist_state: Optional[SharedDict] = None
+        #: the step of the last queued persist not yet reported copied
+        self._awaiting_persist = -1
         self.latest_saved_step = -1
         if async_staging is None:
             async_staging = flags.ASYNC_STAGING.get()
@@ -241,9 +274,11 @@ class CheckpointEngine:
         self.last_restore_stats: Dict[str, Any] = {}
         #: the last completed stage: "step", "mode", "pause_s" (with
         #: "register_s", a new mapping's registration, in it), "stage_s"
-        #: (the background's seconds), "copy_s" and "device_bytes" (device
-        #: to host),
-        #: "persist_s", "staged_bytes", "skipped_replica_bytes", "dedup"
+        #: (the background's seconds), "wait_s" (waiting for the saver to
+        #: copy the previous persisted step), "copy_s" and "device_bytes"
+        #: (device to host), "persist" ("inline" or "queued", on a storage
+        #: save) and "persist_s" (an inline persist's seconds),
+        #: "staged_bytes", "skipped_replica_bytes", "dedup"
         self.last_stage_stats: Dict[str, Any] = {}
         #: the most recent completed stages' stats, oldest first
         self.stage_log: collections.deque = collections.deque(maxlen=64)
@@ -253,6 +288,94 @@ class CheckpointEngine:
         # lives as long as the engine, so its pending-fanout retries
         # survive across bare-run saves (_persist_inline)
         self._inline_persister: Optional[CheckpointPersister] = None
+
+    # -- the agent's saver (lazy: a bare run has none) ----------------------
+
+    def _ipc_available(self) -> bool:
+        return os.path.exists(self._socket_path)
+
+    def _queue(self) -> Optional[SharedQueue]:
+        if self._event_queue is None and self._ipc_available():
+            self._event_queue = SharedQueue(CKPT_EVENT_QUEUE,
+                                            self._socket_path)
+        return self._event_queue
+
+    def _lock(self) -> Optional[SharedLock]:
+        if self._shm_lock is None and self._ipc_available():
+            self._shm_lock = SharedLock(SHM_LOCK, self._socket_path)
+        return self._shm_lock
+
+    def _persist_dict(self) -> Optional[SharedDict]:
+        if self._persist_state is None and self._ipc_available():
+            self._persist_state = SharedDict(PERSIST_STATE_DICT,
+                                             self._socket_path)
+        return self._persist_state
+
+    def _wait_pending_persist(self, timeout: float = PERSIST_WAIT_TIMEOUT):
+        """The back-pressure: a queued persist reads the segment as the
+        saver finds it, so staging the next step before the saver's copy
+        would lose the persisted step (the saver skips a step it was not
+        asked for). Wait until the saver reports the step copied; after
+        ``timeout``, warn and stage anyway."""
+        if self._awaiting_persist < 0:
+            return
+        state = self._persist_dict()
+        if state is None:
+            self._awaiting_persist = -1
+            return
+        deadline = time.time() + timeout
+        key = persist_mark(self.process_id)
+        while time.time() < deadline:
+            try:
+                copied = state.get(key)
+            except OSError as e:  # the saver went away
+                logger.warning("persist state unreadable (%s)", e)
+                break
+            if copied is not None and int(copied) >= self._awaiting_persist:
+                self._awaiting_persist = -1
+                return
+            time.sleep(0.02)
+        logger.warning("persist of step %s still pending after %.0fs; "
+                       "staging anyway (that step may not reach storage)",
+                       self._awaiting_persist, timeout)
+        self._awaiting_persist = -1
+
+    def _claim_segment(self, step: int) -> Tuple[Optional[SharedLock],
+                                                 float]:
+        """Before a stage overwrites the segment: the back-pressure wait,
+        then the saver's shm lock (None without a saver). Returns the lock
+        and the seconds both took; raises TimeoutError when the lock is not
+        had in ``SHM_LOCK_TIMEOUT``."""
+        t0 = time.perf_counter()
+        self._wait_pending_persist()
+        lock = self._lock()
+        if lock is not None and not lock.acquire(timeout=SHM_LOCK_TIMEOUT):
+            raise TimeoutError(f"shm lock not acquired in "
+                               f"{SHM_LOCK_TIMEOUT:.0f}s; step {step} not "
+                               f"staged")
+        return lock, time.perf_counter() - t0
+
+    def _request_backup(self, step: int):
+        """Replica mode (set by the agent): ask the saver to push the
+        staged segment to the backup peer."""
+        if flags.CKPT_REPLICA.get() == "1":
+            q = self._queue()
+            if q is not None:
+                q.put(CheckpointEvent("backup", step=step).to_wire())
+
+    def _queue_persist(self, step: int) -> Dict[str, Any]:
+        """Hand the persist of the staged ``step`` to the saver, or, with
+        none listening, persist it here. Returns its stats."""
+        q = self._queue()
+        if q is not None:
+            q.put(CheckpointEvent(
+                "save", step=step, persist=True,
+                ckpt_dir=os.path.abspath(self.ckpt_dir)).to_wire())
+            self._awaiting_persist = step
+            return {"persist": "queued"}
+        t0 = time.perf_counter()
+        self._persist_inline(step)
+        return {"persist": "inline", "persist_s": time.perf_counter() - t0}
 
     # -- save ---------------------------------------------------------------
 
@@ -355,14 +478,20 @@ class CheckpointEngine:
         on_device = snapshot is not None
         self.last_stage_mode = ("device_snapshot" if on_device
                                 else "host_gather")
+        lock = None
         if on_device:
             payload = list(snapshot)
         else:
             # no headroom or snapshot off: the device-to-host copy happens
-            # here, before the caller's next (in-place) step can run
+            # here, before the caller's next (in-place) step can run, under
+            # the shm lock, which the staging thread releases once it has
+            # published
             try:
+                lock, plan_stats["wait_s"] = self._claim_segment(step)
                 payload = [self._write_stages(stages)]
             except Exception as e:
+                if lock is not None:
+                    lock.release()
                 logger.warning("device->host copy of step %s failed: %s",
                                step, e)
                 # surfaced by the next wait_staging/load/close
@@ -372,7 +501,7 @@ class CheckpointEngine:
         self._staging_thread = threading.Thread(
             target=self._stage_in_background,
             args=(step, payload, leaf_paths, on_device, persist, pause,
-                  plan_stats),
+                  plan_stats, lock),
             name="ckpt-staging",
             daemon=True,
         )
@@ -521,27 +650,35 @@ class CheckpointEngine:
     def _stage_in_background(
         self, step: int, payload: list, leaf_paths: List[str],
         on_device: bool, persist: bool, pause: float,
-        plan_stats: Dict[str, Any],
+        plan_stats: Dict[str, Any], lock: Optional[SharedLock],
     ):
+        """The stage's second half. ``lock``: the shm lock a host gather
+        took in the saving thread (one connection's lock, so this thread
+        may release it); a snapshot's stage claims the segment here, the
+        device snapshot alive while it waits."""
         stats: Dict[str, Any] = {"step": step, "mode": self.last_stage_mode,
                                  "pause_s": pause, **plan_stats}
         try:
-            t0 = time.perf_counter()
             if on_device:
+                lock, stats["wait_s"] = self._claim_segment(step)
+                t0 = time.perf_counter()
                 snap, events = payload
                 metas, copy_stats = self._write_stages(snap, events)
                 # the side stream has synchronised: the snapshot may go
                 del snap
             else:
+                t0 = time.perf_counter()
                 metas, copy_stats = payload[0]
             payload.clear()
             stats.update(copy_stats)
             self._publish(step, metas, leaf_paths)
+            if lock is not None:
+                lock.release()
+                lock = None
             stats["stage_s"] = time.perf_counter() - t0
+            self._request_backup(step)
             if persist:
-                t1 = time.perf_counter()
-                self._persist_inline(step)
-                stats["persist_s"] = time.perf_counter() - t1
+                stats.update(self._queue_persist(step))
             self.last_stage_stats = stats
             self.stage_log.append(stats)
         except BaseException as e:  # re-raised by the next wait_staging
@@ -550,25 +687,40 @@ class CheckpointEngine:
             self._staging_error = e
         finally:
             payload.clear()
+            if lock is not None:
+                lock.release()
 
     def _stage_sync(self, step: int, state: Any):
         self.last_stage_mode = "sync"
         stages, leaf_paths, plan_stats = self._plan(state)
         plan_stats["register_s"] = self._reserve(stages)
-        metas, copy_stats = self._write_stages(stages)
-        self._publish(step, metas, leaf_paths)
+        lock, plan_stats["wait_s"] = self._claim_segment(step)
+        try:
+            metas, copy_stats = self._write_stages(stages)
+            self._publish(step, metas, leaf_paths)
+        finally:
+            if lock is not None:
+                lock.release()
+        self._request_backup(step)
         self.last_stage_stats = {"step": step, "mode": "sync", **plan_stats,
                                  **copy_stats}
         self.stage_log.append(self.last_stage_stats)
 
     def save_to_storage(self, step: int, state: Any) -> float:
-        """Stage, then persist (inline, in the staging thread: the port has
-        no agent saver yet). Returns the blocking seconds."""
+        """Stage, then persist: a persist event to the agent's saver, or,
+        with none listening, inline (in the staging thread, with async
+        staging). Returns the blocking seconds."""
         t0 = time.time()
         if self._async_staging:
             return self._start_async_stage(t0, step, state, persist=True)
-        self._stage_sync(step, state)
-        self._persist_inline(step)
+        try:
+            self._stage_sync(step, state)
+        except TimeoutError as e:
+            # nothing was staged: a persist event would make the saver
+            # persist an older step as if it were this one
+            logger.error("%s; skipping persist", e)
+            return time.time() - t0
+        self.last_stage_stats.update(self._queue_persist(step))
         return time.time() - t0
 
     def _persist_inline(self, step: int):
@@ -933,4 +1085,8 @@ class CheckpointEngine:
             self.wait_staging(timeout=300)
         except Exception as e:
             logger.warning("in-flight staging failed at close: %s", e)
+        for client in (self._event_queue, self._shm_lock,
+                       self._persist_state):
+            if client is not None:
+                client.close()
         self._shm.close(unlink=unlink_shm)

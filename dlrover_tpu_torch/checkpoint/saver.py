@@ -20,20 +20,26 @@ proc dir is never read as valid), then fans out to the object tier, and
 the node's commit vote follows the fanout, so a committed step survives
 losing the node.
 
-The agent's side (``AsyncCheckpointSaver``: the IPC event loop, the
-save-at-breakpoint persist, the replica push) waits for the agent slice;
-a bare run persists inline through this class (engine.py).
+``CheckpointPersister`` is the storage side; ``AsyncCheckpointSaver`` adds
+what the agent hosts: the IPC server (common/ipc.py) and its event loop,
+the persist back-pressure, the save-at-breakpoint persist and the replica
+push (replica.py). A bare run, with no saver listening, persists inline
+through a ``CheckpointPersister`` of its own (engine.py). The queue, lock
+and dict names and the event's wire dict are the JAX package's, so a
+trainer of either package works under a saver of either package.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
+import queue
 import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 from dlrover_tpu_torch.checkpoint.shm_handler import (
     CheckpointMeta,
@@ -42,6 +48,11 @@ from dlrover_tpu_torch.checkpoint.shm_handler import (
 )
 from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.common.constants import CheckpointConstant
+from dlrover_tpu_torch.common.ipc import (
+    IpcServer,
+    SharedQueue,
+    default_socket_path,
+)
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.storage import (
     CheckpointDeletionStrategy,
@@ -50,7 +61,33 @@ from dlrover_tpu_torch.common.storage import (
     PosixDiskStorage,
 )
 
+CKPT_EVENT_QUEUE = "ckpt-events"
+SHM_LOCK = "shm-ckpt-lock"
+PERSIST_STATE_DICT = "ckpt-persist-state"
 TRACKER_FILE = CheckpointConstant.TRACKER_FILE
+
+
+@dataclasses.dataclass
+class CheckpointEvent:
+    event_type: str  # "save" | "backup" | "exit"
+    step: int = -1
+    persist: bool = False  # False: a memory-only save
+    ckpt_dir: str = ""
+
+    def to_wire(self) -> Dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_wire(cls, d: Dict) -> "CheckpointEvent":
+        return cls(event_type=d.get("event_type", ""),
+                   step=d.get("step", -1), persist=d.get("persist", False),
+                   ckpt_dir=d.get("ckpt_dir", ""))
+
+
+def persist_mark(process_id: int) -> str:
+    """The back-pressure key in ``PERSIST_STATE_DICT``: the newest step the
+    saver has copied out of that process's segment."""
+    return f"copied-{process_id}"
 
 
 def step_dir(ckpt_dir: str, step: int) -> str:
@@ -326,9 +363,275 @@ class CheckpointPersister:
             protect=frozenset(self._pending_fanout),
         )
 
+    def staged_steps(self) -> Dict[int, int]:
+        """{process id: the step staged in its segment} of this node's
+        processes that have one."""
+        staged: Dict[int, int] = {}
+        for h in self.local_handlers():
+            try:
+                meta = h.read_meta()
+                if meta is not None:
+                    staged[meta.process_id] = meta.step
+            finally:
+                h.close()
+        return staged
+
+    def save_shm_to_storage(
+        self, ckpt_dir: str = "", commit_timeout: Optional[float] = None
+    ) -> bool:
+        """Persist whatever is staged in shm now: the save-at-breakpoint
+        guarantee, run when a worker died or the node is going down.
+        Callers on such paths pass a short ``commit_timeout``: a dying node
+        must not spend its grace period polling other nodes' votes."""
+        ckpt_dir = ckpt_dir or self.last_persist_dir
+        steps = set(self.staged_steps().values())
+        if not steps:
+            return False
+        if not ckpt_dir:
+            logger.warning("staged shm checkpoint exists but no ckpt_dir "
+                           "is known; cannot persist")
+            return False
+        if steps <= self._persisted_steps:
+            # copied to the local tier already; a step whose object fanout
+            # failed is still pending, and this is its last chance to reach
+            # storage that outlives the node
+            if self._pending_fanout:
+                self.drain_fanouts(ckpt_dir)
+            return not self._pending_fanout
+        return self.persist_step(ckpt_dir, commit_timeout=commit_timeout)
+
     def committed_step(self, ckpt_dir: str) -> int:
         try:
             return int(self._storage.read(
                 os.path.join(ckpt_dir, TRACKER_FILE)))
         except (FileNotFoundError, ValueError):
             return -1
+
+
+class AsyncCheckpointSaver:
+    """One a node, hosted by the agent: the IPC server and the persist
+    event loop. Checkpoints staged in shm survive the training processes,
+    and this process persists them, on a trainer's event or at a
+    breakpoint (a worker died)."""
+
+    #: seconds a breakpoint persist waits for the shm lock; a trainer still
+    #: staging after it may be mid-overwrite, so nothing is persisted
+    BREAKPOINT_LOCK_TIMEOUT = 30.0
+    #: the commit wait of a breakpoint persist: a dying node writes its
+    #: pieces and vote and gives its peers this long
+    BREAKPOINT_COMMIT_TIMEOUT = 30.0
+
+    def __init__(
+        self,
+        job_name: str,
+        node_id: int,
+        node_rank: int = 0,
+        num_nodes: int = 1,
+        local_process_ids: Optional[List[int]] = None,
+        storage: Optional[CheckpointStorage] = None,
+        deletion_strategy: Optional[CheckpointDeletionStrategy] = None,
+        socket_path: str = "",
+        replica: bool = False,
+    ):
+        self.replica_enabled = replica
+        self.replica_manager = None
+        self.persister = CheckpointPersister(
+            job_name=job_name, node_id=node_id, node_rank=node_rank,
+            num_nodes=num_nodes, local_process_ids=local_process_ids,
+            storage=storage, deletion_strategy=deletion_strategy,
+        )
+        self.socket_path = socket_path or default_socket_path(job_name,
+                                                              node_id)
+        self._ipc = IpcServer(self.socket_path)
+        self._event_queue: Optional[SharedQueue] = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop_evt = threading.Event()
+        #: one entry a persist event, oldest first: "step", "steps" (those
+        #: copied), "copy_s" (shm to the local tier, under the shm lock),
+        #: "fanout_s" (the object-tier fanout and the commit, outside it)
+        self.persist_log: collections.deque = collections.deque(maxlen=64)
+
+    def start(self):
+        self._ipc.start()
+        if self.replica_enabled:
+            from dlrover_tpu_torch.checkpoint.replica import ReplicaManager
+
+            self.replica_manager = ReplicaManager()
+        self._event_queue = SharedQueue(CKPT_EVENT_QUEUE, self.socket_path)
+        self._thread = threading.Thread(target=self._event_loop,
+                                        name="ckpt-saver", daemon=True)
+        self._thread.start()
+        logger.info("checkpoint saver started (node %s, ipc %s)",
+                    self.persister.node_id, self.socket_path)
+
+    def stop(self):
+        """Stop the loop (an in-flight persist gets 10 s to end), the
+        replica server and the IPC server."""
+        self._stop_evt.set()
+        self.persister.stop()
+        if self._thread is not None:
+            self._thread.join(10.0)
+        if self._event_queue is not None:
+            self._event_queue.close()
+        if self.replica_manager is not None:
+            self.replica_manager.server.stop()
+        self._ipc.stop()
+
+    # -- replica (cross-host backup) ---------------------------------------
+
+    @property
+    def replica_port(self) -> int:
+        return self.replica_manager.port if self.replica_manager else 0
+
+    def update_replica_peers(self, peers, self_rank: int, world: int):
+        if self.replica_manager is not None:
+            self.replica_manager.update_peers(peers, self_rank, world)
+
+    def set_replica_token(self, token: str):
+        if self.replica_manager is not None:
+            self.replica_manager.set_token(token)
+
+    def maybe_fetch_replica(self) -> int:
+        """After a relaunch with nothing staged locally, pull this seat's
+        backup from the peer, so the workers restore from memory, not
+        storage. Returns the step, or -1."""
+        if self.replica_manager is None or self.persister.staged_steps():
+            return -1
+        targets = [
+            shm_name(self.persister.job_name, self.persister.node_id, pid)
+            for pid in self.persister.local_process_ids
+        ]
+        return self.replica_manager.fetch_backup_into_shm(targets)
+
+    def _push_replica(self, step_hint: int = -1):
+        """Copy the segments out of shm under the lock, stream them without
+        it; a step already pushed is not streamed again."""
+        if self.replica_manager is None:
+            return
+        if 0 <= step_hint <= self.replica_manager.last_pushed_step:
+            return
+        lock = self._ipc.state.get_lock(SHM_LOCK)
+        if not lock.acquire(timeout=30):
+            logger.warning("replica push skipped: shm lock busy")
+            return
+        handlers = self.persister.local_handlers()
+        try:
+            snapshot = self.replica_manager.collect_segments(handlers)
+        finally:
+            lock.release()
+            for h in handlers:
+                h.close()
+        if snapshot is None:
+            return
+        if snapshot[0] <= self.replica_manager.last_pushed_step:
+            return
+        self.replica_manager.send_backup(*snapshot)
+
+    # -- back-pressure ------------------------------------------------------
+
+    def _release_persist_waiters(self, step: int):
+        """Release the persist back-pressure of each process whose staged
+        step has reached ``step`` (copied, or moved past). A process still
+        holding an older step keeps waiting for its own event: releasing it
+        would let it overwrite pieces not yet copied."""
+        try:
+            staged = self.persister.staged_steps()
+            state = self._ipc.state.get_dict(PERSIST_STATE_DICT)
+            for pid in self.persister.local_process_ids:
+                if staged.get(pid, -1) >= step:
+                    key = persist_mark(pid)
+                    state[key] = max(int(state.get(key, -1)), step)
+        except Exception:
+            logger.exception("persist-state release failed")
+
+    def update_topology(self, node_rank: int, num_nodes: int,
+                        process_ids: List[int]):
+        """Called by the agent after each rendezvous round. A round is a
+        restart boundary: a stale ``copied-<pid>`` mark of a higher step
+        would disarm the new incarnation's back-pressure after a
+        rollback."""
+        self.persister.node_rank = node_rank
+        self.persister.num_nodes = num_nodes
+        self.persister.local_process_ids = list(process_ids)
+        self._ipc.state.get_dict(PERSIST_STATE_DICT).clear()
+
+    # -- save at breakpoint -------------------------------------------------
+
+    def save_shm_to_storage(self, ckpt_dir: str = "") -> bool:
+        """The breakpoint persist, under the shm lock the trainer stages
+        under. The wait is bounded: a dead trainer's dropped connection
+        releases its lock, so this cannot wedge; a trainer still staging
+        after ``BREAKPOINT_LOCK_TIMEOUT`` may leave a torn segment, so
+        nothing is persisted and the committed step stays the restore
+        point."""
+        lock = self._ipc.state.get_lock(SHM_LOCK)
+        if not lock.acquire(timeout=self.BREAKPOINT_LOCK_TIMEOUT):
+            logger.error("breakpoint persist: shm lock not acquired in "
+                         "%.0fs; refusing to persist a possibly torn "
+                         "checkpoint", self.BREAKPOINT_LOCK_TIMEOUT)
+            return False
+        try:
+            return self.persister.save_shm_to_storage(
+                ckpt_dir, commit_timeout=self.BREAKPOINT_COMMIT_TIMEOUT)
+        finally:
+            lock.release()
+
+    def cleanup_shm(self):
+        """Unlink the staged segments (only after a successful job end)."""
+        for h in self.persister.local_handlers():
+            h.close(unlink=True)
+
+    # -- the event loop -----------------------------------------------------
+
+    def _event_loop(self):
+        while not self._stop_evt.is_set():
+            try:
+                raw = self._event_queue.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            except Exception:
+                if self._stop_evt.is_set():
+                    return
+                logger.exception("ckpt event queue read failed")
+                time.sleep(1)
+                continue
+            event = CheckpointEvent.from_wire(raw)
+            if event.event_type == "exit":
+                return
+            if event.event_type == "backup":
+                try:
+                    self._push_replica(step_hint=event.step)
+                except Exception:
+                    logger.exception("replica push failed")
+                continue
+            if event.event_type == "save" and event.persist:
+                self._persist(event)
+
+    def _persist(self, event: CheckpointEvent):
+        """The shm lock covers only the copy to the local tier (the
+        trainer stages under the same lock). The back-pressure is released
+        once that copy is done; the fanout reads local files, and it, the
+        commit wait and the replica push run outside the lock."""
+        entry: Dict[str, Any] = {"step": event.step}
+        lock = self._ipc.state.get_lock(SHM_LOCK)
+        try:
+            t0 = time.perf_counter()
+            with lock:
+                steps = self.persister.copy_step_to_storage(
+                    event.ckpt_dir, event.step)
+            entry.update(steps=steps, copy_s=time.perf_counter() - t0)
+            self._release_persist_waiters(event.step)
+            t1 = time.perf_counter()
+            cleared = self.persister.drain_fanouts(event.ckpt_dir)
+            for s in sorted(set(steps) | set(cleared)):
+                self.persister._maybe_commit(event.ckpt_dir, s)
+            entry["fanout_s"] = time.perf_counter() - t1
+            if self.replica_manager is not None:
+                self._push_replica(step_hint=event.step)
+        except Exception as e:
+            logger.exception("persist of step %s failed", event.step)
+            entry["error"] = repr(e)
+        finally:
+            # idempotent: also covers a copy that raised
+            self._release_persist_waiters(event.step)
+            self.persist_log.append(entry)

@@ -380,6 +380,17 @@ class SharedMemoryHandler:
         buf[_LEN_SIZE:_LEN_SIZE + len(header)] = header
         struct.pack_into(_LEN_FMT, buf, 0, len(header))
 
+    def restore_segment(self, data: bytes):
+        """Write a segment received whole (a replica restore): ``data`` is
+        a prefix of a valid segment, header and leaf bytes. Its length
+        word goes last, so a reader never sees a torn header."""
+        self._ensure(max(0, len(data) - HEADER_SPACE))
+        buf = self._shm.buf
+        struct.pack_into(_LEN_FMT, buf, 0, 0)
+        buf[_LEN_SIZE:len(data)] = memoryview(data)[_LEN_SIZE:]
+        struct.pack_into(_LEN_FMT, buf, 0,
+                         struct.unpack_from(_LEN_FMT, data, 0)[0])
+
     def save_state(
         self,
         step: int,

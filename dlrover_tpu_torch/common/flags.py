@@ -89,6 +89,15 @@ CKPT_PERSIST_WORKERS = EnvFlag(
     "Concurrent leaf-file writers in the persist pool (local-tier "
     "writes and object-tier fanout run this many files in parallel).",
 )
+CKPT_REPLICA = EnvFlag(
+    "DLROVER_TPU_CKPT_REPLICA", "",
+    "Agent-set replica mode: exactly '1' streams staged checkpoints "
+    "to the backup peer (checkpoint/replica.py).",
+)
+REPLICA_MAX_BYTES = EnvFlag(
+    "DLROVER_TPU_REPLICA_MAX_BYTES", 64 << 30,
+    "Replica server per-payload size bound (memory-DoS refusal).",
+)
 
 # -- agent wiring (NodeEnv names; injected by the agent/launcher)
 

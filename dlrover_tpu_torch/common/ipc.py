@@ -1,0 +1,320 @@
+"""Node-local IPC: named queues, locks and dicts over a unix socket (port of
+dlrover_tpu/common/ipc.py, on the same wire).
+
+The agent's process hosts the :class:`IpcServer`; training processes
+connect as clients. This is flash checkpoint's control path: the data path
+is the shm segment (checkpoint/shm_handler.py).
+
+Protocol, the JAX package's: one JSON request a line, one JSON response a
+line, on ``/tmp/dlrover_tpu/<job>/node-<id>/ipc.sock``. So a client of
+either package talks to a server of either package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import socket
+import socketserver
+import threading
+import time
+from typing import Any, Dict, Optional
+
+from dlrover_tpu_torch.common.log import logger
+
+
+def default_socket_path(job_name: str, node_id: int) -> str:
+    """The node's socket path. Only the server creates its directory, so a
+    client that finds no saver leaves nothing behind."""
+    return os.path.join(f"/tmp/dlrover_tpu/{job_name}/node-{node_id}",
+                        "ipc.sock")
+
+
+class _State:
+    def __init__(self):
+        self.queues: Dict[str, queue.Queue] = {}
+        self.locks: Dict[str, threading.Lock] = {}
+        self.lock_owners: Dict[str, str] = {}
+        self.dicts: Dict[str, Dict[str, Any]] = {}
+        self.meta_lock = threading.Lock()
+
+    def get_queue(self, name: str) -> queue.Queue:
+        with self.meta_lock:
+            return self.queues.setdefault(name, queue.Queue())
+
+    def get_lock(self, name: str) -> threading.Lock:
+        with self.meta_lock:
+            return self.locks.setdefault(name, threading.Lock())
+
+    def get_dict(self, name: str) -> Dict:
+        with self.meta_lock:
+            return self.dicts.setdefault(name, {})
+
+
+class _Handler(socketserver.StreamRequestHandler):
+    """One client connection. A lock belongs to the connection that took
+    it, not to a thread: a client may release it from another thread."""
+
+    def handle(self):
+        state: _State = self.server.state  # type: ignore[attr-defined]
+        self._held_locks: set = set()
+        try:
+            while True:
+                line = self.rfile.readline()
+                if not line:
+                    return
+                try:
+                    resp = self._dispatch(state, json.loads(line))
+                except Exception as e:
+                    resp = {"ok": False, "error": str(e)}
+                self.wfile.write((json.dumps(resp) + "\n").encode())
+                self.wfile.flush()
+        finally:
+            # a client that died holding locks must not wedge the others
+            # (a trainer can be SIGKILLed mid-stage)
+            for name in self._held_locks:
+                try:
+                    state.get_lock(name).release()
+                    state.lock_owners.pop(name, None)
+                    logger.warning(
+                        "released lock %s abandoned by a dead client", name)
+                except RuntimeError:
+                    pass
+
+    def _dispatch(self, state: _State, req: Dict) -> Dict:
+        obj, op = req.get("obj"), req.get("op")
+        name = req.get("name", "")
+        if obj == "queue":
+            q = state.get_queue(name)
+            if op == "put":
+                q.put(req.get("value"))
+                return {"ok": True}
+            if op == "get":
+                try:
+                    return {"ok": True,
+                            "value": q.get(timeout=req.get("timeout"))}
+                except queue.Empty:
+                    return {"ok": False, "empty": True}
+            if op == "qsize":
+                return {"ok": True, "value": q.qsize()}
+        elif obj == "lock":
+            lock = state.get_lock(name)
+            if op == "acquire":
+                blocking = req.get("blocking", True)
+                timeout = req.get("timeout", -1)
+                acquired = lock.acquire(
+                    blocking=blocking, timeout=timeout if blocking else -1)
+                if acquired:
+                    state.lock_owners[name] = req.get("owner", "")
+                    self._held_locks.add(name)
+                return {"ok": True, "value": acquired}
+            if op == "release":
+                try:
+                    lock.release()
+                except RuntimeError:
+                    return {"ok": True, "value": False}
+                state.lock_owners.pop(name, None)
+                self._held_locks.discard(name)
+                return {"ok": True, "value": True}
+            if op == "locked":
+                return {"ok": True, "value": lock.locked()}
+        elif obj == "dict":
+            d = state.get_dict(name)
+            if op == "set":
+                d[req["key"]] = req.get("value")
+                return {"ok": True}
+            if op == "get":
+                key = req.get("key")
+                if key is None:
+                    return {"ok": True, "value": dict(d)}
+                return {"ok": True, "value": d.get(key), "found": key in d}
+            if op == "pop":
+                return {"ok": True, "value": d.pop(req["key"], None)}
+        elif obj == "ping":
+            return {"ok": True, "value": "pong"}
+        return {"ok": False, "error": f"bad request {obj}/{op}"}
+
+
+class _ThreadingUnixServer(socketserver.ThreadingMixIn,
+                           socketserver.UnixStreamServer):
+    daemon_threads = True
+    allow_reuse_address = True
+
+
+class IpcServer:
+    """Hosted by the agent, one a node."""
+
+    def __init__(self, socket_path: str):
+        self.socket_path = socket_path
+        os.makedirs(os.path.dirname(socket_path), exist_ok=True)
+        if os.path.exists(socket_path):
+            os.unlink(socket_path)
+        self._server = _ThreadingUnixServer(socket_path, _Handler)
+        self._server.state = _State()  # type: ignore[attr-defined]
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def state(self) -> _State:
+        return self._server.state  # type: ignore[attr-defined]
+
+    def start(self):
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, name="ipc-server", daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._server.shutdown()
+        self._server.server_close()
+        if os.path.exists(self.socket_path):
+            os.unlink(self.socket_path)
+
+
+class _IpcClient:
+    def __init__(self, socket_path: str, connect_timeout: float = 60.0):
+        self._path = socket_path
+        self._sock: Optional[socket.socket] = None
+        self._file = None
+        self._lock = threading.Lock()
+        self._connect_timeout = connect_timeout
+
+    def _ensure_connected(self):
+        if self._sock is not None:
+            return
+        deadline = time.time() + self._connect_timeout
+        while True:
+            s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            try:
+                s.connect(self._path)
+            except (FileNotFoundError, ConnectionRefusedError):
+                s.close()
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.2)
+                continue
+            self._sock = s
+            self._file = s.makefile("rwb")
+            return
+
+    def _roundtrip(self, req: Dict) -> bytes:
+        self._file.write((json.dumps(req) + "\n").encode())
+        self._file.flush()
+        return self._file.readline()
+
+    def request(self, req: Dict) -> Dict:
+        with self._lock:
+            self._ensure_connected()
+            try:
+                line = self._roundtrip(req)
+            except (BrokenPipeError, ConnectionResetError):
+                # the agent restarted: reconnect once
+                self._drop()
+                self._ensure_connected()
+                line = self._roundtrip(req)
+            if not line:
+                raise ConnectionError("IPC server closed the connection")
+            return json.loads(line)
+
+    def _drop(self):
+        if self._sock is not None:
+            try:
+                self._file.close()
+                self._sock.close()
+            finally:
+                self._sock = None
+                self._file = None
+
+    def close(self):
+        with self._lock:
+            self._drop()
+
+
+class SharedQueue:
+    def __init__(self, name: str, socket_path: str,
+                 connect_timeout: float = 60.0):
+        self.name = name
+        self._client = _IpcClient(socket_path, connect_timeout)
+
+    def put(self, value: Any):
+        resp = self._client.request(
+            {"obj": "queue", "op": "put", "name": self.name, "value": value})
+        if not resp.get("ok"):
+            raise RuntimeError(resp.get("error"))
+
+    def get(self, timeout: Optional[float] = None) -> Any:
+        resp = self._client.request(
+            {"obj": "queue", "op": "get", "name": self.name,
+             "timeout": timeout})
+        if resp.get("ok"):
+            return resp.get("value")
+        if resp.get("empty"):
+            raise queue.Empty()
+        raise RuntimeError(resp.get("error"))
+
+    def qsize(self) -> int:
+        return self._client.request(
+            {"obj": "queue", "op": "qsize", "name": self.name})["value"]
+
+    def close(self):
+        self._client.close()
+
+
+class SharedLock:
+    """A lock of the server's, held by this connection: ``release`` may be
+    called from another thread than ``acquire`` was."""
+
+    def __init__(self, name: str, socket_path: str, owner: str = "",
+                 connect_timeout: float = 60.0):
+        self.name = name
+        self._owner = owner or f"pid-{os.getpid()}"
+        self._client = _IpcClient(socket_path, connect_timeout)
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        return bool(self._client.request({
+            "obj": "lock", "op": "acquire", "name": self.name,
+            "blocking": blocking, "timeout": timeout, "owner": self._owner,
+        }).get("value"))
+
+    def release(self) -> bool:
+        return bool(self._client.request(
+            {"obj": "lock", "op": "release", "name": self.name}
+        ).get("value"))
+
+    def locked(self) -> bool:
+        return bool(self._client.request(
+            {"obj": "lock", "op": "locked", "name": self.name}
+        ).get("value"))
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+    def close(self):
+        self._client.close()
+
+
+class SharedDict:
+    def __init__(self, name: str, socket_path: str,
+                 connect_timeout: float = 60.0):
+        self.name = name
+        self._client = _IpcClient(socket_path, connect_timeout)
+
+    def set(self, key: str, value: Any):
+        self._client.request({"obj": "dict", "op": "set", "name": self.name,
+                              "key": key, "value": value})
+
+    def get(self, key: Optional[str] = None) -> Any:
+        return self._client.request(
+            {"obj": "dict", "op": "get", "name": self.name, "key": key}
+        ).get("value")
+
+    def pop(self, key: str) -> Any:
+        return self._client.request(
+            {"obj": "dict", "op": "pop", "name": self.name, "key": key}
+        ).get("value")
+
+    def close(self):
+        self._client.close()

@@ -259,3 +259,67 @@ def test_crc_comparison_fails_on_one_flipped_byte():
     with pytest.raises(chip_smoke.SmokeFailure, match="missing"):
         chip_smoke.compare_crcs(want, chip_smoke.crc_table(missing),
                                 "missing")
+
+
+def test_checkpoint_disk_peak_is_one_persisted_step():
+    """Phase 4c asks the disk for one persisted step of the main path's
+    state on two tiers, and the manifests' slack: each leg removes its
+    directory before the next persists, so the three persisted steps
+    (the save run's, the agent's, the breakpoint's) never sum."""
+    nbytes = chip_smoke.ckpt_state_bytes(1_923_125_248)
+    peak = chip_smoke.ckpt_disk_peak(nbytes)
+    assert peak == 2 * 23_077_502_976 + (64 << 20)
+    assert peak < 3 * nbytes
+
+
+def test_breakpoint_step_crcs_must_match_the_killed_child():
+    """The breakpoint step's manifest and its disk restore are held to the
+    CRC32s the killed child staged: equal tables pass; one flipped byte in
+    either, or a leaf missing from the restore, fails and says which."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    leaves = {f"['params']['w{i}']": rng.standard_normal(500).astype(
+        np.float32) for i in range(3)}
+    staged = chip_smoke.crc_table(leaves)
+    chip_smoke.check_breakpoint_step(staged, dict(staged), dict(staged))
+    flipped = {k: v.copy() for k, v in leaves.items()}
+    flipped["['params']['w1']"].view(np.uint8)[7] ^= 0x10
+    bad = chip_smoke.crc_table(flipped)
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match=r"breakpoint manifest.*\['w1'\]"):
+        chip_smoke.check_breakpoint_step(staged, bad, dict(staged))
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match=r"disk restore.*\['w1'\]"):
+        chip_smoke.check_breakpoint_step(staged, dict(staged), bad)
+    missing = dict(staged)
+    del missing["['params']['w0']"]
+    with pytest.raises(chip_smoke.SmokeFailure, match="missing"):
+        chip_smoke.check_breakpoint_step(staged, dict(staged), missing)
+
+
+def _agent_saves(persist2="queued", wait3=12.5):
+    stage = {"step": 0, "mode": "device_snapshot", "wait_s": 0.001}
+    return [
+        {"step": 1, "blocking_s": 9.1, "stage": dict(stage)},
+        {"step": 2, "blocking_s": 0.02,
+         "stage": dict(stage, persist=persist2)},
+        {"step": 3, "blocking_s": 0.03, "stage": dict(stage, wait_s=wait3)},
+    ]
+
+
+def test_agent_persist_check():
+    """The agent leg passes when save 2 queued its persist and the saver
+    copied and committed step 2 alone; it returns step 2's pause, step 3's
+    wait and the saver's copy and fanout seconds. An inline persist, a
+    saver that copied another step or a commit of another step fails."""
+    log = [{"step": 2, "steps": [2], "copy_s": 28.0, "fanout_s": 30.0}]
+    assert chip_smoke.check_agent_persist(_agent_saves(), log, 2) == (
+        0.02, 12.5, 28.0, 30.0)
+    with pytest.raises(chip_smoke.SmokeFailure, match="queued"):
+        chip_smoke.check_agent_persist(_agent_saves("inline"), log, 2)
+    with pytest.raises(chip_smoke.SmokeFailure, match="persists of step 2"):
+        chip_smoke.check_agent_persist(
+            _agent_saves(), [dict(log[0], steps=[])], 2)
+    with pytest.raises(chip_smoke.SmokeFailure, match="committed step 1"):
+        chip_smoke.check_agent_persist(_agent_saves(), log, 1)

@@ -63,8 +63,8 @@ def test_port_runs_without_loading_jax():
         "from dlrover_tpu_torch.models import llama, vit\n"
         "from dlrover_tpu_torch.train.trainer import ElasticTrainer, TrainConfig\n"
         "from dlrover_tpu_torch.checkpoint import (checkpointer, engine,\n"
-        "    ownership, saver, shm_handler)\n"
-        "from dlrover_tpu_torch.common import constants, flags, storage\n"
+        "    ownership, replica, saver, shm_handler)\n"
+        "from dlrover_tpu_torch.common import constants, flags, ipc, storage\n"
         "from dlrover_tpu_torch.models import convert\n"
         "cfg = llama.LlamaConfig.tiny()\n"
         "params = llama.init_params(cfg, torch.Generator().manual_seed(0))\n"
