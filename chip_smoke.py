@@ -77,17 +77,33 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    saver) and step 3 a memory save whose stage waits for the saver to
    copy step 2 (the back-pressure), and the saver must commit step 2; its
    copy and fanout seconds and step 3's wait are printed beside the bare
-   run's inline persist. Under a second saver, a child trains 2 steps,
-   saves step 2 to memory, prints the CRC32 of every leaf it staged and
-   is SIGKILLed; the saver's breakpoint persist (``save_shm_to_storage``)
-   must commit step 2 with every manifest CRC equal to the killed
-   child's; a child must restore step 2 from shm with every CRC equal and
-   train steps 3-4 to the losses of the uninterrupted runs (phase 4's and
-   the save run's) within ``CKPT_RESUME_SPREAD_FACTOR`` times their
-   spread; and, with the segment unlinked, a child must restore step 2
-   from the breakpoint persist on disk with every leaf's CRC32 equal to
-   what the killed child staged. The phase's shm segment and socket are
-   named for this run (pid and a random suffix), so two runs on one
+   run's inline persist. Then the elastic restart, through the port's
+   control plane as a user launches it: ``python -m
+   dlrover_tpu_torch.run.elastic_run --standalone --nnodes=1
+   --nproc_per_node=1 --max_restarts=1`` (with the checkout on
+   ``PYTHONPATH``) spawns the port's master and runs its agent, which
+   hosts the saver; the worker is ``chip_smoke.py --ckpt-child elastic
+   DIR``. Its first life trains 2 steps with a memory save after each,
+   prints the CRC32 of every leaf it staged and SIGKILLs itself; the
+   agent must see the failure, classify it, persist step 2 at the
+   breakpoint (every manifest CRC32 equal to the killed worker's),
+   rendezvous again and restart the worker; the second life must restore
+   step 2 from shm with every CRC32 equal and train steps 3-4, a memory
+   save after each, to the losses of the uninterrupted runs (phase 4's
+   and the save run's) within ``CKPT_RESUME_SPREAD_FACTOR`` times their
+   spread. Every flash and fused-CE kernel must launch in each life; the
+   CLI must exit 0 and the master log the job's exit as succeeded with
+   the worker's last reported checkpoint step, 4. No periodic persist
+   runs in this leg: the disk holds one persisted step of the state on
+   two tiers, and the breakpoint's is it. The time to recover is printed
+   by phase: the kill to the agent's detection, the breakpoint persist,
+   the rendezvous, the worker's start to its restore (with the restore's
+   seconds, tier and registration), and the restore to the end of step
+   3. Last, with the segment gone (the agent unlinks it at the job's
+   end), a child must restore step 2 from the breakpoint persist on disk
+   with every leaf's CRC32 equal to what the killed worker staged. The
+   phase's shm segments, sockets and logs are named for this run (pid and
+   a random suffix), so two runs on one
    machine never share them. Bounds are printed beside the times.
 5. reference: a small Llama (head dim 128) and a small ViT (head dim 64,
    100 patches, 300 classes) on the card, bf16 with the kernels, against
@@ -105,6 +121,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -215,6 +232,9 @@ CKPT_CHILD_TIMEOUT_S = 600
 # seconds the saver gets to copy, fan out and commit a persisted step (at
 # the disk's 0.7-0.9 GB/s, two tiers of 23.1 GB take about a minute)
 CKPT_COMMIT_TIMEOUT_S = 600
+# seconds the elastic leg's CLI may take: two lives of the worker (each
+# about a minute on the card) and the breakpoint persist between them
+ELASTIC_TIMEOUT_S = 900
 # manifests, commit votes and the tracker beside a persisted step's leaves
 CKPT_DISK_SLACK = 64 << 20
 # a PCIe link's transfer rate a lane (GT/s) by generation; gens 1-2 encode
@@ -1040,10 +1060,10 @@ def _print_saves(label, saves, nbytes):
               f"bytes, not the state's {nbytes}")
 
 
-def _run_child(role, ckpt_dir, job, kill_on=None):
+def _run_child(role, ckpt_dir, job):
     """Run ``chip_smoke.py --ckpt-child role ckpt_dir`` under the job name
-    ``job``, echoing its output; returns its JSON result. With ``kill_on``, SIGKILL it at the
-    line that starts with that word. Fails on a child that fails."""
+    ``job``, echoing its output; returns its JSON result. Fails on a child
+    that fails."""
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--ckpt-child", role,
          ckpt_dir], stdout=subprocess.PIPE, text=True,
@@ -1057,15 +1077,11 @@ def _run_child(role, ckpt_dir, job, kill_on=None):
                 result = json.loads(line.split(" ", 1)[1])
                 continue
             print(f"  [child {role}] {line.rstrip()}", flush=True)
-            if kill_on and line.startswith(kill_on):
-                proc.send_signal(signal.SIGKILL)
     finally:
         timer.cancel()
         proc.kill()
         proc.wait(timeout=60)
-    want = -signal.SIGKILL if kill_on else 0
-    check(proc.returncode == want,
-          f"child {role} exited {proc.returncode}, not {want}")
+    check(proc.returncode == 0, f"child {role} exited {proc.returncode}")
     check(result is not None, f"child {role} printed no result")
     return result
 
@@ -1073,12 +1089,10 @@ def _run_child(role, ckpt_dir, job, kill_on=None):
 def ckpt_child(role, ckpt_dir):
     """One child of phase 4c, on the card; prints its result as one JSON
     line. agent: trains steps 1-3, saving each to memory and step 2 to
-    storage, and prints its saves. crash: trains steps 1-2 saving each to
-    memory, prints the staged leaves' CRC32 and waits to be killed. resume:
-    restores (it must find step 2 in shm), prints the restored leaves'
-    CRC32, trains steps 3-4. disk: restores (from disk, the segment gone)
-    and prints the CRC32s. The job name, and so the segment and the
-    saver's socket, is ``DLROVER_TPU_JOB_NAME``'s."""
+    storage, and prints its saves. disk: restores (from disk, the segment
+    gone) and prints the CRC32s. elastic: the elastic leg's worker, started
+    by the agent (``_elastic_life``). The job name, and so the segment and
+    the saver's socket, is ``DLROVER_TPU_JOB_NAME``'s."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1097,36 +1111,74 @@ def ckpt_child(role, ckpt_dir):
             "losses": result["losses"], "saves": result["saves"]}),
             flush=True)
         return 0
-    if role == "crash":
+    if role == "elastic":
+        return _elastic_life(torch, ckpt_dir)
+    args = _ckpt_args(4, ckpt_dir, 0)
+    _, _, state, next_batch, _ = llama_pretrain.build(args)
+    torch.cuda.synchronize()
+    ckpt, _, restore = llama_pretrain.open_checkpoint(args, state,
+                                                      next_batch)
+    check(restore is not None, f"child {role} restored nothing")
+    crcs = state_crcs(torch, state)
+    ckpt.close()
+    print("CKPT_CHILD_JSON " + json.dumps({"restore": restore, "crc": crcs}),
+          flush=True)
+    return 0
+
+
+def _elastic_life(torch, ckpt_dir):
+    """The elastic leg's worker, in the agent's environment. First life
+    (``DLROVER_TPU_RESTART_COUNT`` 0): trains steps 1-2 with a memory save
+    after each, prints the CRC32 of every leaf it staged and SIGKILLs
+    itself. Second life: restores (it must find step 2 in shm), prints the
+    restored leaves' CRC32, trains steps 3-4 with a memory save after each,
+    and exits 0. Each life prints its kernels' launch counts and the times
+    the recovery is cut by."""
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.train import bootstrap
+
+    t_start = time.time()
+    job = os.environ["DLROVER_TPU_JOB_NAME"]
+    _reset_counts(attention, fce, [0])
+    if os.environ["DLROVER_TPU_RESTART_COUNT"] == "0":
         result = llama_pretrain.run(_ckpt_args(2, ckpt_dir, 0))
-        print(f"step_s {result['step_s']}", flush=True)
-        _print_saves("crash", result["saves"], ckpt_state_bytes(
+        _print_saves("elastic", result["saves"], ckpt_state_bytes(
             result["params"]))
-        step, crcs = segment_crcs(os.environ["DLROVER_TPU_JOB_NAME"])
+        step, crcs = segment_crcs(job)
         print("CKPT_CHILD_JSON " + json.dumps({
             "losses": result["losses"], "staged_step": step, "crc": crcs,
-            "modes": [s["mode"] for s in result["saves"]]}), flush=True)
-        print("READY to be killed", flush=True)
-        time.sleep(CKPT_CHILD_TIMEOUT_S)
-        return 1  # not killed
+            "modes": [s["mode"] for s in result["saves"]],
+            "counts": _launch_counts(attention, fce), "start_t": t_start,
+            "kill_t": time.time()}), flush=True)
+        os.kill(os.getpid(), signal.SIGKILL)
+    ctx = bootstrap.init()
     args = _ckpt_args(4, ckpt_dir, 0)
     _, trainer, state, next_batch, _ = llama_pretrain.build(args)
     torch.cuda.synchronize()
     ckpt, start, restore = llama_pretrain.open_checkpoint(args, state,
                                                           next_batch)
-    check(restore is not None, f"child {role} restored nothing")
+    t_restored = time.time()
+    check(restore is not None, "the second life restored nothing")
     crcs = state_crcs(torch, state)
-    losses, step_s = [], []
-    if role == "resume":
-        for _ in range(start, args.steps):
-            state, loss, seconds = llama_pretrain.timed_step(
-                trainer, state, next_batch())
-            losses.append(loss)
-            step_s.append(seconds)
+    crc_s = time.time() - t_restored
+    losses, step_s, step_end_t = [], [], []
+    for step in range(start, args.steps):
+        state, loss, seconds = llama_pretrain.timed_step(
+            trainer, state, next_batch())
+        step_end_t.append(time.time())
+        losses.append(loss)
+        step_s.append(seconds)
+        print(f"step {step + 1} loss {loss:.4f} ({seconds:.3f}s)", flush=True)
+        ckpt.save(step + 1, state)
+        ctx.report_step(step + 1, force=True)
     ckpt.close()
     print("CKPT_CHILD_JSON " + json.dumps({
-        "restore": restore, "crc": crcs, "losses": losses,
-        "step_s": step_s}), flush=True)
+        "restore": restore, "crc": crcs, "losses": losses, "step_s": step_s,
+        "counts": _launch_counts(attention, fce), "start_t": t_start,
+        "restored_t": t_restored, "crc_s": crc_s,
+        "step_end_t": step_end_t}), flush=True)
     return 0
 
 
@@ -1279,70 +1331,15 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
         host.stop()
         host = None
         shutil.rmtree(d_agent, ignore_errors=True)
+        # the elastic leg stages under its own job's name: free this
+        # segment's host memory first
+        unlink_segment(job)
         print(f"  agent leg: {time.perf_counter() - t_leg:.1f}s", flush=True)
 
-        # a crash under the saver: the child is SIGKILLed once step 2 is
-        # staged to memory, and the saver persists it at the breakpoint
-        t_leg = time.perf_counter()
-        d_crash = os.path.join(workdir, "crash")
-        host = AsyncCheckpointSaver(job_name=job, node_id=0)
-        host.start()
-        crash = _run_child("crash", d_crash, job, kill_on="READY")
-        check(crash["staged_step"] == 2 and crash["modes"] == [
-            "device_snapshot"] * 2, f"crash child staged {crash}")
-        t_bp = time.perf_counter()
-        ok = host.save_shm_to_storage(d_crash)
-        bp_s = time.perf_counter() - t_bp
-        committed = host.persister.committed_step(d_crash)
-        print(f"  breakpoint persist of the killed child's step: {ok}, "
-              f"{bp_s:.3f}s for two tiers of {nbytes} bytes "
-              f"({2 * nbytes / bp_s / 1e9:.2f} GB/s written), committed "
-              f"step {committed}", flush=True)
-        check(ok, "the breakpoint persist returned False")
-        check(committed == 2, f"the breakpoint persist committed {committed}")
-        resume = _run_child("resume", d_crash, job)
-        restore = resume["restore"]
-        print(f"  restore after SIGKILL: step {restore['step']}, tier "
-              f"{restore['tier']}, {restore['seconds']:.3f}s (register "
-              f"{restore['register_s']:.3f}s, host-to-device "
-              f"{restore['bytes'] / (restore['seconds'] - restore['register_s']) / 1e9:.2f}"
-              f" GB/s over the rest)", flush=True)
-        check(restore["tier"] == "shm" and restore["step"] == 2,
-              f"the resumed child restored {restore}, not step 2 from shm")
-        compare_crcs(crash["crc"], resume["crc"], "shm restore")
-        print(f"  every leaf's CRC32 equal ({len(resume['crc'])} leaves)",
-              flush=True)
-        runs = [main_result["losses"][2:4], losses[2:4]]
-        spread = max(abs(a - b) for a, b in zip(*runs))
-        tol = max(CKPT_RESUME_SPREAD_FACTOR * spread, CKPT_RESUME_LOSS_FLOOR)
-        diff = max(abs(a - b) for a, b in zip(resume["losses"], runs[0]))
-        print(f"  resumed steps 3-4 (step_s {resume['step_s']}) losses "
-              f"{resume['losses']} vs phase 4's "
-              f"{runs[0]} and the save run's {runs[1]}: diff {diff:.3e}, "
-              f"uninterrupted spread {spread:.3e}, tol {tol:.3e} (max of "
-              f"{CKPT_RESUME_SPREAD_FACTOR} x spread, "
-              f"{CKPT_RESUME_LOSS_FLOOR})", flush=True)
-        check(diff <= tol, f"resumed losses differ by {diff} > {tol}")
-
-        # the segment lost: step 2 from the breakpoint persist on disk
-        unlink_segment(job)
-        disk = _run_child("disk", d_crash, job)
-        restore = disk["restore"]
-        print(f"  restore of the breakpoint step from disk: step "
-              f"{restore['step']}, tier {restore['tier']}, "
-              f"{restore['seconds']:.3f}s for {restore['bytes']} bytes "
-              f"(CRC-verified)", flush=True)
-        check(restore["tier"] == "disk" and restore["step"] == 2,
-              f"the disk child restored {restore}, not step 2 from disk")
-        check_breakpoint_step(crash["crc"], manifest_crcs(d_crash, 2),
-                              disk["crc"])
-        print(f"  every leaf's CRC32, in the breakpoint manifest and "
-              f"restored from disk, equal to what the killed child staged "
-              f"({len(disk['crc'])} leaves)", flush=True)
-        host.stop()
-        host = None
-        print(f"  breakpoint leg: {time.perf_counter() - t_leg:.1f}s",
-              flush=True)
+        # the elastic restart: a worker killed under the real CLI, its
+        # agent and master
+        phase_elastic(workdir, nbytes, [main_result["losses"][2:4],
+                                        losses[2:4]])
     finally:
         if host is not None:
             host.stop()
@@ -1353,6 +1350,183 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
             default_socket_path(job, 0))), ignore_errors=True)
     print(f"  flash checkpoint phase: {time.perf_counter() - t0:.1f}s",
           flush=True)
+
+
+def _agent_stamp(lines, marker, pattern):
+    """The number the agent logged on the first line holding ``marker``,
+    read by ``pattern`` (a regex with one group)."""
+    for line in lines:
+        if marker in line:
+            m = re.search(pattern, line)
+            if m:
+                return float(m.group(1))
+    raise SmokeFailure(f"the CLI logged no {marker!r} line")
+
+
+def _life_result(job, restart):
+    """The JSON result of the elastic worker's life ``restart``, from its
+    log under the agent's log directory, and the log's other lines."""
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+
+    path = os.path.join(agent_log_dir(job, 0),
+                        f"worker-0-restart{restart}.log")
+    check(os.path.exists(path), f"no log of life {restart}: {path}")
+    result, lines = None, []
+    with open(path, errors="replace") as f:
+        for line in f:
+            if line.startswith("CKPT_CHILD_JSON "):
+                result = json.loads(line.split(" ", 1)[1])
+            else:
+                lines.append(line.rstrip())
+    check(result is not None, f"life {restart} printed no result")
+    return result, lines
+
+
+def phase_elastic(workdir, nbytes, uninterrupted):
+    """Phase 4c's elastic leg (module docstring): the CLI, a master and an
+    agent of the port, a worker SIGKILLed with step 2 in shm, persisted at
+    the breakpoint and restarted from shm; then the breakpoint step from
+    disk. ``uninterrupted``: steps 3-4's losses of two uninterrupted runs."""
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+    from dlrover_tpu_torch.checkpoint.saver import CheckpointPersister
+    from dlrover_tpu_torch.common.ipc import default_socket_path
+
+    t_leg = time.perf_counter()
+    job = f"chip_smoke_elastic_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    d_el = os.path.join(workdir, "elastic")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
+           "--standalone", "--nnodes=1", "--nproc_per_node=1",
+           "--max_restarts=1", f"--job_name={job}",
+           os.path.abspath(__file__), "--", "--ckpt-child", "elastic", d_el]
+    print(f"  [elastic] {' '.join(cmd[1:])}", flush=True)
+    lines = []
+    try:
+        proc = subprocess.Popen(cmd, cwd=repo, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        timer = threading.Timer(ELASTIC_TIMEOUT_S, proc.kill)
+        timer.start()
+        try:
+            for line in iter(proc.stdout.readline, ""):
+                lines.append(line.rstrip())
+                print(f"  [elastic] {line.rstrip()}", flush=True)
+        finally:
+            timer.cancel()
+            proc.kill()
+            proc.wait(timeout=60)
+        killed, killed_log = _life_result(job, 0)
+        resumed, resumed_log = _life_result(job, 1)
+        for life, log in (("first", killed_log), ("second", resumed_log)):
+            for line in log:
+                print(f"  [elastic {life} life] {line}", flush=True)
+        check(proc.returncode == 0,
+              f"the elastic CLI exited {proc.returncode}, not 0")
+        check(any("checkpoint saver started" in x for x in lines),
+              "the agent's checkpoint saver did not start")
+
+        # the first life: step 2 staged, then killed; the agent saw it,
+        # classified it, persisted step 2 and restarted the worker
+        check(killed["staged_step"] == 2 and killed["modes"] == [
+            "device_snapshot"] * 2, f"the first life staged {killed}")
+        seen_t = _agent_stamp(lines, "node 0: worker failed (exit -9)",
+                              r"seen at ([0-9.]+)")
+        classified = [x for x in lines if " classified " in x]
+        check(classified and classified[0].rstrip().endswith(
+            "(restarts 0/1)") and "-> restart" in classified[0],
+            f"the agent's diagnosis: {classified}")
+        persist_s = _agent_stamp(lines, "node 0: breakpoint persist True",
+                                 r"in ([0-9.]+)s")
+        rdzv_s = _agent_stamp(lines, "node 0: rendezvous round 2 in",
+                              r"in ([0-9.]+)s")
+        start_t = _agent_stamp(lines, "worker-0-restart1.log",
+                               r" at ([0-9.]+) log=")
+        committed = CheckpointPersister(job, 0).committed_step(d_el)
+        check(committed == 2, f"the breakpoint persist committed {committed}")
+        compare_crcs(killed["crc"], manifest_crcs(d_el, 2),
+                     "breakpoint manifest against the killed worker's "
+                     "segment")
+        print(f"  every leaf's CRC32 in the breakpoint manifest equal to "
+              f"what the killed worker staged ({len(killed['crc'])} leaves)",
+              flush=True)
+
+        # the second life: step 2 from shm, steps 3-4 within the resume
+        # tolerance
+        restore = resumed["restore"]
+        check(restore["tier"] == "shm" and restore["step"] == 2,
+              f"the second life restored {restore}, not step 2 from shm")
+        compare_crcs(killed["crc"], resumed["crc"], "shm restore")
+        print(f"  the second life restored step 2 from shm, every leaf's "
+              f"CRC32 equal ({len(resumed['crc'])} leaves)", flush=True)
+        for life, res in (("first", killed), ("second", resumed)):
+            print(f"  [elastic] {life} life's kernel launches: "
+                  f"{res['counts']}", flush=True)
+            for name, n in res["counts"].items():
+                check(n > 0, f"kernel {name} never launched in the {life} "
+                      "life")
+        spread = max(abs(a - b) for a, b in zip(*uninterrupted))
+        tol = max(CKPT_RESUME_SPREAD_FACTOR * spread, CKPT_RESUME_LOSS_FLOOR)
+        diff = max(abs(a - b)
+                   for a, b in zip(resumed["losses"], uninterrupted[0]))
+        print(f"  resumed steps 3-4 (step_s {resumed['step_s']}) losses "
+              f"{resumed['losses']} vs phase 4's {uninterrupted[0]} and the "
+              f"save run's {uninterrupted[1]}: diff {diff:.3e}, "
+              f"uninterrupted spread {spread:.3e}, tol {tol:.3e} (max of "
+              f"{CKPT_RESUME_SPREAD_FACTOR} x spread, "
+              f"{CKPT_RESUME_LOSS_FLOOR})", flush=True)
+        check(diff <= tol, f"resumed losses differ by {diff} > {tol}")
+        exit_line = [x for x in lines if "local master exiting:" in x]
+        check(exit_line and exit_line[-1].endswith(
+            "succeeded; checkpoint steps by node {0: 4}"),
+            f"the master's exit: {exit_line}")
+
+        # the time to recover, by phase
+        restored_t = resumed["restored_t"]
+        step3_t = resumed["step_end_t"][0] - resumed["crc_s"]
+        phases = {
+            "kill_to_detection_s": seen_t - killed["kill_t"],
+            "breakpoint_persist_s": persist_s,
+            "rendezvous_s": rdzv_s,
+            "worker_start_to_restore_s": restored_t - start_t,
+            "restore_to_step3_end_s": step3_t - restored_t,
+        }
+        print(f"  time to recover: {step3_t - killed['kill_t']:.3f}s from "
+              f"the kill to the end of step 3; by phase {json.dumps(phases)}"
+              f"; the restore {restore['seconds']:.3f}s by tier "
+              f"{restore['tier']} (registering the segment "
+              f"{restore['register_s']:.3f}s of it, {restore['bytes']} "
+              f"bytes); the second life's start {start_t - seen_t:.3f}s "
+              f"after the detection (the persist, the failure report, the "
+              f"diagnosis and the rendezvous); its CRC32s "
+              f"{resumed['crc_s']:.3f}s (left out of the last phase)",
+              flush=True)
+
+        # the segment gone (the agent unlinked it at the job's end): step
+        # 2 from the breakpoint persist on disk
+        unlink_segment(job)
+        disk = _run_child("disk", d_el, job)
+        restore = disk["restore"]
+        print(f"  restore of the breakpoint step from disk: step "
+              f"{restore['step']}, tier {restore['tier']}, "
+              f"{restore['seconds']:.3f}s for {restore['bytes']} bytes "
+              f"(CRC-verified)", flush=True)
+        check(restore["tier"] == "disk" and restore["step"] == 2,
+              f"the disk child restored {restore}, not step 2 from disk")
+        check_breakpoint_step(killed["crc"], manifest_crcs(d_el, 2),
+                              disk["crc"])
+        print(f"  every leaf's CRC32, in the breakpoint manifest and "
+              f"restored from disk, equal to what the killed worker staged "
+              f"({len(disk['crc'])} leaves)", flush=True)
+    finally:
+        unlink_segment(job)
+        shutil.rmtree(d_el, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(agent_log_dir(job, 0)),
+                      ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
+    print(f"  elastic leg: {time.perf_counter() - t_leg:.1f}s", flush=True)
 
 
 def _card_vs_cpu(torch, label, params_cpu, batch_cpu, batch_gpu, loss_cpu,

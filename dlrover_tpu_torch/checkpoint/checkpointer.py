@@ -8,9 +8,12 @@ Usage::
     ckpt.save(step, state, StorageType.DISK)    # + persist
     restored = ckpt.load(target=state)          # shm, else disk, else object
 
-The JAX facade falls back to an Orbax checkpoint in the same directory when
-nothing of its own is there; the port's counterpart, interop with
-``torch.distributed.checkpoint``, is a later slice (ROADMAP.md).
+Under the elastic agent the facade takes the worker context's master client
+(``train/bootstrap.py``), as the JAX facade does, so each save reports its
+step to the master. The JAX facade falls back to an Orbax checkpoint in the
+same directory when nothing of its own is there; the port's counterpart,
+interop with ``torch.distributed.checkpoint``, is a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.train.bootstrap import get_context
 
 
 class StorageType(enum.Enum):
@@ -32,14 +36,20 @@ class Checkpointer:
         self,
         ckpt_dir: str,
         storage=None,
+        master_client: Optional[object] = None,
         save_storage_interval: int = 0,
         async_staging: Optional[bool] = None,
     ):
         """``save_storage_interval > 0`` upgrades every Nth memory save to
         a disk persist, so callers can save to memory every step and still
-        get periodic durability."""
+        get periodic durability. ``master_client`` defaults to the worker
+        context's (None outside the agent)."""
+        if master_client is None:
+            ctx = get_context()
+            master_client = ctx.client if ctx is not None else None
         self._engine = CheckpointEngine(
-            ckpt_dir, storage=storage, async_staging=async_staging
+            ckpt_dir, storage=storage, async_staging=async_staging,
+            master_client=master_client,
         )
         self._save_storage_interval = max(0, save_storage_interval)
         self.last_blocking_s = 0.0

@@ -50,9 +50,13 @@ thread persists inline, as the JAX engine does without an agent. Under
 ``DLROVER_TPU_CKPT_REPLICA=1`` every stage also asks the saver to push the
 segment to the backup peer (replica.py).
 
-Not ported here, each named in ROADMAP.md: the report of a save to the
-master (it waits for the port's master client), the compile-cache default,
-and trace spans.
+The master. Given a master client (the worker context's, through the
+``Checkpointer``), every completed save reports its step and its training
+pause to the master (``report_ckpt_step``), as the JAX engine does; a
+failed report is dropped, never raised into training.
+
+Not ported here, each named in ROADMAP.md: the compile-cache default and
+trace spans.
 """
 
 from __future__ import annotations
@@ -234,8 +238,10 @@ class CheckpointEngine:
         dedup: Optional[bool] = None,
         ownership_world: Optional[Tuple[int, int]] = None,
         socket_path: str = "",
+        master_client=None,
     ):
         self.ckpt_dir = ckpt_dir
+        self._master_client = master_client
         self.job_name = job_name or flags.JOB_NAME.get()
         self.node_id = (
             node_id if node_id is not None else int(flags.NODE_ID.get())
@@ -436,7 +442,9 @@ class CheckpointEngine:
         if self._async_staging:
             return self._start_async_stage(t0, step, state, persist=False)
         self._stage_sync(step, state)
-        return time.time() - t0
+        blocking = time.time() - t0
+        self._report_save(step, blocking)
+        return blocking
 
     def _install_crash_drain(self):
         """Join the in-flight stage on every teardown the interpreter sees:
@@ -681,6 +689,7 @@ class CheckpointEngine:
                 stats.update(self._queue_persist(step))
             self.last_stage_stats = stats
             self.stage_log.append(stats)
+            self._report_save(step, pause)
         except BaseException as e:  # re-raised by the next wait_staging
             logger.exception("background staging of step %s failed", step)
             # the only reader (wait_staging) joins this thread first
@@ -721,7 +730,16 @@ class CheckpointEngine:
             logger.error("%s; skipping persist", e)
             return time.time() - t0
         self.last_stage_stats.update(self._queue_persist(step))
-        return time.time() - t0
+        blocking = time.time() - t0
+        self._report_save(step, blocking)
+        return blocking
+
+    def _report_save(self, step: int, blocking: float):
+        if self._master_client is not None:
+            try:
+                self._master_client.report_ckpt_step(step, blocking)
+            except Exception:
+                pass
 
     def _persist_inline(self, step: int):
         if self._inline_persister is None:

@@ -363,18 +363,23 @@ class CheckpointPersister:
             protect=frozenset(self._pending_fanout),
         )
 
-    def staged_steps(self) -> Dict[int, int]:
-        """{process id: the step staged in its segment} of this node's
+    def staged_metas(self) -> Dict[int, CheckpointMeta]:
+        """{process id: the meta of its staged segment} of this node's
         processes that have one."""
-        staged: Dict[int, int] = {}
+        staged: Dict[int, CheckpointMeta] = {}
         for h in self.local_handlers():
             try:
                 meta = h.read_meta()
                 if meta is not None:
-                    staged[meta.process_id] = meta.step
+                    staged[meta.process_id] = meta
             finally:
                 h.close()
         return staged
+
+    def staged_steps(self) -> Dict[int, int]:
+        """{process id: the step staged in its segment} of this node's
+        processes that have one."""
+        return {pid: m.step for pid, m in self.staged_metas().items()}
 
     def save_shm_to_storage(
         self, ckpt_dir: str = "", commit_timeout: Optional[float] = None
@@ -382,11 +387,22 @@ class CheckpointPersister:
         """Persist whatever is staged in shm now: the save-at-breakpoint
         guarantee, run when a worker died or the node is going down.
         Callers on such paths pass a short ``commit_timeout``: a dying node
-        must not spend its grace period polling other nodes' votes."""
-        ckpt_dir = ckpt_dir or self.last_persist_dir
-        steps = set(self.staged_steps().values())
+        must not spend its grace period polling other nodes' votes.
+
+        With no ``ckpt_dir``, the directory is the one the staged segment
+        records (its meta's ``ckpt_dir``), else the last persist's. The
+        segment's own wins: ``last_persist_dir`` belongs to this persister
+        and outlives the worker that staged the segment. So a worker that
+        died before its first persist still has its last step saved, where
+        the JAX persister, which reads only ``last_persist_dir``, persists
+        nothing."""
+        metas = self.staged_metas()
+        steps = {m.step for m in metas.values()}
         if not steps:
             return False
+        ckpt_dir = ckpt_dir or next(
+            (m.ckpt_dir for m in metas.values() if m.ckpt_dir),
+            self.last_persist_dir)
         if not ckpt_dir:
             logger.warning("staged shm checkpoint exists but no ckpt_dir "
                            "is known; cannot persist")

@@ -113,3 +113,15 @@ JOB_NAME = EnvFlag(
     NodeEnv.JOB_NAME, "local",
     "Job name: keys the shm segments.",
 )
+MASTER_ADDR = EnvFlag(
+    NodeEnv.MASTER_ADDR, "",
+    "host:port of the job master's endpoint (agent-injected).",
+)
+NODE_IP = EnvFlag(
+    "DLROVER_TPU_NODE_IP", "",
+    "This node's advertised IP (utils/net.py); empty: loopback.",
+)
+DIST_INIT_TIMEOUT = EnvFlag(
+    "DLROVER_TPU_DIST_INIT_TIMEOUT", 120,
+    "Seconds train/bootstrap.py's init_process_group waits for the world.",
+)

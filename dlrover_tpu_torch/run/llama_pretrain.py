@@ -14,6 +14,12 @@ the shared tier) and training resumes at the restored step on the tokens
 it would have drawn there; every step is saved to memory, and every
 ``--save-every``-th save is persisted to disk. Without it (the default)
 nothing is saved.
+
+Under the elastic agent (``run/elastic_run.py``, which sets
+``DLROVER_TPU_MASTER_ADDR``), the run first bootstraps the worker
+(``train/bootstrap.py::init``), as examples/llama_pretrain.py does: each
+step is reported to the master, throttled, and each save's step through
+the checkpoint's master client. Run bare, it trains alone.
 """
 
 from __future__ import annotations
@@ -26,8 +32,10 @@ from typing import List, Optional
 import torch
 
 from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer
+from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.train import bootstrap
 from dlrover_tpu_torch.train.trainer import (
     ElasticTrainer,
     TrainConfig,
@@ -129,6 +137,7 @@ def run(args: argparse.Namespace, log=print) -> dict:
     memory; with ``--ckpt-dir`` also the restore (``None`` when nothing
     was restored) and each save's step, blocking seconds, stage mode and
     background stage stats (``CheckpointEngine.last_stage_stats``)."""
+    ctx = bootstrap.init() if flags.MASTER_ADDR.get() else None
     cfg, trainer, state, next_batch, tokens = build(args)
     ckpt, start, restore = open_checkpoint(args, state, next_batch, log)
     cuda = args.device != "cpu"
@@ -140,6 +149,8 @@ def run(args: argparse.Namespace, log=print) -> dict:
         losses.append(loss)
         step_s.append(seconds)
         log(f"step {step + 1} loss {loss:.4f} ({seconds:.3f}s)")
+        if ctx is not None:
+            ctx.report_step(step + 1, force=step + 1 == args.steps)
         if ckpt is not None:
             blocking = ckpt.save(step + 1, state)
             saves.append({"step": step + 1, "blocking_s": blocking,
@@ -170,7 +181,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     rate = result["tokens_per_s"]
     print(f"params {result['params']} tokens/s "
           f"{'-' if rate is None else f'{rate:.1f}'} "
-          f"max_memory_bytes {result['max_memory_bytes']}", flush=True)
+          f"max_memory_bytes {result['max_memory_bytes']} "
+          f"losses {result['losses']}", flush=True)
 
 
 if __name__ == "__main__":

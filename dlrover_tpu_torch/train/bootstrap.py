@@ -1,0 +1,153 @@
+"""Worker-process bootstrap: the in-training-process face of the control
+plane. The port's own copy of dlrover_tpu/train/bootstrap.py.
+
+A script the agent starts calls::
+
+    from dlrover_tpu_torch.train import bootstrap
+    ctx = bootstrap.init()   # process group up, master client connected
+
+which (a) reads the environment the elastic agent injected, (b) forms the
+process group where the JAX package calls ``jax.distributed.initialize``:
+``torch.distributed.init_process_group`` at ``tcp://<coordinator_addr>``,
+NCCL on the local rank's card for ``cuda`` and gloo for ``cpu``, only when
+the world has more than one process and a coordinator, and (c) connects the
+master client for the step and checkpoint reports. The JAX bootstrap's
+stack dumper, tracer, stack sampler and compile cache wait for the
+profiler slice (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import atexit
+import datetime
+import os
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+from dlrover_tpu_torch.common import flags
+from dlrover_tpu_torch.common.constants import NodeEnv
+from dlrover_tpu_torch.common.log import logger
+
+
+@dataclass
+class WorkerEnv:
+    job_name: str = "local"
+    master_addr: str = ""
+    node_id: int = 0
+    node_rank: int = 0
+    node_num: int = 1
+    coordinator_addr: str = ""
+    process_id: int = 0
+    num_processes: int = 1
+    restart_count: int = 0
+    accelerator: str = "cuda"
+    local_rank: int = 0
+    num_slices: int = 1
+
+    @classmethod
+    def from_env(cls) -> "WorkerEnv":
+        e = os.environ
+        return cls(
+            job_name=e.get(NodeEnv.JOB_NAME, "local"),
+            master_addr=e.get(NodeEnv.MASTER_ADDR, ""),
+            node_id=int(e.get(NodeEnv.NODE_ID, "0")),
+            node_rank=int(e.get(NodeEnv.NODE_RANK, "0")),
+            node_num=int(e.get(NodeEnv.NODE_NUM, "1")),
+            coordinator_addr=e.get(NodeEnv.COORDINATOR_ADDR, ""),
+            process_id=int(e.get(NodeEnv.PROCESS_ID, "0")),
+            num_processes=int(e.get(NodeEnv.NUM_PROCESSES, "1")),
+            restart_count=int(e.get(NodeEnv.RESTART_COUNT, "0")),
+            accelerator=e.get("DLROVER_TPU_ACCELERATOR", "cuda"),
+            local_rank=int(e.get("DLROVER_TPU_LOCAL_RANK", "0")),
+            num_slices=int(e.get("DLROVER_TPU_NUM_SLICES", "1") or 1),
+        )
+
+
+class WorkerContext:
+    """What a training process holds after ``init()``."""
+
+    def __init__(self, env: WorkerEnv, client=None):
+        self.env = env
+        self.client = client
+        self._last_report_ts = 0.0
+        self.step_report_interval = 15.0
+
+    @property
+    def process_id(self) -> int:
+        return self.env.process_id
+
+    @property
+    def num_processes(self) -> int:
+        return self.env.num_processes
+
+    def report_step(self, step: int, force: bool = False):
+        """Throttled global-step report to the master (one every
+        ``step_report_interval`` seconds, or now with ``force``). The JAX
+        report's step-time digest and comm split wait for the tracing
+        slice."""
+        if self.client is None:
+            return
+        now = time.time()
+        if not force and now - self._last_report_ts < self.step_report_interval:
+            return
+        try:
+            self.client.report_global_step(step)
+            self._last_report_ts = now
+        except Exception as e:
+            logger.warning("step report failed: %s", e)
+
+
+_context: Optional[WorkerContext] = None
+
+
+def init() -> WorkerContext:
+    """Bootstrap this training process; idempotent."""
+    global _context
+    if _context is not None:
+        return _context
+    env = WorkerEnv.from_env()
+    if env.num_processes > 1 and env.coordinator_addr:
+        import torch
+        import torch.distributed as dist
+
+        if env.accelerator == "cpu":
+            backend, device_id = "gloo", None
+        else:
+            backend = "nccl"
+            device_id = torch.device("cuda", env.local_rank)
+            torch.cuda.set_device(device_id)
+        logger.info(
+            "process %s/%s: init_process_group(%s, tcp://%s)",
+            env.process_id, env.num_processes, backend, env.coordinator_addr,
+        )
+        dist.init_process_group(
+            backend=backend,
+            init_method=f"tcp://{env.coordinator_addr}",
+            world_size=env.num_processes,
+            rank=env.process_id,
+            timeout=datetime.timedelta(
+                seconds=int(flags.DIST_INIT_TIMEOUT.get())),
+            device_id=device_id,
+        )
+    client = None
+    if env.master_addr:
+        from dlrover_tpu_torch.agent.master_client import MasterClient
+
+        client = MasterClient(env.master_addr, env.node_id)
+    _context = WorkerContext(env, client)
+    atexit.register(_shutdown)
+    return _context
+
+
+def get_context() -> Optional[WorkerContext]:
+    return _context
+
+
+def _shutdown():
+    global _context
+    _context = None
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
