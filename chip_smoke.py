@@ -105,6 +105,39 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    phase's shm segments, sockets and logs are named for this run (pid and
    a random suffix), so two runs on one
    machine never share them. Bounds are printed beside the times.
+4d. the data plane at the main path's configuration (``DATA_*``): a
+   corpus of 32 sequences of 2048 random uint32 token ids below 128256
+   from the seed, written by the port's ``pack_tokens`` under the phase's
+   temporary directory. The loader leg: ``run/llama_pretrain.py --data FILE
+   --data-dtype uint32 --steps 4`` in this process (sampler, loader,
+   prefetch to the card), launch counters at 0 just before and read just
+   after, every flash and fused-CE kernel required to run; each step's
+   batch, read back from the card, must equal bitwise the file's rows in
+   the order the script computes on its own (numpy's ``RandomState(1 +
+   epoch)`` permutation, ``sampler_order``); prints tokens/s beside phase
+   4's and each step's wait on the prefetch. The shard leg: ``python -m
+   dlrover_tpu_torch.run.elastic_run --standalone --nnodes=1
+   --nproc_per_node=1 --max_restarts=1`` with the checkout on
+   ``PYTHONPATH``, its worker ``chip_smoke.py --data-child shards FILE``,
+   which registers the dataset (32 records, shard size 2, one epoch, no
+   shuffle) with the port's master, leases 4 shards a call through
+   ``ShardingClient``, trains one step a shard on the shard's rows and
+   prints each lease call (its tasks, the ids the master acked, its
+   seconds) and each shard (task id, range, the CRC32 of the batch read
+   back from the card); its first life SIGKILLs itself after its 6th
+   shard's step, and the agent must restart it; the second life takes
+   shards until the master says exhausted. ``check_shard_accounting``:
+   every one of the 16 ranges trained, no range the master acked in the
+   first life reaches the second, a range trained in both lives only if
+   the first held it un-acked when it died, each step's CRC32 equal to the
+   file's rows; then the master's dataset complete (32 records), every
+   kernel launched in each life, the per-task fallback never fired, the CLI
+   exits 0 and the master logs the job as succeeded. Prints the lease
+   RPCs' median and largest seconds, the kill to the agent's detection,
+   the kill to the end of the first re-delivered shard's step, and the
+   second life's start to its first step. Nothing is checkpointed; the
+   job name, logs and socket directory are unique to the run. The phase
+   fails past ``DATA_PHASE_LIMIT_S`` (120 s).
 5. reference: a small Llama (head dim 128) and a small ViT (head dim 64,
    100 patches, 300 classes) on the card, bf16 with the kernels, against
    the same weights on the CPU in f32 with the plain versions: loss and
@@ -113,8 +146,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    ``{"ok": true, "device": {...}}``.
 
 Exits with code 2 and prints no result when CUDA is not available.
-``--ckpt-child ROLE DIR`` runs one of phase 4c's children (it is not run
-by hand).
+``--ckpt-child ROLE DIR`` runs one of phase 4c's children and
+``--data-child shards FILE`` phase 4d's worker (neither is run by hand).
 """
 
 import dataclasses
@@ -235,6 +268,29 @@ CKPT_COMMIT_TIMEOUT_S = 600
 # seconds the elastic leg's CLI may take: two lives of the worker (each
 # about a minute on the card) and the breakpoint persist between them
 ELASTIC_TIMEOUT_S = 900
+# the data plane (phase 4d): a corpus of DATA_RECORDS sequences of
+# DATA_SEQ random uint32 token ids below DATA_VOCAB (Llama-3's vocabulary),
+# drawn from DATA_SEED; the loader leg trains DATA_LOADER_STEPS steps; the
+# shard leg's master splits the records into shards of DATA_SHARD_SIZE
+# (one optimizer step of the global batch, 2, each), leased DATA_LEASE_COUNT
+# at a time, and its worker's first life is SIGKILLed after its
+# DATA_KILL_AFTER-th shard's step
+DATA_RECORDS = 32
+DATA_SEQ = 2048
+DATA_VOCAB = 128256
+DATA_SEED = 0
+# the shuffle seed of run/llama_pretrain.py's sampler (the JAX example's)
+DATA_SAMPLER_SEED = 1
+DATA_LOADER_STEPS = 4
+DATA_SHARD_SIZE = 2
+DATA_LEASE_COUNT = 4
+DATA_KILL_AFTER = 6
+DATA_DATASET = "chip-smoke-shards"
+# seconds the shard leg's CLI may take: two lives of the worker, each a
+# process start, the model's build and up to twelve steps
+DATA_TIMEOUT_S = 600
+# seconds the whole of phase 4d may take
+DATA_PHASE_LIMIT_S = 120
 # manifests, commit votes and the tracker beside a persisted step's leaves
 CKPT_DISK_SLACK = 64 << 20
 # a PCIe link's transfer rate a lane (GT/s) by generation; gens 1-2 encode
@@ -1529,6 +1585,385 @@ def phase_elastic(workdir, nbytes, uninterrupted):
     print(f"  elastic leg: {time.perf_counter() - t_leg:.1f}s", flush=True)
 
 
+def write_corpus(path, seed=DATA_SEED, records=DATA_RECORDS, seq=DATA_SEQ,
+                 vocab=DATA_VOCAB):
+    """Phase 4d's corpus: ``records`` sequences of ``seq`` random token ids
+    in [0, vocab) from ``seed``, as uint32 through the port's
+    ``pack_tokens``. Returns the tokens, shaped (records, seq)."""
+    import numpy as np
+
+    from dlrover_tpu_torch.train.datasets import pack_tokens
+
+    tokens = np.random.RandomState(seed).randint(
+        0, vocab, (records, seq)).astype(np.uint32)
+    if os.path.exists(path):
+        os.remove(path)  # pack_tokens appends
+    n = pack_tokens(path, tokens.reshape(-1).tolist(), dtype="uint32")
+    check(n == records * seq, f"packed {n} tokens, not {records * seq}")
+    return tokens
+
+
+def sampler_order(n, seed, epoch):
+    """The sampler's global order, computed here on its own: numpy's
+    ``RandomState(seed + epoch)`` permutation of ``range(n)``
+    (``ElasticDistributedSampler._global_order`` with shuffle)."""
+    import numpy as np
+
+    order = np.arange(n)
+    np.random.RandomState(seed + epoch).shuffle(order)
+    return order
+
+
+def loader_rows(tokens, steps, global_batch, seed=DATA_SAMPLER_SEED):
+    """Each step's rows of the file, (global_batch, seq), as the loader
+    must give them from the epoch's start: the sampler's order over the
+    file's sequences, ``global_batch`` a step, epochs in turn."""
+    import numpy as np
+
+    n = len(tokens)
+    per_epoch = n // global_batch
+    out = []
+    for step in range(steps):
+        epoch, k = divmod(step, per_epoch)
+        idx = sampler_order(n, seed, epoch)[k * global_batch:
+                                            (k + 1) * global_batch]
+        out.append(np.asarray(tokens[idx]))
+    return out
+
+
+def check_shard_accounting(first, second, ranges, file_crc):
+    """Phase 4d's shard accounting over the two lives of the shard leg's
+    worker. ``first`` and ``second``: each life's ``shards`` (the
+    ``[task_id, start, end, crc]`` it trained, in order) and ``leases``
+    (each lease call's ``granted`` ``[task_id, start, end]`` and
+    ``acked`` task ids). ``ranges``: every ``(start, end)`` of the
+    dataset; ``file_crc``: each range's CRC32 of the file's rows. Fails
+    on a range no life trained, a range one life trained twice, a range
+    the master acked in the first life that reaches the second, a range
+    trained in both lives that the first did not hold un-acked when it
+    died, or a step's CRC32 unlike the file's. Returns the ranges trained
+    in both lives."""
+    def spans(life):
+        return [(start, end) for _, start, end, _ in life["shards"]]
+
+    for label, life in (("first", first), ("second", second)):
+        trained = spans(life)
+        twice = sorted({r for r in trained if trained.count(r) > 1})
+        check(not twice, f"the {label} life trained {twice} twice")
+        for task_id, start, end, crc in life["shards"]:
+            check(crc == file_crc[(start, end)],
+                  f"the {label} life's step on range {start}:{end} (task "
+                  f"{task_id}) has CRC32 {crc}, the file's rows "
+                  f"{file_crc[(start, end)]}")
+    granted = {tid: (start, end) for lease in first["leases"]
+               for tid, start, end in lease["granted"]}
+    acked = {granted[tid] for lease in first["leases"]
+             for tid in lease["acked"]}
+    held = set(granted.values()) - acked
+    done = set(spans(first)) | set(spans(second))
+    missing = sorted(set(ranges) - done)
+    check(not missing, f"no life trained {missing}")
+    leaked = sorted(acked & set(spans(second)))
+    check(not leaked, f"ranges {leaked} were acked in the first life and "
+          "delivered to the second")
+    again = set(spans(first)) & set(spans(second))
+    stray = sorted(again - held)
+    check(not stray, f"ranges {stray} were trained in both lives but not "
+          "held un-acked by the first when it died")
+    return sorted(again)
+
+
+def _data_args(steps, extra=()):
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    return llama_pretrain.parse_args([
+        "--model", "8b", "--layers", "4", "--seq", str(DATA_SEQ),
+        "--micro-batch", "1", "--global-batch", "2", "--steps", str(steps),
+        "--device", "cuda", "--seed", "0", *extra,
+    ])
+
+
+def _data_emit(kind, **fields):
+    print("DATA_CHILD_JSON " + json.dumps({"kind": kind, **fields}),
+          flush=True)
+
+
+def data_child(role, path):
+    """Phase 4d's shard-leg worker, started by the agent (module
+    docstring, 4d): registers the dataset, trains one step a shard on the
+    shard's rows of the file through ``ShardingClient`` and prints a JSON
+    line for each lease call and each shard; its first life SIGKILLs
+    itself after its ``DATA_KILL_AFTER``-th shard's step, its second takes
+    shards until the master says exhausted."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    check(role == "shards", f"unknown data child {role!r}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.train import bootstrap
+    from dlrover_tpu_torch.train.data import ShardingClient
+    from dlrover_tpu_torch.train.datasets import TokenFileDataset
+
+    first = os.environ["DLROVER_TPU_RESTART_COUNT"] == "0"
+    ctx = bootstrap.init()
+    device = torch.device("cuda", ctx.local_rank)
+    _, trainer, state, _, _ = llama_pretrain.build(_data_args(1), device)
+    a, b = trainer.step_batch_shape
+    dataset = TokenFileDataset(path, DATA_SEQ, dtype="uint32")
+    client = ctx.client
+    fallback = {"get_task": 0, "report_task_result": 0}
+    real_lease = client.lease_shards
+
+    def lease(*args, **kwargs):
+        t0 = time.perf_counter()
+        resp = real_lease(*args, **kwargs)
+        seconds = time.perf_counter() - t0
+        _data_emit("lease", seconds=seconds, granted=[
+            [t.task_id, t.shard_start, t.shard_end]
+            for t in getattr(resp, "tasks", [])],
+            acked=list(getattr(resp, "acked", [])),
+            idle=getattr(resp, "idle", None),
+            exhausted=getattr(resp, "exhausted", None))
+        return resp
+
+    def counted(name):
+        real = getattr(client, name)
+
+        def call(*args, **kwargs):
+            fallback[name] += 1
+            return real(*args, **kwargs)
+        return call
+
+    client.lease_shards = lease
+    for name in fallback:
+        setattr(client, name, counted(name))
+    _reset_counts(attention, fce, [0])
+    sharding = ShardingClient(DATA_DATASET, client,
+                              lease_count=DATA_LEASE_COUNT)
+    sharding.register_dataset(DATA_RECORDS, DATA_SHARD_SIZE, num_epochs=1,
+                              shuffle=False)
+    n = 0
+    for task in sharding.iter_tasks():
+        rows = np.stack([dataset[i] for i in
+                         range(task.shard_start, task.shard_end)])
+        batch = torch.from_numpy(rows.reshape(a, b, DATA_SEQ)).to(device)
+        state, loss, seconds = llama_pretrain.timed_step(trainer, state,
+                                                         batch)
+        end_t = time.time()
+        crc = zlib.crc32(batch.cpu().numpy().tobytes())
+        n += 1
+        _data_emit("shard", task_id=task.task_id, start=task.shard_start,
+                   end=task.shard_end, crc=crc, loss=loss, seconds=seconds,
+                   end_t=end_t)
+        if first and n == DATA_KILL_AFTER:
+            _data_emit("end", counts=_launch_counts(attention, fce),
+                       fallback=fallback, kill_t=time.time())
+            os.kill(os.getpid(), signal.SIGKILL)
+    _data_emit("end", counts=_launch_counts(attention, fce),
+               fallback=fallback,
+               shard_ckpt=json.loads(sharding.checkpoint_shards()))
+    return 0
+
+
+def _data_life(job, restart):
+    """The lines the shard leg's worker printed in life ``restart``: its
+    ``shards``, ``leases`` and ``end`` record, read from its log under the
+    agent's log directory."""
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+
+    path = os.path.join(agent_log_dir(job, 0),
+                        f"worker-0-restart{restart}.log")
+    check(os.path.exists(path), f"no log of life {restart}: {path}")
+    life = {"shards": [], "leases": [], "end": None, "records": []}
+    with open(path, errors="replace") as f:
+        for line in f:
+            if not line.startswith("DATA_CHILD_JSON "):
+                continue
+            rec = json.loads(line.split(" ", 1)[1])
+            life["records"].append(rec)
+            if rec["kind"] == "shard":
+                life["shards"].append([rec["task_id"], rec["start"],
+                                       rec["end"], rec["crc"]])
+            elif rec["kind"] == "lease":
+                life["leases"].append(rec)
+            else:
+                life["end"] = rec
+    check(life["end"] is not None, f"life {restart} printed no end record")
+    return life
+
+
+def phase_data(torch, attention, fce, chunked_calls, main_result):
+    """Phase 4d, the data plane (module docstring)."""
+    import numpy as np
+
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+    from dlrover_tpu_torch.common.ipc import default_socket_path
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    job = f"chip_smoke_data_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    try:
+        path = os.path.join(workdir, "corpus.bin")
+        tokens = write_corpus(path)
+        print(f"  corpus: {DATA_RECORDS} sequences of {DATA_SEQ} uint32 "
+              f"token ids in [0, {DATA_VOCAB}) from seed {DATA_SEED}, "
+              f"{os.path.getsize(path)} bytes", flush=True)
+
+        # the loader leg: the token file through the sampler, the loader
+        # and prefetch, in this process
+        recorded = []
+        real_step = llama_pretrain.timed_step
+
+        def recording_step(trainer, state, batch):
+            recorded.append(batch.clone())
+            return real_step(trainer, state, batch)
+
+        torch.cuda.empty_cache()
+        _reset_counts(attention, fce, chunked_calls)
+        with mock.patch.object(llama_pretrain, "timed_step", recording_step):
+            result = llama_pretrain.run(
+                _data_args(DATA_LOADER_STEPS, ["--data", path,
+                                               "--data-dtype", "uint32"]),
+                log=lambda m: print(f"  [loader] {m}", flush=True))
+        counts = _launch_counts(attention, fce)
+        print(f"  [loader] kernel launches: {counts}; chunked CE calls "
+              f"{chunked_calls[0]}", flush=True)
+        for name in counts:
+            check(counts[name] > 0,
+                  f"kernel {name} never launched in the loader leg")
+        check(all(b.is_cuda for b in recorded),
+              "a loader batch reached the step on the host")
+        want = loader_rows(tokens, DATA_LOADER_STEPS, 2)
+        check(len(recorded) == DATA_LOADER_STEPS,
+              f"the loader leg trained {len(recorded)} steps")
+        for step, (got, rows) in enumerate(zip(recorded, want)):
+            got = got.cpu().numpy().reshape(-1, DATA_SEQ)
+            check(got.dtype == np.int32 and np.array_equal(
+                got, rows.astype(np.int32)),
+                f"step {step + 1}'s batch differs from the file's rows "
+                f"{sampler_order(DATA_RECORDS, DATA_SAMPLER_SEED, 0)[2 * step:2 * step + 2]}")
+        losses = result["losses"]
+        check(all(math.isfinite(x) for x in losses),
+              f"non-finite loss {losses}")
+        print(f"  [loader] every step's batch, read back from the card, "
+              f"bitwise equal to the file's rows in the sampler's order "
+              f"(RandomState({DATA_SAMPLER_SEED}) over "
+              f"{DATA_RECORDS} sequences); losses {losses}; step_s "
+              f"{result['step_s']}; tokens/s (steps 2-{DATA_LOADER_STEPS}) "
+              f"{result['tokens_per_s']:.1f} vs phase 4's synthetic "
+              f"{main_result['tokens_per_s']:.1f}; each step's wait on the "
+              f"prefetch {result['data_wait_s']} s", flush=True)
+        del recorded
+        torch.cuda.empty_cache()
+
+        # the shard leg: the port's CLI, master and agent; a worker taking
+        # shard ranges through ShardingClient, killed once and restarted
+        t_leg = time.perf_counter()
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
+               "--standalone", "--nnodes=1", "--nproc_per_node=1",
+               "--max_restarts=1", f"--job_name={job}",
+               os.path.abspath(__file__), "--", "--data-child", "shards",
+               path]
+        print(f"  [shards] {' '.join(cmd[1:])}", flush=True)
+        lines = []
+        proc = subprocess.Popen(cmd, cwd=repo, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        timer = threading.Timer(DATA_TIMEOUT_S, proc.kill)
+        timer.start()
+        try:
+            for line in iter(proc.stdout.readline, ""):
+                lines.append(line.rstrip())
+                print(f"  [shards] {line.rstrip()}", flush=True)
+        finally:
+            timer.cancel()
+            proc.kill()
+            proc.wait(timeout=60)
+        first, second = _data_life(job, 0), _data_life(job, 1)
+        for label, life in (("first", first), ("second", second)):
+            for rec in life["records"]:
+                print(f"  [shards {label} life] {json.dumps(rec)}",
+                      flush=True)
+        check(proc.returncode == 0,
+              f"the shard leg's CLI exited {proc.returncode}, not 0")
+        exit_line = [x for x in lines if "local master exiting:" in x]
+        check(exit_line and "local master exiting: succeeded" in
+              exit_line[-1], f"the master's exit: {exit_line}")
+        check(len(first["shards"]) == DATA_KILL_AFTER,
+              f"the first life trained {len(first['shards'])} shards")
+        ranges = [(s, min(s + DATA_SHARD_SIZE, DATA_RECORDS))
+                  for s in range(0, DATA_RECORDS, DATA_SHARD_SIZE)]
+        file_crc = {(s, e): zlib.crc32(tokens[s:e].astype(np.int32)
+                                       .tobytes()) for s, e in ranges}
+        again = check_shard_accounting(first, second, ranges, file_crc)
+        for label, life in (("first", first), ("second", second)):
+            end = life["end"]
+            print(f"  [shards] {label} life's kernel launches: "
+                  f"{end['counts']}; per-task calls {end['fallback']}",
+                  flush=True)
+            for name, n in end["counts"].items():
+                check(n > 0, f"kernel {name} never launched in the {label} "
+                      "life of the shard leg")
+            check(not any(end["fallback"].values()),
+                  f"the per-task fallback fired in the {label} life: "
+                  f"{end['fallback']}")
+        ckpt = second["end"]["shard_ckpt"]
+        check(ckpt["completed_records"] == DATA_RECORDS and not ckpt["todo"]
+              and not ckpt["doing"] and ckpt["epoch"] == 1,
+              f"the master's dataset at the end: {ckpt}")
+        lease_s = sorted(x["seconds"] for life in (first, second)
+                         for x in life["leases"])
+        seen_t = _agent_stamp(lines, "node 0: worker failed (exit -9)",
+                              r"seen at ([0-9.]+)")
+        kill_t = first["end"]["kill_t"]
+        redelivered_t = next(
+            rec["end_t"] for rec in second["records"]
+            if rec["kind"] == "shard" and [rec["start"], rec["end"]]
+            in [list(r) for r in again]) if again else None
+        first_step_t = next(rec["end_t"] for rec in second["records"]
+                            if rec["kind"] == "shard")
+        start_t = _agent_stamp(lines, "worker-0-restart1.log",
+                               r" at ([0-9.]+) log=")
+        print(f"  [shards] all {len(ranges)} ranges trained, "
+              f"{len(first['shards'])} in the first life and "
+              f"{len(second['shards'])} in the second; re-delivered "
+              f"{again} (held un-acked by the first life when it died); "
+              f"every step's CRC32 equal to the file's rows; the dataset "
+              f"complete with {ckpt['completed_records']} records",
+              flush=True)
+        print(f"  [shards] lease RPCs: {len(lease_s)}, median "
+              f"{lease_s[len(lease_s) // 2] * 1e3:.3f} ms, largest "
+              f"{lease_s[-1] * 1e3:.3f} ms; the kill to the agent's "
+              f"detection {seen_t - kill_t:.3f} s; the kill to the end of "
+              f"the first re-delivered shard's step "
+              f"{'n/a' if redelivered_t is None else f'{redelivered_t - kill_t:.3f} s'}"
+              f"; the second life's start (the agent's) to the end of its "
+              f"first step {first_step_t - start_t:.3f} s", flush=True)
+        print(f"  shard leg: {time.perf_counter() - t_leg:.1f}s", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(agent_log_dir(job, 0)),
+                      ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"  data plane phase: {seconds:.1f}s (limit {DATA_PHASE_LIMIT_S}s)",
+          flush=True)
+    check(seconds < DATA_PHASE_LIMIT_S,
+          f"phase 4d took {seconds:.1f}s, over {DATA_PHASE_LIMIT_S}s")
+
+
 def _card_vs_cpu(torch, label, params_cpu, batch_cpu, batch_gpu, loss_cpu,
                  loss_gpu):
     """Loss and every grad: bf16 + kernels on the card against f32 + plain
@@ -1691,6 +2126,10 @@ def main():
           flush=True)
     phase_checkpoint(torch, attention, fce, chunked_calls, main_result)
 
+    print("== phase 4d: the data plane (Llama-3-8B width, 4 of 32 layers)",
+          flush=True)
+    phase_data(torch, attention, fce, chunked_calls, main_result)
+
     print("== phase 5: small-model reference (card bf16 vs cpu f32)",
           flush=True)
     for policy in ("all", "mlp"):
@@ -1732,6 +2171,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--ckpt-child"]:
             sys.exit(ckpt_child(*sys.argv[2:4]))
+        if sys.argv[1:2] == ["--data-child"]:
+            sys.exit(data_child(*sys.argv[2:4]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)

@@ -2,18 +2,20 @@
 port's own copy of dlrover_tpu/agent/master_client.py, over the port's
 transport (rpc/transport.py).
 
-It carries every call the slice's agent and worker make: rendezvous, node
+It carries every call the port's agent and worker make: rendezvous, node
 lifecycle, the folded worker report, the global step and the checkpoint
-step; and the KV store. The JAX client's process singleton and its other
-calls (data sharding, the network check, barriers, model info, parallel
-config, diagnosis data, the resize breakdown, the legacy heartbeat and
-resource reports) wait for the code that makes them (ROADMAP.md).
+step; data sharding (dataset params, per-task dispatch, batched shard
+leases, the shard checkpoint, the dataset epoch); and the KV store. The JAX
+client's process singleton and its other calls (the network check,
+barriers, model info, parallel config, diagnosis data, the resize
+breakdown, the legacy heartbeat and resource reports) wait for the code
+that makes them (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from dlrover_tpu_torch.common import messages as msg
 from dlrover_tpu_torch.common.constants import NodeType, RendezvousName
@@ -153,6 +155,84 @@ class MasterClient:
             retries=1,
             on_overload="raise",
         )
+
+    # -- data sharding ------------------------------------------------------
+
+    def report_dataset_shard_params(self, params: msg.DatasetShardParams):
+        return self._client.report(params)
+
+    def get_task(self, dataset_name: str) -> msg.Task:
+        # RELAUNCH_TOLERANT backoff (~45s of cumulative sleep over 9
+        # attempts): the data path stalls through a master relaunch gap
+        # instead of failing the epoch
+        return self._client.get(
+            msg.TaskRequest(dataset_name=dataset_name, node_id=self.node_id),
+            timeout=60,
+            retries=9,
+            policy=rpc_policy.RELAUNCH_TOLERANT,
+        )
+
+    def report_task_result(
+        self,
+        dataset_name: str,
+        task_id: int,
+        success: bool = True,
+        lease_epoch: int = -1,
+    ):
+        return self._client.report(
+            msg.TaskResult(
+                dataset_name=dataset_name,
+                task_id=task_id,
+                node_id=self.node_id,
+                success=success,
+                lease_epoch=lease_epoch,
+            ),
+            retries=9,
+            policy=rpc_policy.RELAUNCH_TOLERANT,
+        )
+
+    def lease_shards(
+        self,
+        dataset_name: str,
+        count: int,
+        done_ids: Optional[List[int]] = None,
+        failed_ids: Optional[List[int]] = None,
+        lease_epoch: int = -1,
+    ) -> msg.ShardLeaseResponse:
+        """The batched data plane: ack the finished shards of the
+        previous batch and lease up to ``count`` fresh shards under one
+        per-worker lease in a single RPC (renewed by the folded
+        WorkerReport; expiry re-enqueues at-least-once, the fence dedups).
+        RELAUNCH_TOLERANT like get_task."""
+        return self._client.get(
+            msg.ShardLeaseRequest(
+                dataset_name=dataset_name,
+                node_id=self.node_id,
+                count=count,
+                done_task_ids=[int(t) for t in done_ids or ()],
+                failed_task_ids=[int(t) for t in failed_ids or ()],
+                lease_epoch=lease_epoch,
+            ),
+            timeout=60,
+            retries=9,
+            policy=rpc_policy.RELAUNCH_TOLERANT,
+        )
+
+    def get_shard_checkpoint(self, dataset_name: str) -> str:
+        resp = self._client.get(
+            msg.ShardCheckpointRequest(dataset_name=dataset_name))
+        return resp.content
+
+    def report_shard_checkpoint(self, dataset_name: str, content: str):
+        return self._client.report(
+            msg.ShardCheckpointReport(dataset_name=dataset_name,
+                                      content=content)
+        )
+
+    def get_dataset_epoch(self, dataset_name: str) -> int:
+        return self._client.get(
+            msg.DatasetEpochRequest(dataset_name=dataset_name)
+        ).epoch
 
     # -- kv store ----------------------------------------------------------
 

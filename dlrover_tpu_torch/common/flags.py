@@ -125,3 +125,23 @@ DIST_INIT_TIMEOUT = EnvFlag(
     "DLROVER_TPU_DIST_INIT_TIMEOUT", 120,
     "Seconds train/bootstrap.py's init_process_group waits for the world.",
 )
+
+# -- the data plane (master/shard/, train/data.py)
+
+SHARD_LEASE_TTL_S = EnvFlag(
+    "DLROVER_TPU_SHARD_LEASE_TTL_S", 120.0,
+    "Seconds a batch shard lease stays valid without renewal; every "
+    "folded WorkerReport renews it (zero extra RPCs), and expiry "
+    "re-enqueues the undone shards at-least-once with the fence "
+    "bumped so the zombie's late reports cannot double-count.",
+)
+SHARD_LEASE_COUNT = EnvFlag(
+    "DLROVER_TPU_SHARD_LEASE_COUNT", 16,
+    "Shards per lease_shards batch the worker's ShardingClient "
+    "prefetches (completions of the previous batch ride the same "
+    "RPC). 0 restores the one-task-per-get_task legacy protocol.",
+)
+PARAL_CONFIG_PATH = EnvFlag(
+    "DLROVER_TPU_PARAL_CONFIG_PATH", "",
+    "Path of the master-pushed runtime parallel-config JSON file.",
+)

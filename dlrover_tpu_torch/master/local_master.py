@@ -2,17 +2,19 @@
 own copy of dlrover_tpu/master/local_master.py.
 
 It wires the servicer, the training and network-check rendezvous managers,
-the KV store, the sync service and the local job manager with its error
-monitor onto one port of the port's transport (rpc/transport.py), and
-``run`` decides the job's exit. The JAX master also wires the task
-manager, speed monitor, state store, metric collector, diagnosis manager,
-goodput planner, auto-scaler and hang watchdog; the servicer and job
-manager skip each one that is absent, and each waits in ROADMAP.md.
+the KV store, the sync service, the data-sharding task manager (its queue in
+memory) and the local job manager with its error monitor onto one port of
+the port's transport (rpc/transport.py), and ``run`` decides the job's
+exit. The JAX master also wires the speed monitor, state store, metric
+collector, diagnosis manager, goodput planner, auto-scaler and hang
+watchdog; the servicer and job manager skip each one that is absent, and
+each waits in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 from dlrover_tpu_torch.common.constants import JobExitReason, RendezvousName
 from dlrover_tpu_torch.common.log import logger
@@ -26,6 +28,7 @@ from dlrover_tpu_torch.master.rendezvous.manager import (
 )
 from dlrover_tpu_torch.master.rendezvous.sync_service import SyncService
 from dlrover_tpu_torch.master.servicer import MasterServicer
+from dlrover_tpu_torch.master.shard.task_manager import TaskManager
 from dlrover_tpu_torch.rpc.transport import RpcServer
 
 
@@ -36,10 +39,12 @@ class LocalJobMaster:
         node_num: int = 1,
         heartbeat_timeout: float = 600,
         rdzv_waiting_timeout: float = 60,
+        lease_ttl: Optional[float] = None,
     ):
         # per-job state container: a fresh master gets a fresh container
         self.container = JobContainer()
         ctx = self.container.job_context
+        self.task_manager = TaskManager(lease_ttl=lease_ttl)
         self.error_monitor = ErrorMonitor()
         self.rdzv_managers = {
             RendezvousName.TRAINING: ElasticTrainingRendezvousManager(
@@ -64,7 +69,10 @@ class LocalJobMaster:
             )
         self.kv_store = KVStoreService()
         self.sync_service = SyncService(ctx)
+        # eviction must also re-enqueue the dead node's data shards
+        self.job_manager.attach_task_manager(self.task_manager)
         self.servicer = MasterServicer(
+            task_manager=self.task_manager,
             job_manager=self.job_manager,
             rdzv_managers=self.rdzv_managers,
             kv_store=self.kv_store,
@@ -84,6 +92,7 @@ class LocalJobMaster:
 
     def prepare(self):
         self._server.start()
+        self.task_manager.start()
         self.job_manager.start()
         logger.info("local master serving on port %s", self.port)
 
@@ -114,6 +123,7 @@ class LocalJobMaster:
         return self._exit_code
 
     def stop(self):
+        self.task_manager.stop()
         self.job_manager.stop()
         self._server.stop(grace=1)
 

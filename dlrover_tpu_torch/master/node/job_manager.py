@@ -3,9 +3,9 @@ own copy of dlrover_tpu/master/node/job_manager.py: the base job manager,
 the heartbeat evictor and ``LocalJobManager``, the standalone variant (the
 k8s-distributed one waits for ``dist_master``).
 
-The JAX managers also feed the speed monitor and re-enqueue a dead node's
-data shards; those hooks wait for the speed monitor and the task manager
-(ROADMAP.md).
+An evicted node's data shards go back in the task manager's queue
+(``attach_task_manager``). The JAX managers also feed the speed monitor;
+that hook waits for it (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -45,9 +45,14 @@ class JobManager(ABC):
         # heartbeat sweep can tell "silent" from "silenced by my own
         # backpressure"
         self._gate = None
+        # eviction must also re-enqueue the dead node's data shards
+        self._task_manager = None
 
     def attach_gate(self, gate) -> None:
         self._gate = gate
+
+    def attach_task_manager(self, task_manager) -> None:
+        self._task_manager = task_manager
 
     def _shed_recently(self, node_id: int, window_s: float, now: float) -> bool:
         """True when the admission gate shed a request from this node
@@ -357,7 +362,7 @@ class LocalJobManager(JobManager):
     def _evict_node(self, node: Node, silent_s: float):
         """Declare a heartbeat-silent worker dead: FAILED status (drops
         it from the running-worker set), rendezvous slot released so a
-        pending round stops waiting on it."""
+        pending round stops waiting on it, data shards requeued."""
         logger.warning(
             "node %s-%s heartbeat-silent %.0fs (> %.0fs timeout for %d "
             "sweeps); evicting",
@@ -373,3 +378,8 @@ class LocalJobManager(JobManager):
         )
         for mgr in self._rdzv_managers.values():
             mgr.remove_alive_node(node.id)
+        if self._task_manager is not None:
+            # the evicted node's leased shards go back in the queue now
+            # (at-least-once); the fence bump keeps its zombie reports
+            # from double-counting
+            self._task_manager.remove_node_tasks(node.id)

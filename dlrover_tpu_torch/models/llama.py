@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -260,17 +260,24 @@ def _shift_targets(tokens: torch.Tensor) -> torch.Tensor:
     return F.pad(tokens[..., 1:], (0, 1), value=-1)
 
 
-def loss_fn(params: Params, tokens: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy (pad tokens < 0 are ignored)."""
+def loss_sums(params: Params, tokens: torch.Tensor,
+              cfg: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the next-token NLL, count of valid targets) of ``tokens``;
+    pad tokens < 0 are ignored. A data-parallel trainer all-reduces the
+    count to form the global token mean."""
     if chunked_ce_enabled():
         # fused lm-head + CE on the shifted targets: never materializes
         # [b, s, vocab] logits
         x = forward_hidden(params, tokens, cfg)
-        nll_sum, n_valid = cross_entropy_sums(
+        return cross_entropy_sums(
             x, params["lm_head"], _shift_targets(tokens),
             chunk_size=cfg.ce_chunk_size,
         )
-    else:
-        nll_sum, n_valid = _ce_sums(forward(params, tokens, cfg), tokens)
+    return _ce_sums(forward(params, tokens, cfg), tokens)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor,
+            cfg: LlamaConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy (pad tokens < 0 are ignored)."""
+    nll_sum, n_valid = loss_sums(params, tokens, cfg)
     return nll_sum / torch.clamp(n_valid, min=1.0)

@@ -23,7 +23,7 @@ import datetime
 import os
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.common.constants import NodeEnv
@@ -80,6 +80,10 @@ class WorkerContext:
     @property
     def num_processes(self) -> int:
         return self.env.num_processes
+
+    @property
+    def local_rank(self) -> int:
+        return self.env.local_rank
 
     def report_step(self, step: int, force: bool = False):
         """Throttled global-step report to the master (one every
@@ -142,6 +146,52 @@ def init() -> WorkerContext:
 
 def get_context() -> Optional[WorkerContext]:
     return _context
+
+
+def process_count() -> int:
+    """The default process group's world size; 1 without a group."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def process_index() -> int:
+    """This process's rank in the default process group; 0 without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def collective_device():
+    """The device the default group's collectives take their tensors on:
+    the current card for NCCL, the CPU for gloo. A NCCL collective handed a
+    CPU tensor raises; nothing is routed to another backend."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def process_allgather(value: int) -> List[int]:
+    """Every process's ``value``, in rank order (``[value]`` without a
+    group): the counterpart of ``multihost_utils.process_allgather`` for
+    one integer."""
+    if process_count() == 1:
+        return [int(value)]
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device=collective_device())
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return [int(x.item()) for x in out]
 
 
 def _shutdown():

@@ -1,8 +1,9 @@
-"""ElasticTrainer, single device (port of dlrover_tpu/train/trainer.py's
-step path).
+"""ElasticTrainer (port of dlrover_tpu/train/trainer.py's step path), on
+one device or data-parallel over the default process group.
 
-One optimizer step is ``accum_steps = global_batch // micro_batch``
-microbatches (data-parallel size 1 for now). A batch is a tensor (token ids
+One optimizer step is ``accum_steps = global_batch // (micro_batch · dp)``
+microbatches, ``dp`` the process group's world size (1 without a group), as
+the JAX trainer's ``_accum_for`` computes it. A batch is a tensor (token ids
 for the LM families) or a tree of tensors (an ``(images, labels)`` tuple for
 the CV family) whose every leaf leads with ``accum_steps``; microbatch ``i``
 is every leaf's ``[i]``, as the JAX step slices a pytree. Each microbatch's
@@ -12,29 +13,44 @@ state's ``lr_scale`` before it lands on the params, as the JAX step does.
 With one microbatch the grads stay in the param dtype and no accumulator
 exists.
 
+Data parallelism: every process draws the same global batch,
+``step_batch_shape = (accum, micro · dp)``, and rank ``r`` trains its rows
+``[r·micro, (r+1)·micro)`` of each microbatch (``rows``), the contiguous
+blocks the JAX batch sharding gives each data-parallel device. The JAX loss
+is one token mean over the whole global microbatch, so above dp 1 the
+trainer needs a ``loss_sums_fn`` (the ``(nll_sum, n_valid)`` pair of the
+rank's rows): each microbatch's valid-target count is all-reduced first and
+the rank differentiates its ``nll_sum`` over that global count. The
+accumulated gradients and the reported loss are all-reduced with SUM, so
+clipping and adamw run on equal gradients and every rank's params stay
+bitwise equal. Without a process group the step is the single-device one.
+
 Unlike the JAX step, which returns a fresh state, this one updates the
 state in place to save memory: the first microbatch's f32 gradients
 become the accumulator, later ones add into it, the optimizer reuses the
 gradient buffers for its update, and params and adam moments change where
 they lie. ``step`` returns the same state dict it was given.
 
-Meshes, zero-1, hierarchical collectives, warm compile, remesh and the
-lint hooks are not ported yet.
+Meshes beyond dp (fsdp, tp, zero-1), hierarchical collectives, warm
+compile, remesh and the lint hooks are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterable, List, Tuple
+from typing import Any, Callable, Iterable, List, Optional, Tuple
 
 import torch
 
 from dlrover_tpu_torch.common.tree import Tree, flatten
+from dlrover_tpu_torch.train import bootstrap
 from dlrover_tpu_torch.train.optim import make_optimizer
 
 #: a tensor, or a tuple or list of batches
 Batch = Any
 LossFn = Callable[[Tree, Batch], torch.Tensor]
+#: (sum of the per-target losses, count of valid targets) of a microbatch
+LossSumsFn = Callable[[Tree, Batch], Tuple[torch.Tensor, torch.Tensor]]
 
 
 def batch_leaves(batch: Batch) -> List[torch.Tensor]:
@@ -51,6 +67,13 @@ def microbatch(batch: Batch, i: int) -> Batch:
     return type(batch)(microbatch(b, i) for b in batch)
 
 
+def select_rows(batch: Batch, rows: slice) -> Batch:
+    """``rows`` of the second axis of every leaf of a batch tree (a view)."""
+    if isinstance(batch, torch.Tensor):
+        return batch[:, rows]
+    return type(batch)(select_rows(b, rows) for b in batch)
+
+
 @dataclasses.dataclass
 class TrainConfig:
     global_batch_size: int = 32
@@ -65,28 +88,47 @@ class TrainConfig:
 
 
 class ElasticTrainer:
-    """Owns the optimizer and runs the accumulate-clip-adamw step."""
+    """Owns the optimizer and runs the accumulate-reduce-clip-adamw step."""
 
-    def __init__(self, loss_fn: LossFn, train_config: TrainConfig):
+    def __init__(self, loss_fn: LossFn, train_config: TrainConfig,
+                 loss_sums_fn: Optional[LossSumsFn] = None):
         self.loss_fn = loss_fn
+        self.loss_sums_fn = loss_sums_fn
         self.tc = train_config
         self.optimizer = make_optimizer(train_config)
 
     @property
+    def dp(self) -> int:
+        """Data-parallel size: the default process group's world size."""
+        return bootstrap.process_count()
+
+    @property
     def accum_steps(self) -> int:
-        micro = self.tc.micro_batch_size
-        if self.tc.global_batch_size % micro:
+        denom = self.tc.micro_batch_size * self.dp
+        if self.tc.global_batch_size % denom:
             raise ValueError(
                 f"global_batch={self.tc.global_batch_size} not divisible by "
-                f"micro_batch={micro}"
+                f"micro_batch*dp={denom}"
             )
-        return self.tc.global_batch_size // micro
+        return self.tc.global_batch_size // denom
 
     @property
     def step_batch_shape(self) -> Tuple[int, int]:
-        """(accum_steps, micro_batch): the leading dims of every leaf of a
-        batch fed to ``step``."""
-        return self.accum_steps, self.tc.micro_batch_size
+        """(accum_steps, micro_batch · dp): the leading dims of every leaf
+        of the global batch each process draws; ``step`` takes this
+        rank's ``rows`` of it."""
+        return self.accum_steps, self.tc.micro_batch_size * self.dp
+
+    @property
+    def rows(self) -> slice:
+        """This rank's rows of the global batch's second axis."""
+        micro = self.tc.micro_batch_size
+        r = bootstrap.process_index()
+        return slice(r * micro, (r + 1) * micro)
+
+    def local_rows(self, batch: Batch) -> Batch:
+        """This rank's rows of a global batch (the batch itself at dp 1)."""
+        return batch if self.dp == 1 else select_rows(batch, self.rows)
 
     def init_state(self, params: Tree) -> dict:
         """Train state around ``params``, whose leaves become the leaves
@@ -101,23 +143,53 @@ class ElasticTrainer:
             "lr_scale": 1.0,
         }
 
+    def _microbatch_loss(self, params: Tree, mb: Batch, dp: int):
+        """The loss whose gradient this rank adds for microbatch ``mb``.
+        At dp 1, ``loss_fn``'s; above it, this rank's share of the global
+        microbatch's token mean, so that the shares' sum over the ranks is
+        the JAX loss of the whole global microbatch."""
+        if dp == 1:
+            return self.loss_fn(params, mb)
+        if self.loss_sums_fn is None:
+            raise ValueError(
+                f"dp={dp} needs a loss_sums_fn: the loss is one token mean "
+                "over the global microbatch")
+        import torch.distributed as dist
+
+        nll_sum, n_valid = self.loss_sums_fn(params, mb)
+        n_valid = n_valid.detach().float().clone()
+        dist.all_reduce(n_valid)
+        return nll_sum / torch.clamp(n_valid, min=1.0)
+
     def step(self, state: dict, batch: Batch) -> Tuple[dict, torch.Tensor]:
-        """One optimizer step over ``batch``, each leaf shaped
-        (accum_steps, micro, ...). Returns the (updated in place) state and
-        the mean microbatch loss as a 0-dim tensor on the params' device."""
+        """One optimizer step over ``batch``, this rank's rows, each leaf
+        shaped (accum_steps, micro, ...). Returns the (updated in place)
+        state and the mean microbatch loss (of the global microbatches,
+        the same on every rank) as a 0-dim tensor on the params' device."""
         accum = self.accum_steps
-        leads = [t.shape[0] if t.dim() else None for t in batch_leaves(batch)]
+        dp = self.dp
+        micro = self.tc.micro_batch_size
+        leaves_in = batch_leaves(batch)
+        leads = [t.shape[0] if t.dim() else None for t in leaves_in]
         if not leads or any(lead != accum for lead in leads):
             raise ValueError(
                 f"batch leaves lead with {leads}, expected accum_steps="
                 f"{accum}"
+            )
+        if dp > 1 and any(t.dim() < 2 or t.shape[1] != micro
+                          for t in leaves_in):
+            raise ValueError(
+                f"batch leaves are {[tuple(t.shape) for t in leaves_in]}; at "
+                f"dp={dp} each takes this rank's micro_batch={micro} rows "
+                "(ElasticTrainer.local_rows)"
             )
         leaves = flatten(state["params"])
         tensors = [p for _, p in leaves]
         loss_sum = None
         grads = None
         for i in range(accum):
-            loss = self.loss_fn(state["params"], microbatch(batch, i))
+            loss = self._microbatch_loss(state["params"],
+                                         microbatch(batch, i), dp)
             g = torch.autograd.grad(loss, tensors)
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -129,6 +201,12 @@ class ElasticTrainer:
                 for acc, t in zip(grads, g):
                     acc.add_(t)
             del g
+        if dp > 1:
+            import torch.distributed as dist
+
+            for acc in grads:
+                dist.all_reduce(acc)
+            dist.all_reduce(loss_sum)
         if accum > 1:
             scale = 1.0 / accum
             for acc in grads:

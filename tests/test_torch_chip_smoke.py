@@ -5,6 +5,9 @@ against its plain version by ``chip_smoke.py`` (``KERNELS`` or
 ``CE_KERNELS``) and has one SASS expectation (wgmma + TMA, or neither),
 and the bounds that the kernels' times are read against stay where they
 were computed, so the yardstick of a comparison cannot drift unnoticed.
+Phase 4d's pure checks: the shard accounting fails on each fault it is
+there to catch, and the script's own replica of the sampler's order and of
+the loader's rows equals the port's sampler and loader.
 """
 
 import os
@@ -323,3 +326,109 @@ def test_agent_persist_check():
             _agent_saves(), [dict(log[0], steps=[])], 2)
     with pytest.raises(chip_smoke.SmokeFailure, match="committed step 1"):
         chip_smoke.check_agent_persist(_agent_saves(), log, 1)
+
+
+# -- phase 4d: the data plane -----------------------------------------------
+
+
+def _lives():
+    """Two lives as the shard leg sees them when all goes well: the first
+    leased 0-3 then 4-7 (acking 0-3), trained 0-5 and died; the second
+    leased 4-7 again, then 8-15 (acking as it went)."""
+    ranges = [(s, s + 2) for s in range(0, 32, 2)]
+    crc = {r: 1000 + r[0] for r in ranges}
+
+    def shard(tid):
+        return [tid, *ranges[tid], crc[ranges[tid]]]
+
+    def grant(ids):
+        return [[t, *ranges[t]] for t in ids]
+
+    first = {"shards": [shard(t) for t in range(6)], "leases": [
+        {"granted": grant(range(4)), "acked": []},
+        {"granted": grant(range(4, 8)), "acked": [0, 1, 2, 3]}]}
+    second = {"shards": [shard(t) for t in range(4, 16)], "leases": [
+        {"granted": grant(range(4, 8)), "acked": []},
+        {"granted": grant(range(8, 12)), "acked": [4, 5, 6, 7]},
+        {"granted": grant(range(12, 16)), "acked": [8, 9, 10, 11]},
+        {"granted": [], "acked": [12, 13, 14, 15]}]}
+    return first, second, ranges, crc
+
+
+def test_shard_accounting_passes_and_returns_the_redelivered():
+    first, second, ranges, crc = _lives()
+    assert chip_smoke.check_shard_accounting(first, second, ranges, crc) == [
+        (8, 10), (10, 12)]
+
+
+def test_shard_accounting_fails_on_each_fault():
+    first, second, ranges, crc = _lives()
+    # a range no life trained
+    cut = dict(second, shards=second["shards"][:-1])
+    with pytest.raises(chip_smoke.SmokeFailure, match=r"no life trained "
+                       r"\[\(30, 32\)\]"):
+        chip_smoke.check_shard_accounting(first, cut, ranges, crc)
+    # a range the master acked in the first life reaches the second
+    leaked = dict(second, shards=[[0, 0, 2, crc[(0, 2)]]]
+                  + second["shards"])
+    with pytest.raises(chip_smoke.SmokeFailure, match="acked in the first "
+                       "life"):
+        chip_smoke.check_shard_accounting(first, leaked, ranges, crc)
+    # a re-delivered range the first life did not hold un-acked
+    unheld = {"shards": first["shards"], "leases": [
+        first["leases"][0], {"granted": first["leases"][1]["granted"][:1],
+                             "acked": [0, 1, 2, 3]}]}
+    with pytest.raises(chip_smoke.SmokeFailure, match=r"\[\(10, 12\)\] "
+                       "were trained in both lives"):
+        chip_smoke.check_shard_accounting(unheld, second, ranges, crc)
+    # a step's tokens unlike the file's rows
+    bad = dict(second, shards=[list(x) for x in second["shards"]])
+    bad["shards"][3][3] += 1
+    with pytest.raises(chip_smoke.SmokeFailure, match="CRC32"):
+        chip_smoke.check_shard_accounting(first, bad, ranges, crc)
+    # one life training a range twice
+    twice = dict(second, shards=second["shards"] + second["shards"][-1:])
+    with pytest.raises(chip_smoke.SmokeFailure, match="twice"):
+        chip_smoke.check_shard_accounting(first, twice, ranges, crc)
+
+
+def test_sampler_order_replica_equals_the_port_sampler(tmp_path):
+    """sampler_order and loader_rows, computed by the script on its own,
+    equal the port's sampler and its loader over the corpus the script
+    writes (small here: 8 sequences of 16 tokens)."""
+    import numpy as np
+
+    from dlrover_tpu_torch.train.data import (
+        ElasticDataLoader,
+        ElasticDistributedSampler,
+    )
+    from dlrover_tpu_torch.train.datasets import TokenFileDataset
+
+    for epoch in (0, 1, 2):
+        sampler = ElasticDistributedSampler(
+            dataset_size=32, batch_size=2, num_replicas=1, rank=0,
+            shuffle=True, seed=1)
+        sampler.state.epoch = epoch
+        np.testing.assert_array_equal(chip_smoke.sampler_order(32, 1, epoch),
+                                      sampler._global_order())
+    path = str(tmp_path / "c.bin")
+    tokens = chip_smoke.write_corpus(path, seed=3, records=8, seq=16,
+                                     vocab=300)
+    assert tokens.shape == (8, 16) and tokens.max() < 300
+    assert os.path.getsize(path) == 8 * 16 * 4
+    chip_smoke.write_corpus(path, seed=3, records=8, seq=16, vocab=300)
+    assert os.path.getsize(path) == 8 * 16 * 4  # rewritten, not appended
+    ds = TokenFileDataset(path, 16, dtype="uint32")
+    sampler = ElasticDistributedSampler(dataset_size=len(ds), batch_size=2,
+                                        num_replicas=1, rank=0, shuffle=True,
+                                        seed=chip_smoke.DATA_SAMPLER_SEED)
+    loader = ElasticDataLoader(ds, batch_size=2, sampler=sampler)
+    got = []
+    while len(got) < 6:  # past the first epoch's end
+        for batch in loader:
+            got.append(batch)
+            if len(got) == 6:
+                break
+    want = chip_smoke.loader_rows(tokens, 6, 2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.astype(np.int32))

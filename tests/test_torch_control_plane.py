@@ -7,10 +7,12 @@
 (b) Servicer: one scripted request sequence goes, as serde bytes, through
     each package's servicer in process (no transport): node addresses, a
     two-node training rendezvous and each node's comm world, KV set, get,
-    add and multi-get, a sync join and finish, heartbeats, a failure
-    report, a succeeded report, a global step and a checkpoint step. The
-    replies are equal byte for byte (no reply of the script carries a time
-    field).
+    add and multi-get, a sync join and finish, heartbeats, the dataset
+    messages (params, a task, leases with an ack, a task result, the shard
+    checkpoint out and in, the epoch), a failure report (which requeues the
+    node's shards), a succeeded report, a global step and a checkpoint
+    step. The replies are equal byte for byte (the task managers run on one
+    fixed clock, so a lease's deadline is equal too).
 (c) ``classify_log`` and ``diagnose_training_failure`` give the JAX answer
     on a sample of every JAX pattern and the stated class on each CUDA
     counterpart; the agent's ``_worker_env`` gives the JAX keys and values
@@ -53,6 +55,10 @@ from dlrover_tpu.master.rendezvous import manager as jmanager
 from dlrover_tpu.master.rendezvous.kv_store import KVStoreService as JaxKV
 from dlrover_tpu.master.rendezvous.sync_service import SyncService as JaxSync
 from dlrover_tpu.master.servicer import MasterServicer as JaxServicer
+from dlrover_tpu.master.shard.dataset_manager import (
+    DatasetShardCheckpoint as JaxShardCheckpoint,
+)
+from dlrover_tpu.master.shard.task_manager import TaskManager as JaxTaskManager
 from dlrover_tpu_torch.agent.config import ElasticLaunchConfig
 from dlrover_tpu_torch.agent.diagnosis_agent import (
     WorkerAction,
@@ -78,6 +84,7 @@ from dlrover_tpu_torch.master.rendezvous import manager
 from dlrover_tpu_torch.master.rendezvous.kv_store import KVStoreService
 from dlrover_tpu_torch.master.rendezvous.sync_service import SyncService
 from dlrover_tpu_torch.master.servicer import MasterServicer
+from dlrover_tpu_torch.master.shard.task_manager import TaskManager
 from dlrover_tpu_torch.rpc import policy
 from dlrover_tpu_torch.rpc.transport import RequestGate, RpcClient, RpcError
 from dlrover_tpu_torch.rpc.transport import RpcServer
@@ -159,6 +166,9 @@ def test_message_crosses_both_ways(name):
 
 # -- (b) the servicer ---------------------------------------------------------
 
+# the task managers' clock: a lease's deadline is CLOCK_T + its TTL in both
+CLOCK_T = 1000.0
+
 
 def _jax_servicer():
     ctx = JaxJobContext()
@@ -173,8 +183,10 @@ def _jax_servicer():
         m.update_rdzv_params(min_nodes=2, max_nodes=2, node_unit=1,
                              waiting_timeout=60)
     jm = JaxLocalJobManager(rdzv_managers=mgrs, job_context=ctx)
-    return JaxServicer(job_manager=jm, rdzv_managers=mgrs, kv_store=JaxKV(),
-                       sync_service=JaxSync(ctx), job_context=ctx)
+    tm = JaxTaskManager(clock=lambda: CLOCK_T, lease_ttl=30.0)
+    return JaxServicer(task_manager=tm, job_manager=jm, rdzv_managers=mgrs,
+                       kv_store=JaxKV(), sync_service=JaxSync(ctx),
+                       job_context=ctx)
 
 
 def _port_servicer():
@@ -190,7 +202,9 @@ def _port_servicer():
         m.update_rdzv_params(min_nodes=2, max_nodes=2, node_unit=1,
                              waiting_timeout=60)
     pm = LocalJobManager(rdzv_managers=mgrs, job_context=ctx)
-    return MasterServicer(job_manager=pm, rdzv_managers=mgrs,
+    tm = TaskManager(clock=lambda: CLOCK_T, lease_ttl=30.0)
+    return MasterServicer(task_manager=tm, job_manager=pm,
+                          rdzv_managers=mgrs,
                           kv_store=KVStoreService(),
                           sync_service=SyncService(ctx),
                           job_context=ctx), ctx
@@ -233,6 +247,24 @@ def _script():
                                   timestamp=1000.0, step=3,
                                   has_resource=True, cpu_percent=0.5,
                                   memory_mb=100.0, tpu_hbm_used_mb=2048.0)),
+        # the data plane: a dataset, a task, two leases (the second acks
+        # one shard under the first's fence), a task result, the shard
+        # checkpoint out and in, the epoch; a request for an unknown
+        # dataset
+        ("report", m.DatasetShardParams(dataset_name="ds", dataset_size=50,
+                                        shard_size=10, num_epochs=2)),
+        ("get", m.TaskRequest(dataset_name="ds", node_id=0)),
+        ("get", m.ShardLeaseRequest(dataset_name="ds", node_id=1, count=2)),
+        ("get", m.ShardLeaseRequest(dataset_name="ds", node_id=1, count=1,
+                                    done_task_ids=[1], lease_epoch=1)),
+        ("report", m.TaskResult(dataset_name="ds", task_id=0, node_id=0)),
+        ("report", m.TaskResult(dataset_name="ds", task_id=0, node_id=0)),
+        ("get", m.ShardCheckpointRequest(dataset_name="ds")),
+        ("get", m.DatasetEpochRequest(dataset_name="ds")),
+        ("get", m.TaskRequest(dataset_name="none", node_id=0)),
+        ("get", m.ShardCheckpointRequest(dataset_name="none")),
+        ("report", m.WorkerReport(node_type="worker", node_id=1,
+                                  timestamp=1000.5, step=4)),
         ("report", m.GlobalStepReport(node_id=0, step=5, timestamp=1001.0)),
         ("report", m.CheckpointStepReport(node_id=0, step=4,
                                           blocking_s=0.02)),
@@ -241,6 +273,14 @@ def _script():
             error_data="Traceback (most recent call last):", exit_code=1,
             timestamp=1002.0)),
         ("get", m.NumNodesWaitingRequest(rdzv_name="training")),
+        # node 1's failure requeued the shards it held
+        ("get", m.ShardCheckpointRequest(dataset_name="ds")),
+        ("report", m.ShardCheckpointReport(
+            dataset_name="ds", content=JaxShardCheckpoint(
+                dataset_name="ds", todo=[[20, 30], [40, 50]], epoch=1,
+                completed_records=30, task_id_seq=7).to_json())),
+        ("get", m.ShardLeaseRequest(dataset_name="ds", node_id=0, count=5)),
+        ("get", m.DatasetEpochRequest(dataset_name="ds")),
         ("report", m.SucceededReport(node_type="worker", node_id=0)),
         ("get", m.RunningNodesRequest()),
         ("get", m.TrainingStatusRequest()),
