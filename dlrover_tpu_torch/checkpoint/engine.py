@@ -37,7 +37,11 @@ piece is dropped for the next rung to supply. A restore by target writes
 into the target's tensors in place, on their device (host to device from
 the registered segment, for the shm tier), so ``requires_grad`` leaves and
 the trainer's buffers survive; a leaf the tiers cannot cover fails the
-whole restore (None) before any tensor is touched.
+whole restore (None) before any tensor is touched. Across the processes
+of the default process group, as the JAX engine across hosts: the shm tier
+counts only when every process staged the same step, the committed step is
+the least any process read, and a step is adopted only when every process
+restored it, so no two ranks resume from different steps.
 
 The agent's saver. When an ``AsyncCheckpointSaver`` (saver.py) listens on
 the node's socket (common/ipc.py), a stage runs under its shm lock, from
@@ -111,6 +115,7 @@ from dlrover_tpu_torch.common.storage import (
     CheckpointStorage,
     PosixDiskStorage,
 )
+from dlrover_tpu_torch.train import bootstrap
 
 Ranges = ownership.Ranges
 # a staged piece as a restore reads it: (ranges in the leaf, its bytes as a
@@ -386,9 +391,10 @@ class CheckpointEngine:
     # -- save ---------------------------------------------------------------
 
     def _ownership_info(self) -> Optional[Tuple[int, int]]:
-        """(rank, world) when replica-deduplicated staging applies. The
-        port runs one process (data parallelism across processes is a
-        later slice), so only ``ownership_world`` gives a world above 1."""
+        """(rank, world) when replica-deduplicated staging applies. Only
+        ``ownership_world`` gives a world above 1: the data-parallel
+        processes of ``run/llama_pretrain.py`` pass none, so each stages
+        its whole replica of the state."""
         enabled = (
             bool(self._dedup) if self._dedup is not None
             else flags.CKPT_DEDUP.get()
@@ -790,16 +796,44 @@ class CheckpointEngine:
     def _load_tiered(self, target: Any = None):
         shm_meta = self._staged_shm_meta()
         shm_step = shm_meta.step if shm_meta is not None else -1
+        many = bootstrap.process_count() > 1
+        # Every process must attempt the SAME staged step: staging is
+        # asynchronous on each, so a kill can leave one with step N and
+        # another with N-1, and restoring both trains from a torn state.
+        if many:
+            steps = bootstrap.process_allgather(shm_step)
+            if any(s != steps[0] for s in steps):
+                logger.warning("staged steps disagree across processes "
+                               "(%s); ignoring the shm tier", steps)
+                shm_meta, shm_step = None, -1
+        # The tracker is a shared file a concurrent commit may be
+        # rewriting, so processes can read N and N-1: candidate lists of
+        # different content (torn adoption) or length (mismatched
+        # collectives below). The minimum is committed for every process.
         committed = self.committed_step()
+        if many:
+            committed = min(bootstrap.process_allgather(committed))
         candidates = []
         if shm_step >= 0:
             candidates.append(shm_step)
         if committed >= 0 and committed != shm_step:
             candidates.append(committed)
+        # The candidates are now equal everywhere; one process may still
+        # cover a step from its tiers while another cannot, so each
+        # attempt is adopted only when every process restored it.
         for step in candidates:
             result = self._restore_step_tiered(
                 step, target, shm_meta if step == shm_step else None
             )
+            if many:
+                oks = bootstrap.process_allgather(int(result is not None))
+                if not all(oks):
+                    if result is not None:
+                        logger.warning(
+                            "step %s restorable here but not on %d peer "
+                            "process(es); discarding for the next "
+                            "candidate", step, oks.count(0))
+                    result = None
             if result is not None:
                 return result
         if candidates:

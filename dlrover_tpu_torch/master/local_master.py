@@ -14,7 +14,6 @@ each waits in ROADMAP.md.
 from __future__ import annotations
 
 import time
-from typing import Optional
 
 from dlrover_tpu_torch.common.constants import JobExitReason, RendezvousName
 from dlrover_tpu_torch.common.log import logger
@@ -39,12 +38,11 @@ class LocalJobMaster:
         node_num: int = 1,
         heartbeat_timeout: float = 600,
         rdzv_waiting_timeout: float = 60,
-        lease_ttl: Optional[float] = None,
     ):
         # per-job state container: a fresh master gets a fresh container
         self.container = JobContainer()
         ctx = self.container.job_context
-        self.task_manager = TaskManager(lease_ttl=lease_ttl)
+        self.task_manager = TaskManager()
         self.error_monitor = ErrorMonitor()
         self.rdzv_managers = {
             RendezvousName.TRAINING: ElasticTrainingRendezvousManager(

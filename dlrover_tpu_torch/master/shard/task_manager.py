@@ -47,8 +47,7 @@ class TaskManager:
         #: deadlines (tests drive sweeps on a virtual clock)
         self._clock = clock or time.time
         self._lease_ttl = lease_ttl
-        #: scan-only stop: a test pauses the wall-clock sweep thread and
-        #: drives :meth:`sweep_deadlines` on its own clock
+        #: stops the wall-clock sweep thread
         self._scan_stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -189,12 +188,6 @@ class TaskManager:
                 target=self._scan_loop, name="task-deadline-scan", daemon=True
             )
             self._thread.start()
-
-    def pause_scan(self):
-        """Stop the wall-clock sweep thread without stopping the
-        manager: a test drives :meth:`sweep_deadlines` on its own
-        virtual clock."""
-        self._scan_stop.set()
 
     def stop(self):
         self._scan_stop.set()

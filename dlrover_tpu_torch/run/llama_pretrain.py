@@ -256,9 +256,11 @@ def open_data(args: argparse.Namespace, cfg, trainer, seq: int, device,
 
 def run(args: argparse.Namespace, log=print) -> dict:
     """Train up to step ``args.steps``; returns the losses, per-step
-    seconds, each step's wait for its batch (``data_wait_s``), tokens/s of
-    the global batch over the steps after the first, and peak device
-    memory; with ``--ckpt-dir`` also the restore (``None`` when nothing
+    seconds, each step's wait for its batch (``data_wait_s``), at dp above
+    1 on the card each step's gradient all-reduce in device ms
+    (``reduce_ms``, from the compute stream reaching it to its end),
+    tokens/s of the global batch over the steps after the first, and peak
+    device memory; with ``--ckpt-dir`` also the restore (``None`` when nothing
     was restored) and each save's step, blocking seconds, stage mode and
     background stage stats (``CheckpointEngine.last_stage_stats``); with
     ``--data`` the step of the sidecar the loader resumed from
@@ -281,7 +283,7 @@ def run(args: argparse.Namespace, log=print) -> dict:
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    losses, step_s, waits, saves = [], [], [], []
+    losses, step_s, waits, saves, reduce_ms = [], [], [], [], []
     for step in range(start, args.steps):
         t0 = time.perf_counter()
         batch = next_batch()
@@ -290,7 +292,12 @@ def run(args: argparse.Namespace, log=print) -> dict:
         state, loss, seconds = timed_step(trainer, state, batch)
         losses.append(loss)
         step_s.append(seconds)
-        log(f"step {step + 1} loss {loss:.4f} ({seconds:.3f}s)")
+        reduce = ""
+        if trainer.reduce_events is not None:
+            begin, end = trainer.reduce_events
+            reduce_ms.append(begin.elapsed_time(end))
+            reduce = f", gradient all-reduce {reduce_ms[-1]:.2f} ms"
+        log(f"step {step + 1} loss {loss:.4f} ({seconds:.3f}s{reduce})")
         if ctx is not None:
             ctx.report_step(step + 1, force=step + 1 == args.steps)
         if ckpt is not None:
@@ -315,6 +322,7 @@ def run(args: argparse.Namespace, log=print) -> dict:
         "losses": losses,
         "step_s": step_s,
         "data_wait_s": waits,
+        "reduce_ms": reduce_ms,
         "tokens_per_s": (tokens * len(steady) / sum(steady) if steady
                          else None),
         "max_memory_bytes": (torch.cuda.max_memory_allocated()

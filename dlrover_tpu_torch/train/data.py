@@ -76,7 +76,6 @@ class ShardingClient:
         dataset_name: str,
         master_client=None,
         lease_count: Optional[int] = None,
-        idle_poll_s: Optional[float] = None,
     ):
         self.dataset_name = dataset_name
         self._client = master_client
@@ -90,9 +89,6 @@ class ShardingClient:
         self._lease_epoch = -1
         self._prefetched: List[Task] = []
         self._done_ids: List[int] = []
-        #: fixed cadence for the idle (todo-drained, shards in flight
-        #: elsewhere) poll; None = the shared jittered growing schedule
-        self._idle_poll_s = idle_poll_s
 
     def register_dataset(
         self,
@@ -183,12 +179,9 @@ class ShardingClient:
             if resp.exhausted:
                 continue  # one more call flushes the final completions
             # idle: wait for a re-enqueue (or completion) elsewhere
-            if self._idle_poll_s is not None:
-                time.sleep(self._idle_poll_s)
-            else:
-                if delays is None:
-                    delays = rpc_policy.poll_intervals()
-                time.sleep(next(delays))
+            if delays is None:
+                delays = rpc_policy.poll_intervals()
+            time.sleep(next(delays))
 
     def fetch_task(self) -> Optional[Task]:
         """Chief fetches; everyone receives the same task (or None at end)."""

@@ -96,6 +96,9 @@ class ElasticTrainer:
         self.loss_sums_fn = loss_sums_fn
         self.tc = train_config
         self.optimizer = make_optimizer(train_config)
+        #: the last step's CUDA events around the gradients' all-reduce
+        #: (dp above 1 on the card), for its device time; None otherwise
+        self.reduce_events: Optional[Tuple[Any, Any]] = None
 
     @property
     def dp(self) -> int:
@@ -204,8 +207,17 @@ class ElasticTrainer:
         if dp > 1:
             import torch.distributed as dist
 
+            # one collective a leaf: a flat buffer would cost a copy of
+            # the first microbatch's grads, which measured slower (PERF.md)
+            cuda = grads[0].is_cuda
+            if cuda:
+                self.reduce_events = (torch.cuda.Event(enable_timing=True),
+                                      torch.cuda.Event(enable_timing=True))
+                self.reduce_events[0].record()
             for acc in grads:
                 dist.all_reduce(acc)
+            if cuda:
+                self.reduce_events[1].record()
             dist.all_reduce(loss_sum)
         if accum > 1:
             scale = 1.0 / accum

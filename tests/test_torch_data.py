@@ -11,8 +11,8 @@
     are equal at every step.
 (c) The shard checkpoint: a ``DatasetShardCheckpoint`` JSON written by
     either package, with a doing-set under leases, restores in the other to
-    the same queue (with and without ``keep_doing``), and a version-less
-    legacy payload restores in both.
+    the same queue, and a version-less legacy payload decodes and restores
+    alike in both.
 (d) The input pipeline: ``pack_tokens`` (uint16, uint32, int32) writes the
     same bytes, ``TokenFileDataset`` gives the same samples, and both refuse
     the same out-of-range tokens and corpora (``validate_vocab``); the
@@ -131,7 +131,7 @@ def _queue_script(tm_mod, msg_mod):
     clock; return every observation in order."""
     clock = Clock()
     tm = tm_mod.TaskManager(clock=clock, lease_ttl=30.0)
-    tm.pause_scan()
+    tm.stop()
     out = []
 
     def look(label, value=None):
@@ -239,20 +239,18 @@ def _held_queue(tm_mod, msg_mod, clock):
     return tm
 
 
-def _restored(ds_mod, split_mod, content, keep_doing, clock):
+def _restored(ds_mod, split_mod, content, clock):
     """A fresh dataset manager restored from ``content``; its checkpoint
     as a dict."""
     ds = ds_mod.BatchDatasetManager(
         "train", split_mod.TextDatasetSplitter("ds", 700, 100, 2),
         clock=clock, lease_ttl=30.0)
-    ds.restore_checkpoint(ds_mod.DatasetShardCheckpoint.from_json(content),
-                          keep_doing=keep_doing)
+    ds.restore_checkpoint(ds_mod.DatasetShardCheckpoint.from_json(content))
     return json.loads(ds.checkpoint().to_json())
 
 
-@pytest.mark.parametrize("keep_doing", [False, True])
 @pytest.mark.parametrize("writer", ["jax", "port"])
-def test_shard_checkpoint_restores_across_packages(writer, keep_doing):
+def test_shard_checkpoint_restores_across_packages(writer):
     clock = Clock()
     tm = (_held_queue(jtm, jmsg, clock) if writer == "jax"
           else _held_queue(ptm, pmsg, clock))
@@ -261,17 +259,12 @@ def test_shard_checkpoint_restores_across_packages(writer, keep_doing):
     assert doc["_format"] == "dataset_shard_ckpt" and doc["_v"] == 2
     assert len(doc["leases"]) == 2 and len(doc["doing_meta"]) == 6
     clock.t += 5.0
-    jgot = _restored(jdm, jsplit, content, keep_doing, clock)
-    pgot = _restored(pdm, psplit, content, keep_doing, clock)
+    jgot = _restored(jdm, jsplit, content, clock)
+    pgot = _restored(pdm, psplit, content, clock)
     assert pgot == jgot
-    if keep_doing:
-        # the doing-set and its leases survive, under their fences
-        assert sorted(map(tuple, pgot["doing_meta"])) == sorted(
-            map(tuple, doc["doing_meta"]))
-        assert [x[:2] for x in pgot["leases"]] == [x[:2]
-                                                    for x in doc["leases"]]
-    else:
-        assert not pgot["doing"] and len(pgot["todo"]) == 6
+    # the doing-set goes back to todo, its leases dropped (a worker restart)
+    assert not pgot["doing"] and not pgot["leases"]
+    assert len(pgot["todo"]) == 6
     # the JSON itself: each package's to_json of one checkpoint is equal
     assert json.loads(pdm.DatasetShardCheckpoint.from_json(content)
                       .to_json()) == json.loads(
@@ -285,11 +278,15 @@ def test_legacy_shard_checkpoint_restores_in_both():
         "dataset_name": "ds", "todo": [[300, 400]], "doing": [[100, 200]],
         "epoch": 1, "completed_records": 100,
         "doing_meta": [[3, 2, "", 100, 200]], "task_id_seq": 4})
+    decoded = [json.loads(m.DatasetShardCheckpoint.from_json(legacy).to_json())
+               for m in (pdm, jdm)]
+    assert decoded[0] == decoded[1]
+    assert decoded[0]["doing_meta"] == [[3, 2, "", 100, 200, -1]]
     clock = Clock()
-    jgot = _restored(jdm, jsplit, legacy, True, clock)
-    pgot = _restored(pdm, psplit, legacy, True, clock)
+    jgot = _restored(jdm, jsplit, legacy, clock)
+    pgot = _restored(pdm, psplit, legacy, clock)
     assert pgot == jgot
-    assert pgot["doing_meta"] == [[3, 2, "", 100, 200, -1]]
+    assert pgot["todo"] == [[100, 200], [300, 400]] and pgot["epoch"] == 1
 
 
 def test_task_manager_restore_through_the_wire_format():
@@ -538,8 +535,7 @@ class _FakeMaster:
 def _client_run(tm_mod, msg_mod, data_mod, lease_supported, fail_at):
     tm = tm_mod.TaskManager(clock=Clock(), lease_ttl=30.0)
     fake = _FakeMaster(tm, msg_mod, lease_supported=lease_supported)
-    client = data_mod.ShardingClient("ds", master_client=fake,
-                                     lease_count=3, idle_poll_s=0.0)
+    client = data_mod.ShardingClient("ds", master_client=fake, lease_count=3)
     client.register_dataset(1000, 100, num_epochs=1, shuffle=True)
     spans = []
     while True:

@@ -1,12 +1,12 @@
 """Data parallelism and the data plane across processes, on the CPU (gloo).
 
-(f) Two gloo processes train tiny Llama dp2 at accum 2 for 4 steps, the
-    ranks holding different numbers of valid targets (some targets -1):
-    every loss and the final params match the JAX trainer on
-    ``MeshConfig(dp=2)`` over two CPU devices, within the tolerances of
-    ``tests/test_torch_trainer.py``'s trajectory test (losses rtol 1e-4;
-    params rtol 2e-2, atol 1e-4), and the two ranks' params are bitwise
-    equal. A trainer at dp 2 without ``loss_sums_fn``, or handed the global
+(f) Two gloo processes train tiny Llama dp2 at accum 2, and at accum 1,
+    for 4 steps, the ranks holding different numbers of valid targets
+    (some targets -1): every loss and the final params match the JAX
+    trainer on ``MeshConfig(dp=2)`` over two CPU devices, within the
+    tolerances of ``tests/test_torch_trainer.py``'s trajectory test (losses
+    rtol 1e-4; params rtol 2e-2, atol 1e-4), and the two ranks' params are
+    bitwise equal. A trainer at dp 2 without ``loss_sums_fn``, or handed the global
     rows, refuses.
 (g) ``ShardingClient`` in two gloo ranks under the port's master: both
     ranks receive the same tasks, and only the chief talks to the master.
@@ -17,7 +17,10 @@
     both ranks, and trains on the batches the JAX sampler gives from that
     position (each rank its rows).
 Also: a sidecar in the JAX example's JSON, written by hand, positions the
-port's loader, and the port's sidecar positions the JAX loader.
+port's loader, and the port's sidecar positions the JAX loader; and the
+checkpoint engine's restore gate in two gloo ranks: ranks that staged
+different steps ignore shm, the committed step is the least any rank read,
+and a step is adopted only when every rank restored it.
 
 Every process group here forms on a ``TCPStore`` the test hosts on port 0,
 with its own timeout.
@@ -80,7 +83,8 @@ cfg = llama.LlamaConfig.tiny()
 trainer = ElasticTrainer(lambda p, t: llama.loss_fn(p, t, cfg),
                          TrainConfig(**inp["tc"]),
                          lambda p, t: llama.loss_sums(p, t, cfg))
-assert trainer.dp == 2 and trainer.step_batch_shape == (2, 4)
+assert trainer.dp == 2
+assert trainer.step_batch_shape == inp["batches"].shape[1:3]
 state = trainer.init_state(params_from_jax(inp["params"], "cpu"))
 losses = []
 for batch in inp["batches"]:
@@ -148,27 +152,39 @@ def _run_ranks(script, args_for):
 # -- (f) the dp2 trajectory ----------------------------------------------------
 
 
-def test_dp2_trajectory_with_uneven_valid_targets_matches_jax(tmp_path):
-    cfg = jllama.LlamaConfig.tiny()
-    tc = dict(global_batch_size=8, micro_batch_size=2, learning_rate=1e-2,
-              warmup_steps=2, total_steps=4)
-    np_params = jax.tree.map(
-        np.asarray, jllama.init_params(cfg, jax.random.key(2)))
+def _uneven_batches(cfg, accum):
+    """4 steps of (accum, micro*dp = 4, seq 16) tokens, rank r's rows
+    [2r, 2r + 2), the ranks holding different numbers of valid targets
+    in every microbatch."""
     rng = np.random.default_rng(7)
-    # (steps, accum, micro*dp, seq): rank r takes rows [2r, 2r + 2)
-    batches = rng.integers(0, cfg.vocab_size, (4, 2, 4, 16)).astype(np.int32)
+    batches = rng.integers(0, cfg.vocab_size,
+                           (4, accum, 4, 16)).astype(np.int32)
     batches[:, :, 3, 6:] = -1           # rank 1: a row mostly padding
-    batches[:, 1, 2, 12:] = -1          # and a few more in microbatch 1
+    batches[:, -1, 2, 12:] = -1         # and a few more in the last
     batches[::2, 0, 0, 15] = -1         # rank 0: one pad in some steps
     valid = (batches[..., 1:] >= 0).sum(-1)
     assert (valid[..., :2].sum(-1) != valid[..., 2:].sum(-1)).all()
+    return batches
+
+
+def _dp2_matches_jax(tmp_path, global_batch):
+    """Train tiny Llama 4 steps at dp 2, micro-batch 2, in two gloo ranks
+    and in JAX on ``MeshConfig(dp=2)``; hold the port to JAX."""
+    cfg = jllama.LlamaConfig.tiny()
+    tc = dict(global_batch_size=global_batch, micro_batch_size=2,
+              learning_rate=1e-2, warmup_steps=2, total_steps=4)
+    accum = global_batch // 4
+    np_params = jax.tree.map(
+        np.asarray, jllama.init_params(cfg, jax.random.key(2)))
+    batches = _uneven_batches(cfg, accum)
 
     mc = MeshConfig(dp=2, fsdp=1, sp=1, tp=1)
     mesh = build_mesh(mc, devices=jax.devices()[:2])
     jtr = jtrainer.ElasticTrainer(
         lambda p, t: jllama.loss_fn(p, t, cfg, mesh),
         jllama.param_specs(cfg), mesh, mc, jtrainer.TrainConfig(**tc))
-    assert jtr.accum_steps == 2 and tuple(jtr.step_batch_shape) == (2, 4)
+    assert jtr.accum_steps == accum
+    assert tuple(jtr.step_batch_shape) == (accum, 4)
     jstate = jtr.init_state(jax.tree.map(jnp.asarray, np_params))
     j_losses = []
     for batch in batches:
@@ -192,6 +208,16 @@ def test_dp2_trajectory_with_uneven_valid_targets_matches_jax(tmp_path):
     j_final = flatten(jax.tree.map(np.asarray, jstate["params"]))
     for (path, a), (_, b) in zip(j_final, flatten(outs[0]["params"])):
         np.testing.assert_allclose(b, a, rtol=2e-2, atol=1e-4, err_msg=path)
+
+
+def test_dp2_trajectory_with_uneven_valid_targets_matches_jax(tmp_path):
+    _dp2_matches_jax(tmp_path, global_batch=8)  # accum 2
+
+
+def test_dp2_trajectory_at_one_microbatch_matches_jax(tmp_path):
+    """accum 1: the gradients are reduced in their own dtype, with no f32
+    accumulator."""
+    _dp2_matches_jax(tmp_path, global_batch=4)
 
 
 def test_dp_needs_the_loss_sums(monkeypatch):
@@ -241,6 +267,96 @@ def test_sharding_client_two_ranks_under_the_port_master():
                                        "get_shard_checkpoint"}
     assert chief["ckpt"]["completed_records"] == 100
     assert master.task_manager.finished()
+
+
+# -- the restore gate across ranks ------------------------------------------------
+
+# three restores in two ranks, each from its own directory and segments:
+# "disagree", the ranks staged different steps (4 and 3) over a committed
+# step 2; "committed", no staged step and rank 1's read of the tracker
+# raced the commit of step 4 (it read 2); "vote", both staged step 6, but
+# rank 1 only the pieces it owns of a group of two (replica dedup) and
+# nothing else holds the rest, so only rank 0 can restore it
+GATE = JOIN + """\
+from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
+root, job = sys.argv[1], sys.argv[2]
+
+def state(v):
+    return {k: torch.full((4, 3), float(v)) for k in ("w", "b")}
+
+def engine(case, **kw):
+    return CheckpointEngine(os.path.join(root, case), job_name=f"{job}-{case}",
+                            node_id=0, process_id=rank, async_staging=False,
+                            **kw)
+
+out = {}
+def restore(eng, case):
+    target = state(-1)
+    got = eng.load(target)
+    out[case] = {"step": None if got is None else got[0],
+                 "values": sorted({float(t[0, 0]) for t in target.values()}),
+                 "tier": eng.last_restore_stats.get("tier")}
+    eng.close(unlink_shm=True)
+
+eng = engine("disagree")
+eng.save_to_storage(2, state(2))
+dist.barrier()
+eng.save_to_memory(4 - rank, state(4 - rank))
+restore(eng, "disagree")
+
+eng = engine("committed")
+eng.save_to_storage(2, state(2))
+dist.barrier()
+eng.save_to_storage(4, state(4))
+dist.barrier()
+eng.close(unlink_shm=True)
+eng = engine("committed")
+if rank == 1:
+    eng.committed_step = lambda: 2
+restore(eng, "committed")
+
+eng = engine("vote", **({} if rank == 0 else
+                        {"dedup": True, "ownership_world": (1, 2)}))
+eng.save_to_storage(2, state(2))
+dist.barrier()
+eng.save_to_memory(6, state(6))
+restore(eng, "vote")
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def gated_restores(tmp_path_factory):
+    root = tmp_path_factory.mktemp("gate")
+    job = f"torch-gate-{uuid.uuid4().hex[:10]}"
+    outs = _run_ranks(GATE, lambda r: [str(root), job])
+    return [json.loads(line.split(" ", 1)[1]) for out in outs
+            for line in out.splitlines() if line.startswith("RESULT ")]
+
+
+def test_restore_ignores_shm_when_staged_steps_disagree(gated_restores):
+    """Rank 0 staged step 4 and rank 1 step 3: neither restores its own
+    segment; both take the committed step 2 from disk."""
+    for res in gated_restores:
+        assert res["disagree"] == {"step": 2, "values": [2.0],
+                                   "tier": "disk"}
+
+
+def test_restore_takes_the_least_committed_step(gated_restores):
+    """Rank 1 read the tracker before the commit of step 4: both restore
+    step 2, the step every rank saw committed."""
+    for res in gated_restores:
+        assert res["committed"]["step"] == 2
+        assert res["committed"]["values"] == [2.0]
+
+
+def test_restore_adopts_a_step_only_when_every_rank_restored_it(
+        gated_restores):
+    """Only rank 0 can restore the staged step 6: both fall back to the
+    committed step 2."""
+    assert len(gated_restores) == 2
+    for res in gated_restores:
+        assert res["vote"] == {"step": 2, "values": [2.0], "tier": "disk"}
 
 
 # -- the sidecar ------------------------------------------------------------------
