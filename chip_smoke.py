@@ -90,10 +90,20 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    worker's), rendezvous again and restart the worker; the second life
    must restore step 2 from shm with every CRC32 equal and train steps
    3-4, a memory save after each, to the first life's losses of steps 3-4
-   within ``CKPT_RESUME_SPREAD_FACTOR`` times the spread of two
-   uninterrupted runs (phase 4's and the save run's). Every flash and fused-CE kernel must launch in each life; the
-   CLI must exit 0 and the master log the job's exit as succeeded with
-   the worker's last reported checkpoint step, 4. No periodic persist
+   bitwise (flash dk/dv sum a GQA group in a fixed order, so a step is
+   the same bits from the same state and batch). Every flash and fused-CE
+   kernel must launch in each life; the CLI must exit 0 and the master log
+   the job's exit as succeeded with the worker's last reported checkpoint
+   step, 4. The master serves ``/metrics`` (``DLROVER_TPU_MASTER_METRICS_PORT``
+   on a free port), read every ``METRICS_POLL_S`` while the CLI runs; the
+   last reading's goodput, downtime total, global step and straggler count
+   are printed beside what the master logs at its exit (the same, its
+   lost-time attribution and its downtime brackets), and checked: one
+   bracket for the kill, opened by the failure report and closed by the
+   second life's first step report, inside the span from the agent's
+   detection to the end of the second life's first step widened by one
+   step report interval on each side (``check_master_downtime``), and no
+   straggler in a one-worker job (``check_master_gauges``). No periodic persist
    runs in this leg: the disk holds one persisted step of the state on
    two tiers, and the breakpoint's is it. The time to recover is printed
    by phase: the kill to the agent's detection, the breakpoint persist,
@@ -135,9 +145,12 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    exits 0 and the master logs the job as succeeded. Prints the lease
    RPCs' median and largest seconds, the kill to the agent's detection,
    the kill to the end of the first re-delivered shard's step, and the
-   second life's start to its first step. Nothing is checkpointed; the
-   job name, logs and socket directory are unique to the run. The phase
-   fails past ``DATA_PHASE_LIMIT_S`` (120 s).
+   second life's start to its first step. The worker reports each step to
+   the master with its step-time digest, and the master's ``/metrics`` and
+   exit line are read and checked as in 4c's elastic leg (the bracket
+   closes at the second life's first shard's step). Nothing is
+   checkpointed; the job name, logs and socket directory are unique to the
+   run. The phase fails past ``DATA_PHASE_LIMIT_S`` (120 s).
 5. reference: a small Llama (head dim 128) and a small ViT (head dim 64,
    100 patches, 300 classes) on the card, bf16 with the kernels, against
    the same weights on the CPU in f32 with the plain versions: loss and
@@ -145,9 +158,31 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 6. output: one JSON line of the kernels, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
+``python3 chip_smoke.py --four-card`` runs the four-card leg instead, on
+four cards of one host (it raises with fewer): builds the kernels, checks
+the host's free disk, /dev/shm and MemAvailable (``check_space``) and
+prints them, then runs ``python -m dlrover_tpu_torch.run.elastic_run
+--standalone --nproc_per_node 4 --max_restarts=1``, its workers
+``chip_smoke.py --ckpt-child four DIR`` (NCCL dp4 of the main path's
+widths, global batch 8, ``run/llama_pretrain.py``'s build, checkpoint and
+data flow on a uint32 corpus from the seed, a memory save every step).
+Each rank's first life trains steps 1-2, saving each, writes the loader's
+sidecar at step 2, then trains steps 3-4 unsaved; rank 3 then SIGKILLs
+itself and the agent persists step 2 at the breakpoint and restarts all
+four; each second life restores step 2 (its own quarter from shm, the
+rest from disk) and trains steps 3-4. ``check_four_card``: the ranks'
+losses equal at every step, each rank's staged bytes a quarter of the
+state (replica-deduplicated staging), one restored step on every rank,
+every leaf's CRC32 equal across the ranks and to the state the first life
+staged, the resumed steps 3-4 bitwise the first life's, every kernel
+launched on every rank in both lives. Prints each step's gradient
+all-reduce (``reduce_ms``), global tokens/s and the time to recover by
+phase; its last line is the contract's, with the cards' count.
+
 Exits with code 2 and prints no result when CUDA is not available.
-``--ckpt-child ROLE DIR`` runs one of phase 4c's children and
-``--data-child shards FILE`` phase 4d's worker (neither is run by hand).
+``--ckpt-child ROLE DIR`` runs one of phase 4c's children or the
+four-card leg's worker and ``--data-child shards FILE`` phase 4d's worker
+(none is run by hand).
 """
 
 import dataclasses
@@ -253,18 +288,7 @@ CE_CASES = [
 ]
 
 
-# flash checkpoint (phase 4c). The resumed run's steps 3-4 against the
-# killed worker's own steps 3-4 from the state it staged: not bitwise, since
-# flash dk/dv add a GQA group's heads by atomics in an order that varies, so
-# the tolerance is this factor times the largest difference between two
-# uninterrupted runs of the same call at steps 3-4 (whose steps 1-2 vary
-# too), and never under the floor (about ten f32 ulps of a loss of 12.6),
-# since one pair's spread may come out zero. The reference is the killed
-# worker's continuation, not another run from step 0, which differs by the
-# atomics of steps 1-2 as well: one pair's spread does not bound that
-# (4.04e-4 against a tolerance of 2.71e-4 in one run on an H100)
-CKPT_RESUME_SPREAD_FACTOR = 4.0
-CKPT_RESUME_LOSS_FLOOR = 1e-5
+# flash checkpoint (phase 4c)
 CKPT_CHILD_TIMEOUT_S = 600
 # seconds the saver gets to copy, fan out and commit a persisted step (at
 # the disk's 0.7-0.9 GB/s, two tiers of 23.1 GB take about a minute)
@@ -295,6 +319,20 @@ DATA_DATASET = "chip-smoke-shards"
 DATA_TIMEOUT_S = 600
 # seconds the whole of phase 4d may take
 DATA_PHASE_LIMIT_S = 120
+# the master's /metrics (phases 4c and 4d): read every METRICS_POLL_S while
+# the CLI runs; the last reading before the master exits is kept
+METRICS_POLL_S = 0.25
+# the four-card leg: four ranks of one host, the main path's widths at
+# global batch 8 (dp4, two microbatches a rank), a corpus of
+# FOUR_CARD_RECORDS sequences; rank FOUR_CARD_KILL_RANK is SIGKILLed after
+# step 4, with step 2 staged. Each rank's staged share of the state must
+# lie within FOUR_CARD_SHARE_TOL of a quarter (leaves split on rows)
+FOUR_CARD_WORLD = 4
+FOUR_CARD_GLOBAL_BATCH = 8
+FOUR_CARD_RECORDS = 64
+FOUR_CARD_KILL_RANK = 3
+FOUR_CARD_SHARE_TOL = 0.02
+FOUR_CARD_TIMEOUT_S = 1500
 # manifests, commit votes and the tracker beside a persisted step's leaves
 CKPT_DISK_SLACK = 64 << 20
 # a PCIe link's transfer rate a lane (GT/s) by generation; gens 1-2 encode
@@ -348,12 +386,16 @@ def ptxas_usage(log):
     return out
 
 
+# kernels a wrapper of KERNELS launches after its own, in the same C call,
+# whose output is that wrapper's and is held with it against the plain
+# version: flash_bwd_dkv's group sum (GQA) adds the query heads' partials
+HELD_BY = {"flash_dkv_sum": "flash_bwd_dkv"}
 # the kernels that run wgmma with TMA loads (HGMMA and UTMALDG in their
 # SASS), and those that must show neither; every kernel is in one of them
 WGMMA_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_q", "fused_ce_bwd_dx",
                  "fused_ce_bwd_dw", "flash_fwd", "flash_bwd_dq",
                  "flash_bwd_dkv")
-NO_WGMMA_KERNELS = ("fused_ce_merge",)
+NO_WGMMA_KERNELS = ("fused_ce_merge", "flash_dkv_sum")
 
 
 def sass_counts(library):
@@ -384,10 +426,10 @@ def sass_counts(library):
 
 
 def check_sass(sass):
-    """Each kernel of KERNELS and CE_KERNELS is in the SASS; every instance
-    of a WGMMA_KERNELS kernel has HGMMA and UTMALDG, every instance of a
-    NO_WGMMA_KERNELS kernel has neither."""
-    for kname in [k for k, _, _ in KERNELS + CE_KERNELS]:
+    """Each kernel of KERNELS, CE_KERNELS and HELD_BY is in the SASS; every
+    instance of a WGMMA_KERNELS kernel has HGMMA and UTMALDG, every
+    instance of a NO_WGMMA_KERNELS kernel has neither."""
+    for kname in [k for k, _, _ in KERNELS + CE_KERNELS] + list(HELD_BY):
         found = {inst: c for inst, c in sass.items()
                  if inst.split("<")[0] == kname}
         check(found, f"{kname}_kernel not in the SASS")
@@ -489,6 +531,31 @@ def compare(got, ref):
     peak = ref.abs().max().item()
     fro = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
     return err, peak, fro
+
+
+def check_dkv_deterministic(torch, attention, case=MAIN_CASE):
+    """flash_bwd_dkv twice on the same inputs at ``case`` (group 4 at the
+    main case): dk and dv must be the same bits both times."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    b, s, h, hkv, d, causal = (case[k] for k in
+                               ("b", "s", "h", "hkv", "d", "causal"))
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), \
+        rnd(b, s, h, d)
+    o, lse = attention.flash_fwd(q, k, v, causal)
+    delta = attention.attention_delta(o, do, torch.zeros_like(lse))
+    runs = [attention.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    print(f"  flash_bwd_dkv twice at group {h // hkv} ({case}): dk bitwise "
+          f"{same[0]}, dv bitwise {same[1]}", flush=True)
+    check(all(same), f"flash_bwd_dkv is not deterministic: dk, dv equal "
+          f"{same}")
 
 
 def phase_kernels(torch, attention):
@@ -1020,6 +1087,138 @@ def check_agent_persist(saves, persist_log, committed):
             entries[0]["fanout_s"])
 
 
+def parse_metrics(text):
+    """{name: value} of a prometheus text body's samples without labels."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#") or "{" in line:
+            continue
+        name, _, value = line.partition(" ")
+        try:
+            out[name] = float(value)
+        except ValueError:
+            continue
+    return out
+
+
+class MetricsPoller:
+    """Reads ``http://127.0.0.1:<port>/metrics`` every METRICS_POLL_S in a
+    thread while it is entered, keeping the last reading (``last``, empty
+    until the master serves)."""
+
+    def __init__(self, port):
+        self.port = port
+        self.last = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        import urllib.request
+
+        url = f"http://127.0.0.1:{self.port}/metrics"
+        while not self._stop.wait(METRICS_POLL_S):
+            try:
+                with urllib.request.urlopen(url, timeout=2) as r:
+                    self.last = parse_metrics(r.read().decode())
+            except OSError:
+                continue
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+MASTER_SUMMARY = re.compile(
+    r"goodput ([0-9.]+), downtime ([0-9.]+)s, global step (-?\d+), "
+    r"stragglers (\[[^\]]*\]); attribution (\{.*\}); downtime brackets "
+    r"(\[.*\])")
+
+
+def master_reading(lines):
+    """What the master logged at its exit (``LocalJobMaster.goodput_
+    summary``): goodput, downtime seconds, global step, straggler ids, the
+    attribution and the closed downtime brackets."""
+    for line in reversed(lines):
+        m = MASTER_SUMMARY.search(line)
+        if m:
+            return {"goodput": float(m.group(1)),
+                    "downtime_s": float(m.group(2)),
+                    "global_step": int(m.group(3)),
+                    "stragglers": json.loads(m.group(4)),
+                    "attribution": json.loads(m.group(5)),
+                    "brackets": json.loads(m.group(6))}
+    raise SmokeFailure("the master logged no goodput summary at its exit")
+
+
+def check_master_downtime(brackets, detected_t, step_end_t, slack_s):
+    """The master's downtime for one kill: one bracket, from the failure
+    report to the second life's first step report, inside the span from
+    the agent's detection to the end of that life's first step, widened by
+    ``slack_s`` (one step report interval) on each side. Returns its
+    seconds."""
+    check(len(brackets) == 1, f"the master closed {len(brackets)} downtime "
+          f"brackets, not one: {brackets}")
+    start, end = brackets[0]
+    lo, hi = detected_t - slack_s, step_end_t + slack_s
+    check(lo <= start <= end <= hi,
+          f"the master's downtime bracket [{start:.3f}, {end:.3f}] is not "
+          f"inside [{lo:.3f}, {hi:.3f}]: the agent's detection to the end of "
+          f"the second life's first step, widened by {slack_s} s")
+    return end - start
+
+
+def check_master_gauges(gauges, reading):
+    """The master's last ``/metrics`` reading and its exit summary: served,
+    goodput in (0, 1], and no straggler flagged (a one-worker job has no
+    fleet to straggle in)."""
+    check(gauges, "the master's /metrics was never read")
+    for label, goodput in (("gauge", gauges.get("dlrover_tpu_master_goodput")),
+                           ("exit", reading["goodput"])):
+        check(goodput is not None and 0.0 < goodput <= 1.0,
+              f"the master's goodput ({label}) is {goodput}")
+    check(gauges.get("dlrover_tpu_master_stragglers") == 0
+          and reading["stragglers"] == [],
+          f"a straggler was flagged in a one-worker job: gauge "
+          f"{gauges.get('dlrover_tpu_master_stragglers')}, exit "
+          f"{reading['stragglers']}")
+
+
+def print_master(label, gauges, reading, bracket_s=None):
+    print(f"  [{label}] the master's last /metrics: goodput "
+          f"{gauges.get('dlrover_tpu_master_goodput')}, downtime total "
+          f"{gauges.get('dlrover_tpu_master_downtime_seconds_total')} s, "
+          f"global step {gauges.get('dlrover_tpu_master_global_step')}, "
+          f"stragglers {gauges.get('dlrover_tpu_master_stragglers')}; at its "
+          f"exit: goodput {reading['goodput']}, downtime "
+          f"{reading['downtime_s']} s, global step {reading['global_step']}, "
+          f"stragglers {reading['stragglers']}, brackets "
+          f"{reading['brackets']}"
+          + ("" if bracket_s is None else
+             f" (the kill's bracket {bracket_s:.3f} s)"), flush=True)
+    print(f"  [{label}] the master's attribution at its exit: "
+          f"{json.dumps(reading['attribution'])}", flush=True)
+
+
+def report_interval():
+    """The seconds between a worker's throttled step reports."""
+    from dlrover_tpu_torch.train import bootstrap
+
+    return bootstrap.WorkerContext(bootstrap.WorkerEnv()).step_report_interval
+
+
+def metrics_env(env):
+    """``env`` with the master's /metrics on a free port; returns it and
+    the port."""
+    from dlrover_tpu_torch.utils.net import find_free_port
+
+    port = find_free_port()
+    return dict(env, DLROVER_TPU_MASTER_METRICS_PORT=str(port)), port
+
+
 def state_crcs(torch, state):
     """The CRC32 of every leaf of a train state under its JAX name, the
     device tensors copied to the host in CRC_CHUNK pieces through a pinned
@@ -1076,11 +1275,11 @@ def manifest_crcs(ckpt_dir, step):
     return {m.path.rsplit("#", 1)[0]: m.crc32 for m in meta.leaves}
 
 
-def unlink_segment(job):
+def unlink_segment(job, process_id=0):
     from dlrover_tpu_torch.checkpoint.shm_handler import (
         SharedMemoryHandler, shm_name)
 
-    h = SharedMemoryHandler(shm_name(job, 0, 0))
+    h = SharedMemoryHandler(shm_name(job, 0, process_id))
     if h.attach():
         h.close(unlink=True)
 
@@ -1173,6 +1372,8 @@ def ckpt_child(role, ckpt_dir):
         return 0
     if role == "elastic":
         return _elastic_life(torch, ckpt_dir)
+    if role == "four":
+        return _four_card_life(torch, ckpt_dir)
     args = _ckpt_args(4, ckpt_dir, 0)
     _, _, state, next_batch, _ = llama_pretrain.build(args)
     torch.cuda.synchronize()
@@ -1219,7 +1420,7 @@ def _elastic_life(torch, ckpt_dir):
             losses.append(loss)
             print(f"step {step + 1} loss {loss:.4f} ({seconds:.3f}s)",
                   flush=True)
-            ctx.report_step(step + 1, force=True)
+            ctx.report_step(step + 1, force=True, digest=trainer.step_digest)
             if step < 2:  # steps 3-4 continue from step 2 unsaved
                 blocking = ckpt.save(step + 1, state)
                 saves.append({"step": step + 1, "blocking_s": blocking,
@@ -1250,7 +1451,7 @@ def _elastic_life(torch, ckpt_dir):
         step_s.append(seconds)
         print(f"step {step + 1} loss {loss:.4f} ({seconds:.3f}s)", flush=True)
         ckpt.save(step + 1, state)
-        ctx.report_step(step + 1, force=True)
+        ctx.report_step(step + 1, force=True, digest=trainer.step_digest)
     ckpt.close()
     print("CKPT_CHILD_JSON " + json.dumps({
         "restore": restore, "crc": crcs, "losses": losses, "step_s": step_s,
@@ -1416,8 +1617,7 @@ def phase_checkpoint(torch, attention, fce, chunked_calls, main_result):
 
         # the elastic restart: a worker killed under the real CLI, its
         # agent and master
-        phase_elastic(workdir, nbytes, [main_result["losses"][2:4],
-                                        losses[2:4]])
+        phase_elastic(workdir, nbytes)
     finally:
         if host is not None:
             host.stop()
@@ -1441,13 +1641,14 @@ def _agent_stamp(lines, marker, pattern):
     raise SmokeFailure(f"the CLI logged no {marker!r} line")
 
 
-def _life_result(job, restart):
-    """The JSON result of the elastic worker's life ``restart``, from its
-    log under the agent's log directory, and the log's other lines."""
+def _life_result(job, restart, rank=0):
+    """The JSON result of worker ``rank``'s life ``restart`` (the elastic
+    leg's or the four-card leg's), from its log under the agent's log
+    directory, and the log's other lines."""
     from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
 
     path = os.path.join(agent_log_dir(job, 0),
-                        f"worker-0-restart{restart}.log")
+                        f"worker-{rank}-restart{restart}.log")
     check(os.path.exists(path), f"no log of life {restart}: {path}")
     result, lines = None, []
     with open(path, errors="replace") as f:
@@ -1460,11 +1661,11 @@ def _life_result(job, restart):
     return result, lines
 
 
-def phase_elastic(workdir, nbytes, uninterrupted):
+def phase_elastic(workdir, nbytes):
     """Phase 4c's elastic leg (module docstring): the CLI, a master and an
     agent of the port, a worker SIGKILLed with step 2 in shm, persisted at
     the breakpoint and restarted from shm; then the breakpoint step from
-    disk. ``uninterrupted``: steps 3-4's losses of two uninterrupted runs."""
+    disk."""
     from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
     from dlrover_tpu_torch.checkpoint.saver import CheckpointPersister
     from dlrover_tpu_torch.common.ipc import default_socket_path
@@ -1473,13 +1674,15 @@ def phase_elastic(workdir, nbytes, uninterrupted):
     job = f"chip_smoke_elastic_{os.getpid()}_{uuid.uuid4().hex[:8]}"
     d_el = os.path.join(workdir, "elastic")
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+    env, metrics_port = metrics_env(dict(
+        os.environ, PYTHONPATH=repo + os.pathsep
+        + os.environ.get("PYTHONPATH", "")))
     cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
            "--standalone", "--nnodes=1", "--nproc_per_node=1",
            "--max_restarts=1", f"--job_name={job}",
            os.path.abspath(__file__), "--", "--ckpt-child", "elastic", d_el]
-    print(f"  [elastic] {' '.join(cmd[1:])}", flush=True)
+    print(f"  [elastic] {' '.join(cmd[1:])} (master /metrics on port "
+          f"{metrics_port})", flush=True)
     lines = []
     try:
         proc = subprocess.Popen(cmd, cwd=repo, env=env, text=True,
@@ -1488,9 +1691,10 @@ def phase_elastic(workdir, nbytes, uninterrupted):
         timer = threading.Timer(ELASTIC_TIMEOUT_S, proc.kill)
         timer.start()
         try:
-            for line in iter(proc.stdout.readline, ""):
-                lines.append(line.rstrip())
-                print(f"  [elastic] {line.rstrip()}", flush=True)
+            with MetricsPoller(metrics_port) as poller:
+                for line in iter(proc.stdout.readline, ""):
+                    lines.append(line.rstrip())
+                    print(f"  [elastic] {line.rstrip()}", flush=True)
         finally:
             timer.cancel()
             proc.kill()
@@ -1544,19 +1748,16 @@ def phase_elastic(workdir, nbytes, uninterrupted):
             for name, n in res["counts"].items():
                 check(n > 0, f"kernel {name} never launched in the {life} "
                       "life")
-        spread = max(abs(a - b) for a, b in zip(*uninterrupted))
-        tol = max(CKPT_RESUME_SPREAD_FACTOR * spread, CKPT_RESUME_LOSS_FLOOR)
         continued = killed["losses"][2:4]
         diff = max(abs(a - b) for a, b in zip(resumed["losses"], continued))
         print(f"  resumed steps 3-4 (step_s {resumed['step_s']}) losses "
               f"{resumed['losses']} vs the first life's own steps 3-4 from "
-              f"the state it staged {continued} (step 3 bitwise: "
-              f"{resumed['losses'][0] == continued[0]}): diff {diff:.3e}, "
-              f"tol {tol:.3e} (max of {CKPT_RESUME_SPREAD_FACTOR} x the "
-              f"spread {spread:.3e} of phase 4's {uninterrupted[0]} and the "
-              f"save run's {uninterrupted[1]}, {CKPT_RESUME_LOSS_FLOOR})",
+              f"the state it staged {continued}: bitwise "
+              f"{resumed['losses'] == continued} (diff {diff:.3e})",
               flush=True)
-        check(diff <= tol, f"resumed losses differ by {diff} > {tol}")
+        check(resumed["losses"] == continued,
+              f"resumed steps 3-4 {resumed['losses']} are not bitwise the "
+              f"first life's {continued} (diff {diff})")
         exit_line = [x for x in lines if "local master exiting:" in x]
         check(exit_line and exit_line[-1].endswith(
             "succeeded; checkpoint steps by node {0: 4}"),
@@ -1582,6 +1783,15 @@ def phase_elastic(workdir, nbytes, uninterrupted):
               f"diagnosis and the rendezvous); its CRC32s "
               f"{resumed['crc_s']:.3f}s (left out of the last phase)",
               flush=True)
+
+        # the master's goodput ledger: its bracket for the kill against
+        # this script's own clock, and no straggler
+        reading = master_reading(lines)
+        bracket_s = check_master_downtime(
+            reading["brackets"], seen_t, resumed["step_end_t"][0],
+            report_interval())
+        check_master_gauges(poller.last, reading)
+        print_master("elastic", poller.last, reading, bracket_s)
 
         # the segment gone (the agent unlinked it at the job's end): step
         # 2 from the breakpoint persist on disk
@@ -1783,6 +1993,7 @@ def data_child(role, path):
         end_t = time.time()
         crc = zlib.crc32(batch.cpu().numpy().tobytes())
         n += 1
+        ctx.report_step(n, force=True, digest=trainer.step_digest)
         _data_emit("shard", task_id=task.task_id, start=task.shard_start,
                    end=task.shard_end, crc=crc, loss=loss, seconds=seconds,
                    end_t=end_t)
@@ -1892,14 +2103,16 @@ def phase_data(torch, attention, fce, chunked_calls, main_result):
         # shard ranges through ShardingClient, killed once and restarted
         t_leg = time.perf_counter()
         repo = os.path.dirname(os.path.abspath(__file__))
-        env = dict(os.environ, PYTHONPATH=repo + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
+        env, metrics_port = metrics_env(dict(
+            os.environ, PYTHONPATH=repo + os.pathsep
+            + os.environ.get("PYTHONPATH", "")))
         cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
                "--standalone", "--nnodes=1", "--nproc_per_node=1",
                "--max_restarts=1", f"--job_name={job}",
                os.path.abspath(__file__), "--", "--data-child", "shards",
                path]
-        print(f"  [shards] {' '.join(cmd[1:])}", flush=True)
+        print(f"  [shards] {' '.join(cmd[1:])} (master /metrics on port "
+              f"{metrics_port})", flush=True)
         lines = []
         proc = subprocess.Popen(cmd, cwd=repo, env=env, text=True,
                                 stdout=subprocess.PIPE,
@@ -1907,9 +2120,10 @@ def phase_data(torch, attention, fce, chunked_calls, main_result):
         timer = threading.Timer(DATA_TIMEOUT_S, proc.kill)
         timer.start()
         try:
-            for line in iter(proc.stdout.readline, ""):
-                lines.append(line.rstrip())
-                print(f"  [shards] {line.rstrip()}", flush=True)
+            with MetricsPoller(metrics_port) as poller:
+                for line in iter(proc.stdout.readline, ""):
+                    lines.append(line.rstrip())
+                    print(f"  [shards] {line.rstrip()}", flush=True)
         finally:
             timer.cancel()
             proc.kill()
@@ -1974,6 +2188,11 @@ def phase_data(torch, attention, fce, chunked_calls, main_result):
               f"{'n/a' if redelivered_t is None else f'{redelivered_t - kill_t:.3f} s'}"
               f"; the second life's start (the agent's) to the end of its "
               f"first step {first_step_t - start_t:.3f} s", flush=True)
+        reading = master_reading(lines)
+        bracket_s = check_master_downtime(reading["brackets"], seen_t,
+                                          first_step_t, report_interval())
+        check_master_gauges(poller.last, reading)
+        print_master("shards", poller.last, reading, bracket_s)
         print(f"  shard leg: {time.perf_counter() - t_leg:.1f}s", flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2055,6 +2274,299 @@ def phase_reference_vit(torch):
                  lambda p, b: vit.loss_fn(p, b, cfg_bf16))
 
 
+def check_four_card(first, second, nbytes, world=FOUR_CARD_WORLD):
+    """The four-card leg's checks over each rank's result (indexed by rank)
+    of the first and the second life: the ranks' losses equal at every
+    step of each life; each rank's staged bytes within
+    FOUR_CARD_SHARE_TOL of ``nbytes / world`` and the shares together the
+    state (plus its scalars' few bytes); every rank restored step 2, every
+    leaf's CRC32 equal across the ranks and to the state the first life
+    staged (the same on every rank); the resumed steps 3-4 bitwise the
+    first life's; every kernel launched on every rank in both lives."""
+    for label, life in (("first", first), ("second", second)):
+        check([r["rank"] for r in life] == list(range(world)),
+              f"the {label} life's ranks: {[r['rank'] for r in life]}")
+        losses = [[st["loss"] for st in r["steps"]] for r in life]
+        check(all(x == losses[0] for x in losses),
+              f"the ranks' losses differ in the {label} life: {losses}")
+        for r in life:
+            for name, n in r["counts"].items():
+                check(n > 0, f"kernel {name} never launched on rank "
+                      f"{r['rank']} in the {label} life")
+    staged = [r["stage"]["staged_bytes"] for r in first]
+    check(nbytes <= sum(staged) <= nbytes + 64,
+          f"the ranks staged {sum(staged)} bytes in all, not the state's "
+          f"{nbytes}")
+    for r, b in zip(first, staged):
+        check(abs(b * world / nbytes - 1) <= FOUR_CARD_SHARE_TOL,
+              f"rank {r['rank']} staged {b} bytes, not about 1/{world} of "
+              f"{nbytes}")
+    for r in first:
+        compare_crcs(first[0]["crc"], r["crc"],
+                     f"the state rank {r['rank']} staged against rank 0's")
+    restored = [r["restore"]["step"] for r in second]
+    check(restored == [2] * world, f"the ranks restored steps {restored}")
+    for r in second:
+        compare_crcs(first[0]["crc"], r["crc"],
+                     f"rank {r['rank']}'s restore against the staged state")
+    continued = [st["loss"] for st in first[0]["steps"]][2:4]
+    resumed = [st["loss"] for st in second[0]["steps"]]
+    check(resumed == continued, f"resumed steps 3-4 {resumed} are not "
+          f"bitwise the first life's {continued}")
+
+
+def _four_card_args(ckpt_dir):
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    return llama_pretrain.parse_args([
+        "--model", "8b", "--layers", "4", "--seq", str(DATA_SEQ),
+        "--micro-batch", "1", "--global-batch", str(FOUR_CARD_GLOBAL_BATCH),
+        "--steps", "4", "--device", "cuda", "--seed", "0", "--data",
+        os.path.join(os.path.dirname(ckpt_dir), "corpus.bin"),
+        "--data-dtype", "uint32", "--ckpt-dir", ckpt_dir,
+        "--save-every", "0"])
+
+
+def _four_card_life(torch, ckpt_dir):
+    """One rank of the four-card leg, in the agent's environment (module
+    docstring): ``run/llama_pretrain.py``'s build, checkpoint and data flow
+    at dp4. First life: steps 1-2 with a memory save after each and the
+    loader's sidecar at step 2, the CRC32 of every leaf of the staged
+    state, a barrier, then steps 3-4 unsaved; rank FOUR_CARD_KILL_RANK then
+    SIGKILLs itself and the others wait for the agent. Second life:
+    restores step 2 and the loader, the CRC32s, steps 3-4 with a memory
+    save after each. Each life prints one JSON result."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.train import bootstrap
+
+    t_start = time.time()
+    _reset_counts(attention, fce, [0])
+    ctx = bootstrap.init()
+    rank = bootstrap.process_index()
+    check(bootstrap.process_count() == FOUR_CARD_WORLD,
+          f"a world of {bootstrap.process_count()}, not {FOUR_CARD_WORLD}")
+    args = _four_card_args(ckpt_dir)
+    device = (f"cuda:{ctx.local_rank}" if args.device == "cuda"
+              else args.device)
+    cfg, trainer, state, _, tokens = llama_pretrain.build(args, device)
+    torch.cuda.synchronize()
+    ckpt, start, restore = llama_pretrain.open_checkpoint(args, state, None)
+    batches, positions, loader_restored = llama_pretrain.open_data(
+        args, cfg, trainer, args.seq, device,
+        None if restore is None else start)
+    first = os.environ["DLROVER_TPU_RESTART_COUNT"] == "0"
+    result = {"rank": rank, "start_t": t_start, "tokens_per_step": tokens,
+              "restore": restore, "loader_restored": loader_restored}
+    if first:
+        check(restore is None, f"the first life restored {restore}")
+    else:
+        result["restored_t"] = time.time()
+        check(restore is not None, "the second life restored nothing")
+        result["crc"] = state_crcs(torch, state)
+        result["crc_s"] = time.time() - result["restored_t"]
+    steps = []
+    for step in range(start, args.steps):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        wait = time.perf_counter() - t0
+        loader_pos = positions.popleft()
+        state, loss, seconds = llama_pretrain.timed_step(trainer, state,
+                                                         batch)
+        begin, end = trainer.reduce_events
+        steps.append({"step": step + 1, "loss": loss, "seconds": seconds,
+                      "reduce_ms": begin.elapsed_time(end),
+                      "end_t": time.time()})
+        print(f"rank {rank} step {step + 1} loss {loss:.6f} "
+              f"({seconds:.3f}s, all-reduce {steps[-1]['reduce_ms']:.2f} "
+              f"ms)", flush=True)
+        ctx.add_input_wait(wait)
+        ctx.report_step(step + 1, force=True, digest=trainer.step_digest)
+        if first and step >= 2:
+            continue  # steps 3-4 continue from step 2 unsaved
+        ckpt.save(step + 1, state)
+        if first and step + 1 == 2:
+            llama_pretrain.write_sidecar(
+                llama_pretrain.sidecar_path(ckpt_dir, rank), 2, loader_pos)
+            ckpt.wait_staging()
+            result["stage"] = ckpt.stage_log[-1]
+            result["crc"] = state_crcs(torch, state)
+            dist.barrier()  # every rank has step 2 staged
+    result["steps"] = steps
+    result["counts"] = _launch_counts(attention, fce)
+    if first:
+        if rank == FOUR_CARD_KILL_RANK:
+            result["kill_t"] = time.time()
+        print("CKPT_CHILD_JSON " + json.dumps(result), flush=True)
+        if rank == FOUR_CARD_KILL_RANK:
+            os.kill(os.getpid(), signal.SIGKILL)
+        time.sleep(FOUR_CARD_TIMEOUT_S)  # the agent stops this process
+        return 1
+    ckpt.close()
+    print("CKPT_CHILD_JSON " + json.dumps(result), flush=True)
+    return 0
+
+
+def main_four_card():
+    """The four-card leg (module docstring)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+    from dlrover_tpu_torch.checkpoint.shm_handler import HEADER_SPACE
+    from dlrover_tpu_torch.common.ipc import default_socket_path
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import cuda_build
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    t_start = time.perf_counter()
+    print("== four-card leg: devices", flush=True)
+    count = torch.cuda.device_count()
+    if count < FOUR_CARD_WORLD:
+        raise SmokeFailure(f"--four-card needs {FOUR_CARD_WORLD} cards; "
+                           f"this host has {count}")
+    name = torch.cuda.get_device_name(0)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print("  " + out.stdout.strip().replace("\n", "\n  "), flush=True)
+    print("== build", flush=True)
+    print(f"  nvcc seconds: {cuda_build.build(cuda_build.sources())}",
+          flush=True)
+    print("== the four-card leg: NCCL dp4, a kill and a restore", flush=True)
+    n_params = llama.param_count(llama_pretrain.model_config("8b", 4))
+    nbytes = ckpt_state_bytes(n_params)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_four_")
+    job = f"chip_smoke_four_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    ckpt_dir = os.path.join(workdir, "ck")
+    try:
+        for cmd in (["df", "-B1", "/dev/shm"], ["df", "-B1", workdir]):
+            out = subprocess.run(cmd, capture_output=True, text=True)
+            print("  " + out.stdout.strip().replace("\n", "\n  "),
+                  flush=True)
+        with open("/proc/meminfo") as f:
+            print("  " + [x for x in f if x.startswith("MemAvailable")][0]
+                  .strip(), flush=True)
+        shm_free = check_space("/dev/shm",
+                               nbytes + FOUR_CARD_WORLD * HEADER_SPACE, "shm")
+        disk_free = check_space(workdir, ckpt_disk_peak(nbytes), "disk")
+        print(f"  state {n_params} params, {nbytes} bytes, a quarter a "
+              f"rank staged; shm free {shm_free}, disk free {disk_free} "
+              f"(peak need {ckpt_disk_peak(nbytes)})", flush=True)
+        write_corpus(os.path.join(workdir, "corpus.bin"),
+                     records=FOUR_CARD_RECORDS)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
+               "--standalone", "--nnodes=1",
+               f"--nproc_per_node={FOUR_CARD_WORLD}", "--max_restarts=1",
+               f"--job_name={job}", os.path.abspath(__file__), "--",
+               "--ckpt-child", "four", ckpt_dir]
+        print(f"  [four] {' '.join(cmd[1:])}", flush=True)
+        lines = []
+        proc = subprocess.Popen(cmd, cwd=repo, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        timer = threading.Timer(FOUR_CARD_TIMEOUT_S, proc.kill)
+        timer.start()
+        try:
+            for line in iter(proc.stdout.readline, ""):
+                lines.append(line.rstrip())
+                print(f"  [four] {line.rstrip()}", flush=True)
+        finally:
+            timer.cancel()
+            proc.kill()
+            proc.wait(timeout=60)
+        lives = []
+        for restart in (0, 1):
+            life = []
+            for rank in range(FOUR_CARD_WORLD):
+                res, log = _life_result(job, restart, rank)
+                for line in log:
+                    print(f"  [four life {restart} rank {rank}] {line}",
+                          flush=True)
+                life.append(res)
+            lives.append(life)
+        first, second = lives
+        check(proc.returncode == 0,
+              f"the four-card CLI exited {proc.returncode}, not 0")
+        exit_line = [x for x in lines if "local master exiting:" in x]
+        check(exit_line and "local master exiting: succeeded" in
+              exit_line[-1], f"the master's exit: {exit_line}")
+        check_four_card(first, second, nbytes)
+        for r in first:
+            print(f"  rank {r['rank']} staged {r['stage']['staged_bytes']} "
+                  f"bytes of {nbytes} (skipped replica bytes "
+                  f"{r['stage']['skipped_replica_bytes']}), pause "
+                  f"{r['stage']['pause_s']:.4f} s, stage "
+                  f"{r['stage']['stage_s']:.3f} s", flush=True)
+        for r in second:
+            print(f"  rank {r['rank']} restored step {r['restore']['step']} "
+                  f"by tier {r['restore']['tier']} (rungs "
+                  f"{r['restore']['tiers_read']}) in "
+                  f"{r['restore']['seconds']:.3f} s, {r['restore']['bytes']} "
+                  f"bytes; loader from step {r['loader_restored']}",
+                  flush=True)
+        print(f"  every rank's losses equal at every step; every leaf's "
+              f"CRC32 ({len(first[0]['crc'])} leaves) equal across the "
+              f"ranks after the restore and to the staged state; resumed "
+              f"steps 3-4 bitwise the first life's; every kernel on every "
+              f"rank in both lives", flush=True)
+        tokens = first[0]["tokens_per_step"]
+        for label, life in (("first", first), ("second", second)):
+            for i, st in enumerate(life[0]["steps"]):
+                wall = max(r["steps"][i]["seconds"] for r in life)
+                print(f"  [{label} life] step {st['step']}: loss "
+                      f"{st['loss']:.6f}, reduce_ms "
+                      f"{[round(r['steps'][i]['reduce_ms'], 3) for r in life]}"
+                      f", slowest rank {wall:.3f} s, global tokens/s "
+                      f"{tokens / wall:.1f}", flush=True)
+        killed = first[FOUR_CARD_KILL_RANK]
+        seen_t = _agent_stamp(lines, "node 0: worker failed (exit -9)",
+                              r"seen at ([0-9.]+)")
+        persist_s = _agent_stamp(lines, "node 0: breakpoint persist True",
+                                 r"in ([0-9.]+)s")
+        rdzv_s = _agent_stamp(lines, "node 0: rendezvous round 2 in",
+                              r"in ([0-9.]+)s")
+        start_t = _agent_stamp(lines, "worker-0-restart1.log",
+                               r" at ([0-9.]+) log=")
+        lead = second[0]
+        restored_t = max(r["restored_t"] for r in second)
+        step3_t = max(r["steps"][0]["end_t"] - r["crc_s"] for r in second)
+        phases = {
+            "kill_to_detection_s": seen_t - killed["kill_t"],
+            "breakpoint_persist_s": persist_s,
+            "rendezvous_s": rdzv_s,
+            "worker_start_to_restore_s": restored_t - start_t,
+            "restore_to_step3_end_s": step3_t - restored_t,
+        }
+        print(f"  time to recover: {step3_t - killed['kill_t']:.3f}s from "
+              f"the kill to the end of step 3 on the slowest rank; by phase "
+              f"{json.dumps(phases)}; rank 0's restore "
+              f"{lead['restore']['seconds']:.3f}s", flush=True)
+        print(f"  [four] the master at its exit: "
+              f"{json.dumps(master_reading(lines))}", flush=True)
+    finally:
+        for pid in range(FOUR_CARD_WORLD):
+            unlink_segment(job, pid)
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(agent_log_dir(job, 0)),
+                      ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
+    print(f"== done in {time.perf_counter() - t_start:.1f}s", flush=True)
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+    return 0
+
+
 def main():
     import torch
 
@@ -2104,6 +2616,7 @@ def main():
     for src in cuda_build.sources():
         sass.update(sass_counts(cuda_build.library_path(src)))
     check_sass(sass)
+    check_dkv_deterministic(torch, attention)
 
     print("== phase 3: kernels against their plain versions", flush=True)
     errors, inputs = phase_kernels(torch, attention)
@@ -2197,6 +2710,8 @@ if __name__ == "__main__":
             sys.exit(ckpt_child(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--data-child"]:
             sys.exit(data_child(*sys.argv[2:4]))
+        if sys.argv[1:2] == ["--four-card"]:
+            sys.exit(main_four_card())
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)

@@ -119,14 +119,20 @@ class MasterClient:
             policy=rpc_policy.RELAUNCH_TOLERANT,
         )
 
-    def report_global_step(self, step: int, timestamp: float = 0.0):
-        """The worker's step (the JAX report's digest and comm split wait
-        for the tracing slice)."""
+    def report_global_step(
+        self,
+        step: int,
+        digest: Optional[Dict] = None,
+        timestamp: float = 0.0,
+    ):
+        """The worker's step and its window of the step-time digest (the
+        JAX report's comm split waits for the profiler slice)."""
         return self._client.report(
             msg.GlobalStepReport(
                 node_id=self.node_id,
                 step=step,
                 timestamp=timestamp or time.time(),
+                digest=dict(digest) if digest else {},
             )
         )
 

@@ -26,8 +26,13 @@ allocator's reserved-but-free bytes, with a 1.15 slack) the save blocks
 for the device-to-host copy instead (``last_stage_mode`` "host_gather").
 
 Replica-deduplicated staging (``DLROVER_TPU_CKPT_DEDUP``, default on):
-rank ``r`` of a data-parallel group of ``w`` (``ownership_world``) stages
-only the pieces ownership.py assigns it; a restore reads the union.
+rank ``r`` of the ``w`` processes of the default process group
+(``bootstrap.process_index()`` / ``process_count()``, as the JAX engine
+takes jax's process index and count; ``ownership_world`` overrides both)
+stages only the pieces ownership.py assigns it, about ``1/w`` of a
+replicated state, and its saver persists that share; a restore reads the
+union: this process's shm pieces, then the tiers on disk for the rest. A
+world of one stages everything.
 
 Restore is the JAX package's tier ladder, each rung adding the pieces the
 rungs before it were missing: tier 0, shm (this process's segment); tier
@@ -36,12 +41,18 @@ node's manifests). Disk and object pieces are CRC-verified, and a corrupt
 piece is dropped for the next rung to supply. A restore by target writes
 into the target's tensors in place, on their device (host to device from
 the registered segment, for the shm tier), so ``requires_grad`` leaves and
-the trainer's buffers survive; a leaf the tiers cannot cover fails the
-whole restore (None) before any tensor is touched. Across the processes
+the trainer's buffers survive. It runs in two steps: a check, which finds
+each target leaf's pieces and proves that they cover it (the plan) and
+touches no tensor, then the placement of that plan. Across the processes
 of the default process group, as the JAX engine across hosts: the shm tier
 counts only when every process staged the same step, the committed step is
-the least any process read, and a step is adopted only when every process
-restored it, so no two ranks resume from different steps.
+the least any process read, and a step is adopted only when every
+process's check passed, so no two ranks resume from different steps. A
+candidate any process cannot cover is dropped before anything is placed,
+so a failed restore (None) leaves every tensor as it was, on every
+process; the JAX engine gets the same by building each candidate as fresh
+arrays. The plan of the shm tier holds views of the segment, which stays
+mapped until the placement has copied from it.
 
 The agent's saver. When an ``AsyncCheckpointSaver`` (saver.py) listens on
 the node's socket (common/ipc.py), a stage runs under its shm lock, from
@@ -391,17 +402,20 @@ class CheckpointEngine:
     # -- save ---------------------------------------------------------------
 
     def _ownership_info(self) -> Optional[Tuple[int, int]]:
-        """(rank, world) when replica-deduplicated staging applies. Only
-        ``ownership_world`` gives a world above 1: the data-parallel
-        processes of ``run/llama_pretrain.py`` pass none, so each stages
-        its whole replica of the state."""
+        """(rank, world) when replica-deduplicated staging applies, else
+        None. Real worlds partition by process (the default process
+        group's rank and size); the ``ownership_world`` override simulates
+        N ranks from one process (tests)."""
         enabled = (
             bool(self._dedup) if self._dedup is not None
             else flags.CKPT_DEDUP.get()
         )
-        if not enabled or self._ownership_world is None:
+        if not enabled:
             return None
-        rank, world = self._ownership_world
+        if self._ownership_world is not None:
+            rank, world = self._ownership_world
+        else:
+            rank, world = bootstrap.process_index(), bootstrap.process_count()
         return (int(rank), int(world)) if world > 1 else None
 
     def _plan(self, state) -> Tuple[List[_Stage], List[str], Dict[str, Any]]:
@@ -820,22 +834,23 @@ class CheckpointEngine:
             candidates.append(committed)
         # The candidates are now equal everywhere; one process may still
         # cover a step from its tiers while another cannot, so each
-        # attempt is adopted only when every process restored it.
+        # attempt's check is voted on, and its plan placed only when every
+        # process's check passed.
         for step in candidates:
-            result = self._restore_step_tiered(
+            found = self._restore_step_tiered(
                 step, target, shm_meta if step == shm_step else None
             )
             if many:
-                oks = bootstrap.process_allgather(int(result is not None))
+                oks = bootstrap.process_allgather(int(found is not None))
                 if not all(oks):
-                    if result is not None:
+                    if found is not None:
                         logger.warning(
                             "step %s restorable here but not on %d peer "
                             "process(es); discarding for the next "
                             "candidate", step, oks.count(0))
-                    result = None
-            if result is not None:
-                return result
+                    found = None
+            if found is not None:
+                return self._adopt(found, target)
         if candidates:
             # coverage gaps after the last rung mean lost pieces; a
             # partial state is the one outcome worse than no restore
@@ -845,6 +860,22 @@ class CheckpointEngine:
                 candidates,
             )
         return None
+
+    def _adopt(self, found, target):
+        """Apply a candidate every process can restore: place its plan into
+        the target (a target restore) or return its rebuilt state."""
+        step, state, stats = found
+        from_shm = stats.pop("from_shm")
+        if target is not None:
+            stats = {**self._place(state, from_shm), **stats}
+            state = target
+        self.last_restore_stats = stats
+        logger.info(
+            "restored step %s via tier %s (%d pieces, %d bytes, rungs "
+            "read: %s)", step, stats["tier"], stats["pieces"],
+            stats["bytes"], stats["tiers_read"],
+        )
+        return step, state
 
     def _merge_tier_pieces(
         self, storage, sdir: str, step: int, pieces, seen, expected
@@ -919,9 +950,11 @@ class CheckpointEngine:
         return added_p, added_b
 
     def _restore_step_tiered(self, step: int, target, shm_meta):
-        """Accumulate pieces of ``step`` rung by rung, trying to assemble
+        """Accumulate pieces of ``step`` rung by rung, checking coverage
         after every rung that contributed; the deepest rung read is the
-        restore's tier."""
+        restore's tier. Returns ``(step, found, stats)`` or None: ``found``
+        is the placement plan of a target restore (nothing written yet),
+        else the rebuilt ``{leaf name: CPU tensor}``."""
         pieces: Dict[str, List[Piece]] = {}
         seen: set = set()
         expected: List[str] = []  # full leaf list, manifest flatten order
@@ -931,23 +964,15 @@ class CheckpointEngine:
         def attempt():
             if not pieces:
                 return None
-            return self._assemble(step, pieces, target,
-                                  expected_paths=expected or None,
-                                  from_shm="shm" in contributed)
+            return self._check(pieces, target,
+                               expected_paths=expected or None)
 
-        def success(result):
-            stats = self.last_restore_stats if target is not None else {}
-            stats["tier"] = contributed[-1]
-            stats["tiers_read"] = list(contributed)
-            stats["pieces"] = total_p
-            stats["bytes"] = total_b
-            self.last_restore_stats = stats
-            logger.info(
-                "restored step %s via tier %s (%d pieces, %d bytes, rungs "
-                "read: %s)", step, stats["tier"], total_p, total_b,
-                contributed,
-            )
-            return result
+        def success(found):
+            return step, found, {
+                "tier": contributed[-1], "tiers_read": list(contributed),
+                "pieces": total_p, "bytes": total_b,
+                "from_shm": "shm" in contributed,
+            }
 
         # tier 0: this process's shm segment
         if shm_meta is not None and shm_meta.step == step:
@@ -1009,20 +1034,20 @@ class CheckpointEngine:
             )
         return pieces
 
-    def _assemble(
-        self, step, pieces: Dict[str, List[Piece]], target,
-        expected_paths: Optional[List[str]] = None, from_shm: bool = False,
+    def _check(
+        self, pieces: Dict[str, List[Piece]], target,
+        expected_paths: Optional[List[str]] = None,
     ):
-        """Rebuild the state from pieces. With a ``target`` every leaf is
-        checked first (shape, and that the pieces cover it) and only then
-        written in place; otherwise a flat
-        ``{leaf name: CPU tensor}`` in the manifest's order.
+        """Whether the pieces restore the state. With a ``target``: every
+        leaf is checked (shape, and that the pieces cover it) and the plan
+        ``[(leaf, its pieces)]`` returned, no tensor touched; otherwise a
+        flat ``{leaf name: CPU tensor}`` in the manifest's order, built
+        from copies. None when they do not.
 
         ``expected_paths``: the checkpoint's full leaf list. A target leaf
         in it with no pieces is missing data (None, so the caller reads
         the next tier), while a leaf outside it was never saved and keeps
-        its target value. ``from_shm``: some pieces are views of the
-        segment."""
+        its target value."""
         expected_set = set(expected_paths) if expected_paths else None
         if target is not None:
             plan = []
@@ -1054,8 +1079,7 @@ class CheckpointEngine:
                                 "falling back to storage", leaf.name)
                     return None
                 plan.append((leaf, plist))
-            self.last_restore_stats = self._place(plan, from_shm)
-            return step, target
+            return plan
         if expected_set is not None:
             missing = [p for p in expected_paths if p not in pieces]
             if missing:
@@ -1079,7 +1103,7 @@ class CheckpointEngine:
                 full[ownership.ranges_to_index(index)] = decode(
                     data.clone(), dt, extent)
             out[path] = full
-        return step, out
+        return out
 
     def _place(self, plan: List[Tuple[Leaf, List[Piece]]],
                from_shm: bool) -> Dict[str, Any]:

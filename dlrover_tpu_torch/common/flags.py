@@ -43,6 +43,10 @@ class EnvFlag:
                            self.name, raw, kind.__name__, self.default)
             return self.default
 
+    def present(self) -> bool:
+        """The variable is set to a non-empty value."""
+        return os.environ.get(self.name, "") != ""
+
 
 CHUNKED_CE = EnvFlag(
     "DLROVER_TPU_CHUNKED_CE", True,
@@ -144,4 +148,22 @@ SHARD_LEASE_COUNT = EnvFlag(
 PARAL_CONFIG_PATH = EnvFlag(
     "DLROVER_TPU_PARAL_CONFIG_PATH", "",
     "Path of the master-pushed runtime parallel-config JSON file.",
+)
+
+# -- the master's monitors (master/monitor/, master/metrics.py)
+
+STRAGGLER_RATIO = EnvFlag(
+    "DLROVER_TPU_STRAGGLER_RATIO", 1.5,
+    "Straggler policy (master/monitor/straggler.py): a rank is slow "
+    "when its windowed step-time p50 exceeds ratio x the fleet median.",
+)
+STRAGGLER_WINDOWS = EnvFlag(
+    "DLROVER_TPU_STRAGGLER_WINDOWS", 3,
+    "Consecutive slow digest windows before a rank is flagged as a "
+    "straggler (and a StragglerRecord enters the diagnosis pipeline).",
+)
+MASTER_METRICS_PORT = EnvFlag(
+    "DLROVER_TPU_MASTER_METRICS_PORT", 0,
+    "Master /metrics port (goodput, RPC queue depth + shed counters, "
+    "straggler count; 0 = ephemeral port; unset = disabled).",
 )

@@ -2,21 +2,26 @@
 own copy of dlrover_tpu/master/local_master.py.
 
 It wires the servicer, the training and network-check rendezvous managers,
-the KV store, the sync service, the data-sharding task manager (its queue in
+the KV store, the sync service, the speed monitor (goodput, downtime and
+stragglers, handed to the servicer, the job manager and the task manager
+as the JAX master hands it), the data-sharding task manager (its queue in
 memory) and the local job manager with its error monitor onto one port of
-the port's transport (rpc/transport.py), and ``run`` decides the job's
-exit. The JAX master also wires the speed monitor, state store, metric
-collector, diagnosis manager, goodput planner, auto-scaler and hang
-watchdog; the servicer and job manager skip each one that is absent, and
-each waits in ROADMAP.md.
+the port's transport (rpc/transport.py), serves ``/metrics`` under
+``DLROVER_TPU_MASTER_METRICS_PORT`` (master/metrics.py), and ``run``
+decides the job's exit and logs the goodput attribution. The JAX master
+also wires the state store, metric collector, diagnosis manager, goodput
+planner, auto-scaler and hang watchdog; the servicer and job manager skip
+each one that is absent, and each waits in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import json
 import time
 
 from dlrover_tpu_torch.common.constants import JobExitReason, RendezvousName
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.master import metrics as master_metrics
 from dlrover_tpu_torch.master.job_container import JobContainer
 from dlrover_tpu_torch.master.monitor.error_monitor import ErrorMonitor
 from dlrover_tpu_torch.master.node.job_manager import LocalJobManager
@@ -42,7 +47,9 @@ class LocalJobMaster:
         # per-job state container: a fresh master gets a fresh container
         self.container = JobContainer()
         ctx = self.container.job_context
-        self.task_manager = TaskManager()
+        self.speed_monitor = self.container.speed_monitor
+        self.speed_monitor.set_target_worker_num(node_num)
+        self.task_manager = TaskManager(speed_monitor=self.speed_monitor)
         self.error_monitor = ErrorMonitor()
         self.rdzv_managers = {
             RendezvousName.TRAINING: ElasticTrainingRendezvousManager(
@@ -53,6 +60,7 @@ class LocalJobMaster:
             ),
         }
         self.job_manager = LocalJobManager(
+            speed_monitor=self.speed_monitor,
             heartbeat_timeout=heartbeat_timeout,
             error_monitor=self.error_monitor,
             rdzv_managers=self.rdzv_managers,
@@ -72,6 +80,7 @@ class LocalJobMaster:
         self.servicer = MasterServicer(
             task_manager=self.task_manager,
             job_manager=self.job_manager,
+            speed_monitor=self.speed_monitor,
             rdzv_managers=self.rdzv_managers,
             kv_store=self.kv_store,
             sync_service=self.sync_service,
@@ -85,11 +94,14 @@ class LocalJobMaster:
         # as alive
         self.job_manager.attach_gate(self._server.gate)
         self.port = self._server.port
+        self._metrics_server = None
         self._exit_code = 0
         self._exit_reason = ""
 
     def prepare(self):
         self._server.start()
+        self._metrics_server = master_metrics.maybe_start(
+            self._server, self.speed_monitor)
         self.task_manager.start()
         self.job_manager.start()
         logger.info("local master serving on port %s", self.port)
@@ -114,6 +126,7 @@ class LocalJobMaster:
                         break
         finally:
             self.stop()
+        logger.info(goodput_summary(self.speed_monitor))
         logger.info(
             "local master exiting: %s; checkpoint steps by node %s",
             self._exit_reason, self.container.job_context.ckpt_steps(),
@@ -123,7 +136,23 @@ class LocalJobMaster:
     def stop(self):
         self.task_manager.stop()
         self.job_manager.stop()
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
         self._server.stop(grace=1)
+
+
+def goodput_summary(speed_monitor) -> str:
+    """A speed monitor's reading, one line: goodput, downtime seconds,
+    global step, straggler ids, the lost-time attribution and the closed
+    downtime brackets as ``[start, end]`` epoch seconds."""
+    sm = speed_monitor
+    brackets = [[e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6]
+                for e in sm.trace_events()]
+    return (f"goodput {sm.goodput():.6f}, downtime "
+            f"{sm.total_downtime():.3f}s, global step "
+            f"{sm.completed_global_step}, stragglers {sm.stragglers()}; "
+            f"attribution {json.dumps(sm.attribution())}; downtime brackets "
+            f"{json.dumps(brackets)}")
 
 
 def start_local_master(

@@ -3,9 +3,9 @@ of dlrover_tpu/master/node/job_context.py.
 
 Thread-safe: the servicer's handler threads and the heartbeat monitor all
 touch it. Beside the JAX package's registry it keeps each node's last
-reported checkpoint step (``CheckpointStepReport``): the JAX master hands
-that report to its speed monitor, which the port does not have yet, and
-the port's master states the steps it holds when it exits.
+reported checkpoint step (``CheckpointStepReport``), which the port's
+master states when it exits: the JAX master hands only the report's
+blocking seconds to its speed monitor, which keeps no step.
 """
 
 from __future__ import annotations

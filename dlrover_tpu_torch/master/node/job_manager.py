@@ -4,8 +4,9 @@ the heartbeat evictor and ``LocalJobManager``, the standalone variant (the
 k8s-distributed one waits for ``dist_master``).
 
 An evicted node's data shards go back in the task manager's queue
-(``attach_task_manager``). The JAX managers also feed the speed monitor;
-that hook waits for it (ROADMAP.md).
+(``attach_task_manager``). The speed monitor, when wired, learns each
+running worker as it joins, leaves or is evicted, as the JAX managers
+feed it.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ from dlrover_tpu_torch.master.node.status_flow import get_node_state_flow
 class JobManager(ABC):
     """Shared API the servicer and master loop program against."""
 
-    def __init__(self, error_monitor=None, job_context=None):
+    def __init__(self, speed_monitor=None, error_monitor=None,
+                 job_context=None):
+        self._speed_monitor = speed_monitor
         self._error_monitor = error_monitor
         # the per-job context (the master's JobContainer slot)
         self._job_context = (
@@ -252,6 +255,7 @@ class LocalJobManager(JobManager):
 
     def __init__(
         self,
+        speed_monitor=None,
         heartbeat_timeout: float = DefaultValues.SEC_HEARTBEAT_TIMEOUT,
         error_monitor=None,
         rdzv_managers=None,
@@ -259,7 +263,8 @@ class LocalJobManager(JobManager):
         clock=None,
         job_context=None,
     ):
-        super().__init__(error_monitor, job_context=job_context)
+        super().__init__(speed_monitor, error_monitor,
+                         job_context=job_context)
         self._heartbeat_timeout = heartbeat_timeout
         # rendezvous managers, when wired, get a dead node's waiting
         # slot released at eviction so a pending round stops stalling
@@ -290,6 +295,8 @@ class LocalJobManager(JobManager):
         node.update_status(NodeStatus.RUNNING)
         node.update_heartbeat(self._clock())
         self._job_context.update_node(node)
+        if self._speed_monitor is not None:
+            self._speed_monitor.add_running_worker(node_type, node_id)
         return node
 
     def get_or_register_node(self, node_type: str, node_id: int) -> Node:
@@ -315,6 +322,8 @@ class LocalJobManager(JobManager):
             )
             node.exit_reason = ""
             node.update_status(NodeStatus.RUNNING)
+            if self._speed_monitor is not None:
+                self._speed_monitor.add_running_worker(node_type, node_id)
         return super().collect_node_heartbeat(node_type, node_id, ts)
 
     def handle_node_succeeded(self, node_type: str, node_id: int):
@@ -332,6 +341,9 @@ class LocalJobManager(JobManager):
         if flow is None:
             return
         node.update_status(flow.to_status)
+        if flow.to_status in (NodeStatus.FAILED, NodeStatus.DELETED):
+            if self._speed_monitor is not None:
+                self._speed_monitor.remove_running_worker(node.type, node.id)
 
     def _monitor_heartbeats(self):
         while not self._stop_evt.wait(DefaultValues.SEC_MONITOR_INTERVAL):
@@ -362,7 +374,9 @@ class LocalJobManager(JobManager):
     def _evict_node(self, node: Node, silent_s: float):
         """Declare a heartbeat-silent worker dead: FAILED status (drops
         it from the running-worker set), rendezvous slot released so a
-        pending round stops waiting on it, data shards requeued."""
+        pending round stops waiting on it, straggler and digest state
+        forgotten so its stale p50 stops skewing the fleet median, data
+        shards requeued."""
         logger.warning(
             "node %s-%s heartbeat-silent %.0fs (> %.0fs timeout for %d "
             "sweeps); evicting",
@@ -378,6 +392,8 @@ class LocalJobManager(JobManager):
         )
         for mgr in self._rdzv_managers.values():
             mgr.remove_alive_node(node.id)
+        if self._speed_monitor is not None:
+            self._speed_monitor.evict_worker(node.type, node.id)
         if self._task_manager is not None:
             # the evicted node's leased shards go back in the queue now
             # (at-least-once); the fence bump keeps its zombie reports

@@ -1,11 +1,11 @@
 """The master's control-plane API: one ``get`` + one ``report`` dispatch.
 The port's own copy of dlrover_tpu/master/servicer.py: every handler, with
 the same ``None`` guards, so a master wired with only what the port has
-(no task manager, speed monitor, diagnosis manager, metric collector or
-planner yet) answers every request the JAX master answers, with the same
-reply. One addition: a ``CheckpointStepReport``'s step is kept in the job
-context (``JobContext.ckpt_steps``), where the JAX master only hands its
-blocking seconds to the speed monitor.
+(no diagnosis manager, metric collector or planner yet) answers every
+request the JAX master answers, with the same reply. One addition: a
+``CheckpointStepReport``'s step is kept in the job context
+(``JobContext.ckpt_steps``) for the master's exit line; its blocking
+seconds go to the speed monitor, as in the JAX master, which keeps no step.
 """
 
 from __future__ import annotations

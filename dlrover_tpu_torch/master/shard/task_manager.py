@@ -7,10 +7,11 @@ batched under per-worker leases via :meth:`lease_shards`
 — re-dispatches tasks of dead/timed-out workers from a deadline heap, and
 exposes dataset checkpoint/restore for job-level resume.
 
-The port's master holds the queue in memory only. The JAX manager's
-speed monitor and state store (its write-through persistence and
-``restore_from_state`` for a relaunched master) wait for ROADMAP 5b.2; the
-JAX manager with neither behaves as this one does.
+The port's master holds the queue in memory only. The JAX manager's state
+store (its write-through persistence and ``restore_from_state`` for a
+relaunched master) waits for ROADMAP 5b.2b; the JAX manager without one
+behaves as this one does. It holds the master's speed monitor, as the JAX
+manager does, and reads nothing from it.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ from dlrover_tpu_torch.master.shard.dataset_splitter import new_dataset_splitter
 class TaskManager:
     def __init__(
         self,
+        speed_monitor=None,
         clock=None,
         lease_ttl: Optional[float] = None,
     ):
+        self._speed_monitor = speed_monitor
         self._datasets: Dict[str, BatchDatasetManager] = {}
         self._params: Dict[str, DatasetShardParams] = {}
         # the JAX package wraps it in its lint's lock tracker (ROADMAP

@@ -35,9 +35,11 @@ from the accumulators to the next product as bf16 register operands.
 - dk/dv: a 128-key block of one *query* head streams 64-query Q and dO
   tiles with their lse and delta; ``S^T = K Q^T``, ``dP^T = V dO^T``,
   ``dV += P^T dO``, ``dK += dS^T Q``, so no transpose is stored. One block a
-  query head (not a kv head) balances the causal grid; with GQA the
-  group's blocks add into zeroed f32 sums by atomics, which the wrapper
-  casts to k's dtype (so the last bits of dk and dv vary from run to run).
+  query head (not a kv head) balances the causal grid; with GQA each
+  block writes its f32 sums once into a ``(b, h, sk, d)`` scratch, and a
+  second kernel of the same launch adds each kv head's group in head order
+  and casts to bf16, so dk and dv are the same bits on every run, as the
+  Pallas kernel's (it sums the group on chip and writes once).
 
 ``chip_smoke.py`` checks each kernel against its plain version below and
 counts the wgmma (``HGMMA``) and TMA (``UTMALDG``) instructions in each
@@ -274,32 +276,26 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool):
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool):
     """(dk, dv), summed over each kv head's query group: the dk/dv kernel
     on the card. With a group of one the kernel stores dk and dv; with more,
-    the group's query heads add into zeroed f32 sums, cast here to k's
-    dtype."""
+    each query head's f32 sums go to a scratch that the launch's second
+    kernel adds by kv head in head order (deterministic)."""
     if _on_cpu(q):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal)
     b, sq, sk, h, hkv, d = _check_cuda(q, k, v, dout, lse, delta)
-    dk = dv = dk_acc = dv_acc = None
-    if h == hkv:
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-    else:
-        sums = torch.zeros((2, *k.shape), dtype=torch.float32, device=k.device)
-        dk_acc, dv_acc = sums
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part = None
+    if h != hkv:
+        part = torch.empty((2, b, h, sk, d), dtype=torch.float32,
+                           device=k.device)
     with torch.cuda.device(q.device):
         rc = _kernels().dlrover_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), ptr(dk), ptr(dv), ptr(dk_acc),
-            ptr(dv_acc), b, sq, sk, h, hkv, d, 1.0 / math.sqrt(d),
-            int(causal), _stream(q),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part[0].data_ptr(),
+            None if part is None else part[1].data_ptr(),
+            b, sq, sk, h, hkv, d, 1.0 / math.sqrt(d), int(causal), _stream(q),
         )
     _raise_on(rc, "bwd_dkv")
     launch_counts["bwd_dkv"] += 1
-    if dk_acc is not None:
-        dk, dv = sums.to(k.dtype)
     return dk, dv
 
 

@@ -593,13 +593,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 // summed over that head's q-tiles. One block a query head, not a kv head,
 // balances the causal grid: a kv head's column of group x q-tiles would
 // make the first k-tile's block group times longer than a query head's.
-// With group 1 the block stores dk and dv in bf16; with group > 1 the
-// group's blocks add their f32 sums into a zeroed (b, sk, hkv, d) buffer
-// by float2 atomics (red.global.add on column pairs; the wrapper casts the
-// sums to bf16), so the order of the group's terms, and the last bits of
-// the sum, vary from run to run. At the main case (group 4) scalar
-// atomics ran 22 % slower on the card than the pairs, and the pairs 7 %
-// slower than the same case at group 1, which needs none (PERF.md).
+// With group 1 the block stores dk and dv in bf16. With group > 1 each
+// block stores its f32 sums, dK unscaled, once, into its query head's rows
+// of a (b, h, sk, d) scratch pair, with no atomics, and flash_dkv_sum_kernel
+// then adds each kv head's group of partials in head order, scales dK and
+// casts both to bf16: the same inputs give the same bits on every run, as
+// the Pallas kernel's group sum on chip does (atomics would add the
+// group's terms in an order that varies, and so would dk's and dv's last
+// bits).
 // The producer warp loads K and V once; lane 0 streams 64-query Q and dO
 // tiles by TMA and the warp's 32 lanes copy the tile's lse (times log2 e)
 // and delta into the stage beside them, bounded by sq, before each lane
@@ -624,8 +625,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dk_acc,
-                     float* __restrict__ dv_acc, int sq, int sk, int h, int hkv, float scale,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dk_part,
+                     float* __restrict__ dv_part, int sq, int sk, int h, int hkv, float scale,
                      int causal) {
   using L = BwdSmem<D>;
   extern __shared__ unsigned char dkv_smem[];
@@ -793,19 +794,23 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
 
     const long kstride = (long)hkv * D;
     const long base = (long)bb * sk * kstride + (long)hk * D;
+    // this query head's rows of the scratch: (b, h, sk, D)
+    const long pbase = ((long)bb * h + hh) * sk * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int kpos = key + 8 * r;
       if (kpos >= sk) continue;
       const long off = base + (long)kpos * kstride + 2 * t;
-      if (dk_acc != nullptr) {
-        if (n_it == 0) continue;  // the buffer is zeroed
+      if (dk_part != nullptr) {
+        // every row is written, zeros included (a block with no q-tile),
+        // so the scratch needs no fill
+        const long poff = pbase + (long)kpos * D + 2 * t;
 #pragma unroll
         for (int i = 0; i < D / 8; ++i) {
-          atomicAdd(reinterpret_cast<float2*>(dk_acc + off + 8 * i),
-                    make_float2(dk_r[4 * i + 2 * r] * scale, dk_r[4 * i + 2 * r + 1] * scale));
-          atomicAdd(reinterpret_cast<float2*>(dv_acc + off + 8 * i),
-                    make_float2(dv_r[4 * i + 2 * r], dv_r[4 * i + 2 * r + 1]));
+          *reinterpret_cast<float2*>(dk_part + poff + 8 * i) =
+              make_float2(dk_r[4 * i + 2 * r], dk_r[4 * i + 2 * r + 1]);
+          *reinterpret_cast<float2*>(dv_part + poff + 8 * i) =
+              make_float2(dv_r[4 * i + 2 * r], dv_r[4 * i + 2 * r + 1]);
         }
       } else {
 #pragma unroll
@@ -817,6 +822,44 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         }
       }
     }
+  }
+}
+
+// dk and dv of every kv head: its group of query heads' f32 partials
+// ((b, h, sk, D), dK unscaled) added in head order, dK times the scale,
+// both cast to bf16 into (b, sk, hkv, D). A thread takes 4 columns of one
+// row, so a warp reads 128 contiguous floats of a partial's row; one pass
+// over the scratch, bound by its bytes.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_dkv_sum_kernel(const float* __restrict__ dk_part, const float* __restrict__ dv_part,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int b, int sk, int h,
+                     int hkv, float scale) {
+  const int group = h / hkv;
+  const long n = (long)b * sk * hkv * (D / 4);
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    const int c = 4 * (int)(i % (D / 4));
+    long r = i / (D / 4);
+    const int hk = (int)(r % hkv);
+    r /= hkv;
+    const int s = (int)(r % sk);
+    const long bb = r / sk;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), v = a;
+    for (int g = 0; g < group; ++g) {
+      const long off = ((bb * h + (long)hk * group + g) * sk + s) * D + c;
+      const float4 x = *reinterpret_cast<const float4*>(dk_part + off);
+      const float4 y = *reinterpret_cast<const float4*>(dv_part + off);
+      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+      v.x += y.x; v.y += y.y; v.z += y.z; v.w += y.w;
+    }
+    const long out = ((bb * sk + s) * hkv + hk) * D + c;
+    __nv_bfloat162* dko = reinterpret_cast<__nv_bfloat162*>(dk + out);
+    __nv_bfloat162* dvo = reinterpret_cast<__nv_bfloat162*>(dv + out);
+    dko[0] = __floats2bfloat162_rn(a.x * scale, a.y * scale);
+    dko[1] = __floats2bfloat162_rn(a.z * scale, a.w * scale);
+    dvo[0] = __floats2bfloat162_rn(v.x, v.y);
+    dvo[1] = __floats2bfloat162_rn(v.z, v.w);
   }
 }
 
@@ -885,8 +928,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, void* dk_acc,
-               void* dv_acc, int b, int sq, int sk, int h, int hkv, float scale, int causal,
+               const void* lse, const void* delta, void* dk, void* dv, void* dk_part,
+               void* dv_part, int b, int sq, int sk, int h, int hkv, float scale, int causal,
                cudaStream_t stream) {
   constexpr int smem = BwdSmem<D>::DKV_BYTES;
   CUtensorMap maps[4];
@@ -896,7 +939,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid(h, b, (sk + BWD_ROWS - 1) / BWD_ROWS);
   flash_bwd_dkv_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (bf16*)dk,
-      (bf16*)dv, (float*)dk_acc, (float*)dv_acc, sq, sk, h, hkv, scale, causal);
+      (bf16*)dv, (float*)dk_part, (float*)dv_part, sq, sk, h, hkv, scale, causal);
+  err = (int)cudaGetLastError();
+  if (err || dk_part == nullptr) return err;
+  const long n = (long)b * sk * hkv * (D / 4);
+  flash_dkv_sum_kernel<D><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      (const float*)dk_part, (const float*)dv_part, (bf16*)dk, (bf16*)dv, b, sk, h, hkv, scale);
   return (int)cudaGetLastError();
 }
 
@@ -928,19 +976,20 @@ int dlrover_flash_bwd_dq(const void* q, const void* k, const void* v, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// dk_acc and dv_acc: null when h == hkv (dk and dv are stored in bf16),
-// else zeroed f32 (b, sk, hkv, d) buffers the group's blocks add into (dk
-// and dv are then not written)
+// dk and dv: the bf16 (b, sk, hkv, d) results. dk_part and dv_part: null
+// when h == hkv (the kernel stores dk and dv), else f32 (b, h, sk, d)
+// scratch that the kernel fills with each query head's sums and a second
+// kernel, on the same stream, adds by kv head in head order into dk and dv
 int dlrover_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dk, void* dv,
-                          void* dk_acc, void* dv_acc, int b, int sq, int sk, int h, int hkv,
+                          void* dk_part, void* dv_part, int b, int sq, int sk, int h, int hkv,
                           int d, float scale, int causal, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, dk_acc, dv_acc, b, sq, sk, h,
+    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, dk_part, dv_part, b, sq, sk, h,
                            hkv, scale, causal, s);
   if (d == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, dk_acc, dv_acc, b, sq, sk, h,
+    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, dk_part, dv_part, b, sq, sk, h,
                           hkv, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,7 +31,7 @@ import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from dlrover_tpu_torch.common import messages as msg
 from dlrover_tpu_torch.common.log import logger
@@ -94,6 +94,11 @@ class RequestGate:
         self._lock = threading.Lock()
         self._inflight = 0
         self._inflight_reports = 0
+        self._peak = 0
+        #: admitted and shed requests by kind ("get", "report"), for the
+        #: master's /metrics
+        self._served: Dict[str, int] = {}
+        self._rejected: Dict[str, int] = {}
         # shed-aware liveness: node_id -> last shed timestamp, so the
         # heartbeat evictor never evicts a worker the master silenced.
         # Bounded; pruned oldest-first past the cap.
@@ -110,6 +115,7 @@ class RequestGate:
                 # episode must never starve heartbeats and failure reports
                 admitted = self._inflight_reports < self.report_cap
             if not admitted:
+                self._rejected[kind] = self._rejected.get(kind, 0) + 1
                 if node_id >= 0:
                     self._shed_nodes[node_id] = self.clock()
                     if len(self._shed_nodes) > self._shed_cap:
@@ -121,6 +127,8 @@ class RequestGate:
             self._inflight += 1
             if kind != "get":
                 self._inflight_reports += 1
+            self._peak = max(self._peak, self._inflight)
+            self._served[kind] = self._served.get(kind, 0) + 1
             return True
 
     def recently_shed(
@@ -140,6 +148,39 @@ class RequestGate:
             self._inflight = max(0, self._inflight - 1)
             if kind != "get":
                 self._inflight_reports = max(0, self._inflight_reports - 1)
+
+    def stats(self) -> Dict:
+        with self._lock:
+            return {
+                "inflight": self._inflight,
+                "peak_inflight": self._peak,
+                "report_cap": self.report_cap,
+                "get_cap": self.get_cap,
+                "served": dict(self._served),
+                "rejected": dict(self._rejected),
+            }
+
+    def prometheus_lines(self) -> List[str]:
+        """The gate's gauges and counters for the master's /metrics
+        (master/metrics.py)."""
+        s = self.stats()
+        lines = [
+            "# TYPE dlrover_tpu_master_rpc_inflight gauge",
+            f"dlrover_tpu_master_rpc_inflight {s['inflight']}",
+            f"dlrover_tpu_master_rpc_inflight_peak {s['peak_inflight']}",
+            "# TYPE dlrover_tpu_master_rpc_total counter",
+        ]
+        for kind in sorted(s["served"]):
+            lines.append(
+                f'dlrover_tpu_master_rpc_total{{method="{kind}",'
+                f'outcome="served"}} {s["served"][kind]}'
+            )
+        for kind in sorted(s["rejected"]):
+            lines.append(
+                f'dlrover_tpu_master_rpc_total{{method="{kind}",'
+                f'outcome="rejected"}} {s["rejected"][kind]}'
+            )
+        return lines
 
     @staticmethod
     def _retry_hint_s(depth: int) -> float:
@@ -250,8 +291,11 @@ class RpcServer:
 
     def stop(self, grace: Optional[float] = None):
         """Stop serving; ``grace`` bounds the wait for the serving thread
-        (requests in flight finish on their own daemon threads)."""
-        self._httpd.shutdown()
+        (requests in flight finish on their own daemon threads). A server
+        that never started only closes its socket: ``shutdown`` would wait
+        for a serving loop that never ran."""
+        if self._thread is not None:
+            self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(grace)

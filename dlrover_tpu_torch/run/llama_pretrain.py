@@ -31,11 +31,13 @@ nothing is saved.
 Under the elastic agent (``run/elastic_run.py``, which sets
 ``DLROVER_TPU_MASTER_ADDR``), the run first bootstraps the worker
 (``train/bootstrap.py::init``), as examples/llama_pretrain.py does: each
-step is reported to the master, throttled, and each save's step through
-the checkpoint's master client. ``--device cuda`` then means the card of
-the worker's local rank. With more than one process
-(``--nproc_per_node``), the processes train one global batch data-parallel
-(``train/trainer.py``): each takes its rows, the gradients are all-reduced.
+step is reported to the master, throttled, with a window of the trainer's
+step-time digest and the seconds the steps waited for their batches, and
+each save's step through the checkpoint's master client. ``--device
+cuda`` then means the card of the worker's local rank. With more than one
+process (``--nproc_per_node``), the processes train one global batch
+data-parallel (``train/trainer.py``): each takes its rows, the gradients
+are all-reduced.
 Run bare, it trains alone.
 """
 
@@ -299,7 +301,9 @@ def run(args: argparse.Namespace, log=print) -> dict:
             reduce = f", gradient all-reduce {reduce_ms[-1]:.2f} ms"
         log(f"step {step + 1} loss {loss:.4f} ({seconds:.3f}s{reduce})")
         if ctx is not None:
-            ctx.report_step(step + 1, force=step + 1 == args.steps)
+            ctx.add_input_wait(waits[-1])
+            ctx.report_step(step + 1, force=step + 1 == args.steps,
+                            digest=trainer.step_digest)
         if ckpt is not None:
             blocking = ckpt.save(step + 1, state)
             saves.append({"step": step + 1, "blocking_s": blocking,

@@ -11,9 +11,14 @@ process group where the JAX package calls ``jax.distributed.initialize``:
 ``torch.distributed.init_process_group`` at ``tcp://<coordinator_addr>``,
 NCCL on the local rank's card for ``cuda`` and gloo for ``cpu``, only when
 the world has more than one process and a coordinator, and (c) connects the
-master client for the step and checkpoint reports. The JAX bootstrap's
-stack dumper, tracer, stack sampler and compile cache wait for the
-profiler slice (ROADMAP.md).
+master client for the step and checkpoint reports. A step report drains a
+window of the caller's step-time digest (observability/digest.py) with the
+seconds the steps waited for input since the last report. Known
+difference: the JAX worker reads that wait from its trace ring's
+``input_wait`` spans; the port has no trace ring, so the caller adds its
+measured waits (``add_input_wait``: ``run/llama_pretrain.py``'s wait for
+each batch on the prefetch). The JAX bootstrap's stack dumper, tracer,
+stack sampler and compile cache wait for the profiler slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import List, Optional
 from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.common.constants import NodeEnv
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.observability import digest as digest_mod
 
 
 @dataclass
@@ -72,6 +78,11 @@ class WorkerContext:
         self.client = client
         self._last_report_ts = 0.0
         self.step_report_interval = 15.0
+        #: seconds the steps waited for input since the last drained
+        #: window (add_input_wait)
+        self._input_wait_s = 0.0
+        #: a drained window whose report failed, sent with the next one
+        self._unreported_digest = None
 
     @property
     def process_id(self) -> int:
@@ -85,20 +96,40 @@ class WorkerContext:
     def local_rank(self) -> int:
         return self.env.local_rank
 
-    def report_step(self, step: int, force: bool = False):
-        """Throttled global-step report to the master (one every
-        ``step_report_interval`` seconds, or now with ``force``). The JAX
-        report's step-time digest and comm split wait for the tracing
-        slice."""
+    def add_input_wait(self, seconds: float):
+        """Add a step's wait for its input (the digest's ``input_wait_s``
+        is the sum since the last report)."""
+        self._input_wait_s += max(0.0, float(seconds))
+
+    def report_step(self, step: int, force: bool = False, digest=None):
+        """Throttled global-step report feeding the master's speed monitor
+        (one every ``step_report_interval`` seconds, or now with
+        ``force``).
+
+        ``digest``: a :class:`~dlrover_tpu_torch.observability.digest.
+        StepTimeDigest` the caller folds per-step wall times into; the
+        report drains one window from it (count/mean/p50/p95/max) and
+        attaches the input-wait seconds since the last report. A window
+        whose report failed rides the next report (``merge_windows``)."""
         if self.client is None:
             return
         now = time.time()
         if not force and now - self._last_report_ts < self.step_report_interval:
             return
+        payload = digest.snapshot_and_reset() if digest is not None else None
+        if payload:
+            payload["input_wait_s"] = round(self._input_wait_s, 6)
+            self._input_wait_s = 0.0
+            digest_mod.set_last_window(payload)
+        if self._unreported_digest:
+            payload = digest_mod.merge_windows(self._unreported_digest,
+                                               payload)
+            self._unreported_digest = None
         try:
-            self.client.report_global_step(step)
+            self.client.report_global_step(step, digest=payload)
             self._last_report_ts = now
         except Exception as e:
+            self._unreported_digest = payload
             logger.warning("step report failed: %s", e)
 
 

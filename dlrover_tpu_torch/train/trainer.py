@@ -31,6 +31,16 @@ become the accumulator, later ones add into it, the optimizer reuses the
 gradient buffers for its update, and params and adam moments change where
 they lie. ``step`` returns the same state dict it was given.
 
+The step-time digest (``step_digest``, observability/digest.py): every
+step but the first adds its wall seconds, from ``step``'s entry to its
+return, as the JAX trainer adds its step's; the first, which builds the
+kernels and warms the allocator, would feed the straggler detector one
+giant sample per rank. The caller's step report drains it
+(``bootstrap.WorkerContext.report_step``). On the card ``step`` returns
+once its last kernel is queued, as the JAX step returns at dispatch, so a
+window reads the host's share of the step: the device's tail after the
+last launch falls to the next step's wait.
+
 Meshes beyond dp (fsdp, tp, zero-1), hierarchical collectives, warm
 compile, remesh and the lint hooks are not ported yet.
 """
@@ -38,11 +48,13 @@ compile, remesh and the lint hooks are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Iterable, List, Optional, Tuple
 
 import torch
 
 from dlrover_tpu_torch.common.tree import Tree, flatten
+from dlrover_tpu_torch.observability.digest import StepTimeDigest
 from dlrover_tpu_torch.train import bootstrap
 from dlrover_tpu_torch.train.optim import make_optimizer
 
@@ -99,6 +111,9 @@ class ElasticTrainer:
         #: the last step's CUDA events around the gradients' all-reduce
         #: (dp above 1 on the card), for its device time; None otherwise
         self.reduce_events: Optional[Tuple[Any, Any]] = None
+        #: each step's wall seconds but the first's (module docstring)
+        self.step_digest = StepTimeDigest()
+        self._steps_run = 0
 
     @property
     def dp(self) -> int:
@@ -169,6 +184,7 @@ class ElasticTrainer:
         shaped (accum_steps, micro, ...). Returns the (updated in place)
         state and the mean microbatch loss (of the global microbatches,
         the same on every rank) as a 0-dim tensor on the params' device."""
+        t0 = time.monotonic()
         accum = self.accum_steps
         dp = self.dp
         micro = self.tc.micro_batch_size
@@ -228,7 +244,11 @@ class ElasticTrainer:
             state["opt"], lr_scale=state["lr_scale"],
         )
         state["step"] += 1
-        return state, loss_sum * (1.0 / accum)
+        loss = loss_sum * (1.0 / accum)
+        self._steps_run += 1
+        if self._steps_run > 1:
+            self.step_digest.add(time.monotonic() - t0)
+        return state, loss
 
     @torch.no_grad()
     def eval_step(self, state: dict, batch: Batch) -> torch.Tensor:

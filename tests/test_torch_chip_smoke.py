@@ -7,7 +7,10 @@ and the bounds that the kernels' times are read against stay where they
 were computed, so the yardstick of a comparison cannot drift unnoticed.
 Phase 4d's pure checks: the shard accounting fails on each fault it is
 there to catch, and the script's own replica of the sampler's order and of
-the loader's rows equals the port's sampler and loader.
+the loader's rows equals the port's sampler and loader. The master's
+downtime bracket and gauges (phases 4c and 4d), read from the port's own
+master, and the four-card leg's rank agreement and staged share: each
+check passes on good input and fails on each fault it is there to catch.
 """
 
 import os
@@ -37,21 +40,27 @@ def _global_kernels():
 
 
 def test_every_kernel_is_held_and_has_one_sass_expectation():
+    """Eight kernels have a wrapper of their own; the ninth, flash dk/dv's
+    group sum, runs in flash_bwd_dkv's launch and is held with it."""
     kernels = _global_kernels()
     held = {name for name, _, _ in chip_smoke.KERNELS + chip_smoke.CE_KERNELS}
-    assert len(kernels) == 8
-    assert set(kernels) == held
+    assert len(held) == 8 and len(kernels) == 9
+    assert chip_smoke.HELD_BY == {"flash_dkv_sum": "flash_bwd_dkv"}
+    assert set(kernels) == held | set(chip_smoke.HELD_BY)
+    assert set(chip_smoke.HELD_BY.values()) <= held
     wgmma = set(chip_smoke.WGMMA_KERNELS)
     plain = set(chip_smoke.NO_WGMMA_KERNELS)
     assert not wgmma & plain
-    assert wgmma | plain == held
+    assert wgmma | plain == held | set(chip_smoke.HELD_BY)
     assert wgmma == {"fused_ce_fwd", "fused_ce_bwd_q", "fused_ce_bwd_dx",
                      "fused_ce_bwd_dw", "flash_fwd", "flash_bwd_dq",
                      "flash_bwd_dkv"}
-    assert plain == {"fused_ce_merge"}
+    assert plain == {"fused_ce_merge", "flash_dkv_sum"}
     # each table's source is the file the kernel is defined in
     for name, _, _ in chip_smoke.KERNELS:
         assert chip_smoke.SOURCE.endswith(f"/{kernels[name]}.cu")
+    for name, parent in chip_smoke.HELD_BY.items():
+        assert kernels[name] == kernels[parent]
     for name, _, _ in chip_smoke.CE_KERNELS:
         assert chip_smoke.CE_SOURCE.endswith(f"/{kernels[name]}.cu")
 
@@ -64,9 +73,11 @@ def test_sass_check_holds_each_kernel_instance():
             "flash_bwd_dkv<64>": (16, 4), "flash_bwd_dkv<128>": (24, 8),
             "fused_ce_fwd": (4, 5), "fused_ce_merge": (0, 0),
             "fused_ce_bwd_q": (4, 5), "fused_ce_bwd_dx": (4, 2),
-            "fused_ce_bwd_dw": (4, 6)}
+            "fused_ce_bwd_dw": (4, 6), "flash_dkv_sum<64>": (0, 0),
+            "flash_dkv_sum<128>": (0, 0)}
     chip_smoke.check_sass(good)
-    for inst, bad in (("flash_fwd<64>", (12, 0)),
+    for inst, bad in (("flash_dkv_sum<128>", (1, 0)),
+                      ("flash_fwd<64>", (12, 0)),
                       ("fused_ce_bwd_dw", (0, 6)),
                       ("flash_bwd_dkv<128>", (24, 0)),
                       ("flash_bwd_dq<64>", (0, 4)),
@@ -77,6 +88,10 @@ def test_sass_check_holds_each_kernel_instance():
             chip_smoke.check_sass({**good, inst: bad})
     missing = {k: v for k, v in good.items() if k != "fused_ce_merge"}
     with pytest.raises(chip_smoke.SmokeFailure, match="fused_ce_merge"):
+        chip_smoke.check_sass(missing)
+    missing = {k: v for k, v in good.items()
+               if not k.startswith("flash_dkv_sum")}
+    with pytest.raises(chip_smoke.SmokeFailure, match="flash_dkv_sum"):
         chip_smoke.check_sass(missing)
 
 
@@ -432,3 +447,162 @@ def test_sampler_order_replica_equals_the_port_sampler(tmp_path):
     want = chip_smoke.loader_rows(tokens, 6, 2)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.astype(np.int32))
+
+
+# -- the master's goodput ledger (phases 4c and 4d) -------------------------------
+
+
+def _master_lines(kill=True):
+    """The exit summary of a port master's speed monitor that saw one
+    worker's steps, a failure at 1010 and the next step at 1042 (or no
+    failure), as the CLI would print it."""
+    from dlrover_tpu_torch.master.local_master import goodput_summary
+    from dlrover_tpu_torch.master.monitor.speed_monitor import SpeedMonitor
+
+    class Clock:
+        t = 1000.0
+
+        def __call__(self):
+            return self.t
+
+    clock = Clock()
+    sm = SpeedMonitor(clock=clock)
+    window = {"count": 1, "mean_s": 0.25, "p50_s": 0.25, "p95_s": 0.25,
+              "max_s": 0.25}
+    for step, t in ((1, 1001.0), (2, 1002.0)):
+        sm.collect_global_step(step, t)
+        sm.collect_step_digest(0, window, ts=t)
+    if kill:
+        sm.mark_downtime_start(ts=1010.0)
+        sm.collect_global_step(3, 1042.0)
+        sm.mark_downtime_end(ts=1042.0)
+    clock.t = 1050.0
+    return ["[INFO] [local_master.py:1:run] " + goodput_summary(sm),
+            "[INFO] local master exiting: succeeded; checkpoint steps by "
+            "node {0: 4}"]
+
+
+def test_master_reading_parses_the_port_masters_summary():
+    reading = chip_smoke.master_reading(_master_lines())
+    assert reading["brackets"] == [[1010.0, 1042.0]]
+    assert reading["downtime_s"] == 32.0 and reading["global_step"] == 3
+    assert reading["stragglers"] == []
+    assert reading["goodput"] == pytest.approx(1 - 32.0 / 49.0, abs=1e-6)
+    cats = reading["attribution"]["categories"]
+    assert reading["attribution"]["elapsed_wall_s"] == 49.0
+    assert cats["productive"] == 0.5
+    with pytest.raises(chip_smoke.SmokeFailure, match="no goodput summary"):
+        chip_smoke.master_reading(["local master exiting: succeeded"])
+
+
+def test_master_downtime_check():
+    """One bracket inside [detection, second life's first step end],
+    widened by the report interval: passes; none, two, one opened before
+    the detection's slack or closed after the step's fails."""
+    brackets = chip_smoke.master_reading(_master_lines())["brackets"]
+    assert chip_smoke.check_master_downtime(brackets, 1008.0, 1041.0,
+                                            15.0) == 32.0
+    # the report's timestamps may trail the script's stamps by the slack
+    assert chip_smoke.check_master_downtime([[994.0, 1055.0]], 1008.0,
+                                            1041.0, 15.0) == 61.0
+    no_kill = chip_smoke.master_reading(_master_lines(kill=False))
+    assert no_kill["brackets"] == []
+    for bad, match in (([], "0 downtime brackets"),
+                       ([[1010.0, 1042.0], [1043.0, 1044.0]],
+                        "2 downtime brackets"),
+                       ([[992.0, 1042.0]], "not inside"),
+                       ([[1010.0, 1057.0]], "not inside"),
+                       ([[1042.0, 1010.0]], "not inside")):
+        with pytest.raises(chip_smoke.SmokeFailure, match=match):
+            chip_smoke.check_master_downtime(bad, 1008.0, 1041.0, 15.0)
+    assert chip_smoke.report_interval() == 15.0
+
+
+def test_master_gauges_check():
+    from dlrover_tpu_torch.master.metrics import speed_monitor_lines
+    from dlrover_tpu_torch.master.monitor.speed_monitor import SpeedMonitor
+
+    sm = SpeedMonitor(clock=lambda: 1050.0)
+    sm.collect_global_step(2, 1000.0)
+    gauges = chip_smoke.parse_metrics(
+        "\n".join(speed_monitor_lines(sm) + [
+            'dlrover_tpu_master_rpc_total{method="get",outcome="served"} 3']))
+    assert gauges["dlrover_tpu_master_global_step"] == 2
+    assert "dlrover_tpu_master_rpc_total" not in gauges
+    reading = chip_smoke.master_reading(_master_lines())
+    chip_smoke.check_master_gauges(gauges, reading)
+    with pytest.raises(chip_smoke.SmokeFailure, match="never read"):
+        chip_smoke.check_master_gauges({}, reading)
+    with pytest.raises(chip_smoke.SmokeFailure, match="straggler"):
+        chip_smoke.check_master_gauges(
+            {**gauges, "dlrover_tpu_master_stragglers": 1.0}, reading)
+    with pytest.raises(chip_smoke.SmokeFailure, match="straggler"):
+        chip_smoke.check_master_gauges(gauges,
+                                       {**reading, "stragglers": [0]})
+    with pytest.raises(chip_smoke.SmokeFailure, match="goodput"):
+        chip_smoke.check_master_gauges(
+            {**gauges, "dlrover_tpu_master_goodput": 0.0}, reading)
+
+
+# -- the four-card leg --------------------------------------------------------------
+
+
+def _four_card_lives(nbytes=4_000_000):
+    crc = {"params/w": 11, "opt/mu": 12, "step": 13}
+    counts = {"flash_fwd": 16, "fused_ce_fwd": 2}
+    shares = [nbytes // 4 + d for d in (1000, -1000, 500, -500)]
+    shares[0] += 16  # the step scalars
+    first = [{"rank": r, "crc": dict(crc), "counts": dict(counts),
+              "stage": {"staged_bytes": shares[r]},
+              "steps": [{"loss": x} for x in (12.5, 12.25, 12.0, 11.5)]}
+             for r in range(4)]
+    second = [{"rank": r, "crc": dict(crc), "counts": dict(counts),
+               "restore": {"step": 2},
+               "steps": [{"loss": x} for x in (12.0, 11.5)]}
+              for r in range(4)]
+    return first, second, nbytes
+
+
+def test_four_card_checks_pass_on_good_lives():
+    chip_smoke.check_four_card(*_four_card_lives())
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("loss", "losses differ in the first"),
+    ("resumed_loss", "losses differ in the second"),
+    ("not_bitwise", "not bitwise"),
+    ("full_replica", "staged .* bytes in all"),
+    ("uneven_share", "not about 1/4"),
+    ("restored_step", "restored steps"),
+    ("restore_crc", "rank 2's restore"),
+    ("staged_crc", "the state rank 1 staged"),
+    ("no_launch", "never launched on rank 3 in the second"),
+    ("missing_rank", "ranks"),
+])
+def test_four_card_checks_fail_on_each_fault(fault, match):
+    first, second, nbytes = _four_card_lives()
+    if fault == "loss":
+        first[2]["steps"][1]["loss"] += 1e-6
+    elif fault == "resumed_loss":
+        second[1]["steps"][0]["loss"] += 1e-6
+    elif fault == "not_bitwise":
+        for r in second:
+            r["steps"][1]["loss"] += 1e-7
+    elif fault == "full_replica":
+        for r in first:
+            r["stage"]["staged_bytes"] = nbytes
+    elif fault == "uneven_share":
+        first[0]["stage"]["staged_bytes"] += nbytes // 10
+        first[1]["stage"]["staged_bytes"] -= nbytes // 10
+    elif fault == "restored_step":
+        second[3]["restore"]["step"] = 0
+    elif fault == "restore_crc":
+        second[2]["crc"]["opt/mu"] += 1
+    elif fault == "staged_crc":
+        first[1]["crc"]["params/w"] += 1
+    elif fault == "no_launch":
+        second[3]["counts"]["fused_ce_fwd"] = 0
+    elif fault == "missing_rank":
+        second = second[:3]
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_four_card(first, second, nbytes)

@@ -13,14 +13,17 @@
 (h) ``elastic_run --standalone --accelerator cpu --nproc_per_node 2`` runs
     ``run/llama_pretrain.py --device cpu --model tiny --data FILE --ckpt-dir
     D --save-every 2``; both workers are killed once step 3 is staged. The
-    restarted pair restores step 3 from shm, loads the sidecar of step 2 on
-    both ranks, and trains on the batches the JAX sampler gives from that
-    position (each rank its rows).
+    restarted pair restores step 3 (each rank's shm segment holds its half,
+    the agent's breakpoint persist on disk the rest: tier disk), loads the
+    sidecar of step 2 on both ranks, and trains on the batches the JAX
+    sampler gives from that position (each rank its rows).
 Also: a sidecar in the JAX example's JSON, written by hand, positions the
 port's loader, and the port's sidecar positions the JAX loader; and the
 checkpoint engine's restore gate in two gloo ranks: ranks that staged
 different steps ignore shm, the committed step is the least any rank read,
-and a step is adopted only when every rank restored it.
+a step is adopted only when every rank restored it, and a step a peer
+cannot restore changes no tensor; and replica-deduplicated staging at dp2,
+each rank staging half of the state, restored bitwise.
 
 Every process group here forms on a ``TCPStore`` the test hosts on port 0,
 with its own timeout.
@@ -271,12 +274,16 @@ def test_sharding_client_two_ranks_under_the_port_master():
 
 # -- the restore gate across ranks ------------------------------------------------
 
-# three restores in two ranks, each from its own directory and segments:
+# five restores in two ranks, each from its own directory and segments:
 # "disagree", the ranks staged different steps (4 and 3) over a committed
 # step 2; "committed", no staged step and rank 1's read of the tracker
 # raced the commit of step 4 (it read 2); "vote", both staged step 6, but
 # rank 1 only the pieces it owns of a group of two (replica dedup) and
-# nothing else holds the rest, so only rank 0 can restore it
+# nothing else holds the rest, so only rank 0 (dedup off) can restore it;
+# "uncovered", the same staging with no committed step to fall back to,
+# into a target of random values that no rank may change; "dedup", both
+# ranks under the defaults (dedup on, the group's rank and size) stage and
+# persist their halves of step 5 and restore it into zeroed targets
 GATE = JOIN + """\
 from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
 root, job = sys.argv[1], sys.argv[2]
@@ -315,12 +322,53 @@ if rank == 1:
     eng.committed_step = lambda: 2
 restore(eng, "committed")
 
-eng = engine("vote", **({} if rank == 0 else
-                        {"dedup": True, "ownership_world": (1, 2)}))
+HALF = {"dedup": True, "ownership_world": (1, 2)}
+eng = engine("vote", **({"dedup": False} if rank == 0 else HALF))
 eng.save_to_storage(2, state(2))
 dist.barrier()
 eng.save_to_memory(6, state(6))
 restore(eng, "vote")
+
+eng = engine("uncovered", **({"dedup": False} if rank == 0 else HALF))
+eng.save_to_memory(6, state(6))
+gen = torch.Generator().manual_seed(11 + rank)
+target = {k: torch.randn((4, 3), generator=gen) for k in ("w", "b")}
+before = {k: t.clone() for k, t in target.items()}
+got = eng.load(target)
+out["uncovered"] = {
+    "step": None if got is None else got[0],
+    "unchanged": all(torch.equal(before[k], target[k]) for k in before)}
+eng.close(unlink_shm=True)
+
+def rich_state(seed):
+    gen = torch.Generator().manual_seed(seed)
+    return {"w": torch.randn((64, 33), generator=gen),
+            "b": torch.randn(7, generator=gen),
+            "opt": {"mu": torch.randn((16, 16), generator=gen),
+                    "nu": torch.randn((5, 3, 2), generator=gen)},
+            "step": 5}
+
+eng = engine("dedup")
+saved = rich_state(3)  # the same replica on both ranks
+eng.save_to_storage(5, saved)
+stats = dict(eng.last_stage_stats)
+dist.barrier()
+target = rich_state(4)
+for t in (target["w"], target["b"], *target["opt"].values()):
+    t.zero_()
+target["step"] = 0
+got = eng.load(target)
+leaves = [(saved["w"], target["w"]), (saved["b"], target["b"])] + [
+    (saved["opt"][k], target["opt"][k]) for k in ("mu", "nu")]
+out["dedup"] = {
+    "step": None if got is None else got[0],
+    "tier": eng.last_restore_stats.get("tier"),
+    "staged": stats["staged_bytes"], "skipped": stats["skipped_replica_bytes"],
+    "dedup": stats["dedup"],
+    "tensor_bytes": sum(a.numel() * a.element_size() for a, _ in leaves),
+    "bitwise": all(torch.equal(a, b) for a, b in leaves),
+    "scalar": target["step"]}
+eng.close(unlink_shm=True)
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -357,6 +405,40 @@ def test_restore_adopts_a_step_only_when_every_rank_restored_it(
     assert len(gated_restores) == 2
     for res in gated_restores:
         assert res["vote"] == {"step": 2, "values": [2.0], "tier": "disk"}
+
+
+def test_restore_a_peer_rejects_touches_no_tensor(gated_restores):
+    """Both ranks staged step 6, only rank 0 can cover it, and nothing
+    is committed: both restore nothing, and rank 0's target keeps every
+    bit it had before ``load`` (the check is voted on before any
+    placement)."""
+    assert len(gated_restores) == 2
+    for res in gated_restores:
+        assert res["uncovered"] == {"step": None, "unchanged": True}
+
+
+def test_dp_ranks_stage_half_and_restore_the_union(gated_restores):
+    """Under the defaults a dp2 rank stages about half of a replicated
+    state (the process group's rank and size, as the JAX engine takes
+    jax's), and the two halves, one from this rank's shm and the rest
+    from disk, restore every leaf bitwise on both ranks."""
+    assert len(gated_restores) == 2
+    # the state's bytes as the engine stages them (the tensors, and the
+    # step scalar as its numpy value)
+    total = {r["dedup"]["staged"] + r["dedup"]["skipped"]
+             for r in gated_restores}
+    assert len(total) == 1
+    total = total.pop()
+    staged = []
+    for res in gated_restores:
+        d = res["dedup"]
+        assert d["dedup"] is True
+        assert d["tensor_bytes"] < total <= d["tensor_bytes"] + 8
+        assert 0.4 * total <= d["staged"] <= 0.6 * total, d
+        assert d["step"] == 5 and d["tier"] == "disk"
+        assert d["bitwise"] and d["scalar"] == 5
+        staged.append(d["staged"])
+    assert sum(staged) == total
 
 
 # -- the sidecar ------------------------------------------------------------------
@@ -520,11 +602,12 @@ def test_two_workers_restart_from_shm_and_resume_the_loader(tmp_path):
         assert first[rank]["loader_restored"] is None
         for got, w in zip(first[rank]["batches"], want[:3]):
             np.testing.assert_array_equal(np.asarray(got), w[:, rows])
-        # the second: step 3 from shm, the loader from step 2's sidecar,
-        # so steps 4-5 replay positions 2-3
+        # the second: step 3 from its shm half and the breakpoint persist
+        # on disk, the loader from step 2's sidecar, so steps 4-5 replay
+        # positions 2-3
         res = second[rank]
         assert res["start_step"] == 3
-        assert res["restore"]["step"] == 3 and res["restore"]["tier"] == "shm"
+        assert res["restore"]["step"] == 3 and res["restore"]["tier"] == "disk"
         assert res["loader_restored"] == 2
         assert len(res["batches"]) == 2
         for got, w in zip(res["batches"], want[2:4]):
