@@ -103,7 +103,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    second life's first step report, inside the span from the agent's
    detection to the end of the second life's first step widened by one
    step report interval on each side (``check_master_downtime``), and no
-   straggler in a one-worker job (``check_master_gauges``). No periodic persist
+   straggler in a one-worker job (``check_master_gauges``). The second
+   life's step reports carry the trainer's step-time digest: its median
+   sample must lie within ``DIGEST_WALL_TOL`` (15 %) of the median step
+   wall the script times for the same steps
+   (``check_digest_against_wall``). No periodic persist
    runs in this leg: the disk holds one persisted step of the state on
    two tiers, and the breakpoint's is it. The time to recover is printed
    by phase: the kill to the agent's detection, the breakpoint persist,
@@ -151,6 +155,49 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    closes at the second life's first shard's step). Nothing is
    checkpointed; the job name, logs and socket directory are unique to the
    run. The phase fails past ``DATA_PHASE_LIMIT_S`` (120 s).
+4e. the control plane's recovery, at phase 4d's configuration on the same
+   corpus (written again from the seed), in two legs whose job names,
+   state directories, logs and sockets are unique to the run. The
+   master-relaunch leg: the script starts the port's master itself on a
+   fixed free port, ``python -m dlrover_tpu_torch.master.main --port P``
+   with ``DLROVER_TPU_STATE_BACKEND=file`` and a state directory under the
+   phase's temporary directory, then ``python -m
+   dlrover_tpu_torch.run.elastic_run --master_addr 127.0.0.1:P --nnodes=1
+   --nproc_per_node=1``, its worker ``chip_smoke.py --data-child relaunch
+   FILE`` (4d's shard worker, never killed, printing each step report's
+   stamp and outcome). Once the worker's log shows its
+   ``RELAUNCH_KILL_AFTER``-th shard's step, the script SIGKILLs the master
+   and starts it again on the same port with the same state directory;
+   the worker's lease calls, step reports and its agent's heartbeats ride
+   the gap on the client's retries. ``check_relaunch``: every one of the
+   16 ranges trained exactly once, each step's CRC32 equal to the file's
+   rows, the relaunched master restored one dataset at a global step in
+   (0, the last step reported before the kill] and ended at the steps
+   trained, goodput in (0, 1], and one downtime bracket from no later than
+   the kill to the stamp of the first step report the relaunched master
+   took; the CLI exits 0, the relaunched master finds the dataset complete
+   and logs the job as succeeded, every kernel launched. Prints the gap
+   from the kill to the new master serving, the worker's longest interval
+   between two step ends, the largest lease RPC, the bracket, goodput and
+   the attribution. The hang leg: ``elastic_run --standalone`` with
+   ``DLROVER_TPU_HANG_WATCHDOG_WINDOW_S`` = ``HANG_WINDOW_S`` (40 s: over
+   twice the agent's 15 s heartbeat, so its node is never taken for a
+   silent member), its worker ``chip_smoke.py --data-child hang FILE``:
+   ``run/llama_pretrain.py``'s loader flow on the file, no checkpoint,
+   every step reported; its first life SIGSTOPs itself after its first step
+   report ``HANG_STOP_AFTER_S`` (W/4 + 2 s) into the life, once the
+   watchdog has latched the round, alive and never stepping again while
+   its agent heartbeats. ``check_hang``: the master declared one hang with no
+   silent member, billed ``collective_hang`` in [W, 1.25 W + 1 s] (one
+   sweep is W/4), kept one downtime bracket from the last progress stamp
+   (the first life's last step report) to the second life's first step
+   report; the agent stopped the wedged worker (its SIGTERM waits in the
+   stopped process; the SIGKILL after the 10 s grace ends it) and started
+   it again, the second life trained every step, its step-1 loss bitwise
+   the first life's, every kernel launched in both lives, the CLI exits 0.
+   Prints the time to recover by phase: the stall to the declaration, the
+   declaration to the worker stopped, the stop to the new worker's first
+   step end. The phase fails past ``CONTROL_PHASE_LIMIT_S``.
 5. reference: a small Llama (head dim 128) and a small ViT (head dim 64,
    100 patches, 300 classes) on the card, bf16 with the kernels, against
    the same weights on the CPU in f32 with the plain versions: loss and
@@ -181,10 +228,12 @@ phase; its last line is the contract's, with the cards' count.
 
 Exits with code 2 and prints no result when CUDA is not available.
 ``--ckpt-child ROLE DIR`` runs one of phase 4c's children or the
-four-card leg's worker and ``--data-child shards FILE`` phase 4d's worker
-(none is run by hand).
+four-card leg's worker and ``--data-child ROLE FILE`` phase 4d's worker
+(``shards``) or one of phase 4e's (``relaunch``, ``hang``); none is run by
+hand.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -192,6 +241,7 @@ import os
 import re
 import shutil
 import signal
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -319,6 +369,33 @@ DATA_DATASET = "chip-smoke-shards"
 DATA_TIMEOUT_S = 600
 # seconds the whole of phase 4d may take
 DATA_PHASE_LIMIT_S = 120
+# the control plane's recovery (phase 4e), at phase 4d's configuration and
+# corpus. The master-relaunch leg: the worker leases DATA_LEASE_COUNT shards
+# a call of the DATA_RECORDS / DATA_SHARD_SIZE ranges and is never killed;
+# the script SIGKILLs the master once the worker has trained
+# RELAUNCH_KILL_AFTER shards and starts it again on its port.
+RELAUNCH_KILL_AFTER = 6
+# the hang leg: the worker trains HANG_STEPS steps through the loader,
+# reporting every step (its step-report interval lowered to
+# HANG_REPORT_INTERVAL_S); its first life SIGSTOPs itself after its first
+# report at least HANG_STOP_AFTER_S into the life. The watchdog's window is
+# HANG_WINDOW_S: at least 3 report intervals, and over twice the agents'
+# 15 s heartbeat, so that a live agent's node is never taken for a silent
+# member (silent: no heartbeat for half the window). The watchdog latches a
+# new round at its first sweep after the round forms (one sweep every
+# window / 4) and counts a stall from the later of that and the last step
+# report: stopping one sweep and a margin into the life puts the stall's
+# start at the last report
+HANG_STEPS = 24
+HANG_REPORT_INTERVAL_S = 0.0
+HANG_WINDOW_S = 40.0
+HANG_STOP_AFTER_S = HANG_WINDOW_S / 4 + 2.0
+# the digest against the step wall (phase 4c's second life): the median
+# sample within DIGEST_WALL_TOL of the median step the script times
+DIGEST_WALL_TOL = 0.15
+# seconds each leg's CLI may take, and the whole of phase 4e
+CONTROL_TIMEOUT_S = 600
+CONTROL_PHASE_LIMIT_S = 300
 # the master's /metrics (phases 4c and 4d): read every METRICS_POLL_S while
 # the CLI runs; the last reading before the master exits is kept
 METRICS_POLL_S = 0.25
@@ -1187,18 +1264,22 @@ def check_master_gauges(gauges, reading):
           f"{reading['stragglers']}")
 
 
-def print_master(label, gauges, reading, bracket_s=None):
-    print(f"  [{label}] the master's last /metrics: goodput "
-          f"{gauges.get('dlrover_tpu_master_goodput')}, downtime total "
-          f"{gauges.get('dlrover_tpu_master_downtime_seconds_total')} s, "
-          f"global step {gauges.get('dlrover_tpu_master_global_step')}, "
-          f"stragglers {gauges.get('dlrover_tpu_master_stragglers')}; at its "
-          f"exit: goodput {reading['goodput']}, downtime "
-          f"{reading['downtime_s']} s, global step {reading['global_step']}, "
-          f"stragglers {reading['stragglers']}, brackets "
-          f"{reading['brackets']}"
+def print_master(label, gauges, reading, bracket_s=None,
+                 bracket_of="the kill's bracket"):
+    """Print the master's last ``/metrics`` reading (none when ``gauges``
+    is None: a leg that does not poll it) and its exit summary."""
+    polled = "" if gauges is None else (
+        f"the master's last /metrics: goodput "
+        f"{gauges.get('dlrover_tpu_master_goodput')}, downtime total "
+        f"{gauges.get('dlrover_tpu_master_downtime_seconds_total')} s, "
+        f"global step {gauges.get('dlrover_tpu_master_global_step')}, "
+        f"stragglers {gauges.get('dlrover_tpu_master_stragglers')}; ")
+    print(f"  [{label}] {polled}at its exit: goodput {reading['goodput']}, "
+          f"downtime {reading['downtime_s']} s, global step "
+          f"{reading['global_step']}, stragglers {reading['stragglers']}, "
+          f"brackets {reading['brackets']}"
           + ("" if bracket_s is None else
-             f" (the kill's bracket {bracket_s:.3f} s)"), flush=True)
+             f" ({bracket_of} {bracket_s:.3f} s)"), flush=True)
     print(f"  [{label}] the master's attribution at its exit: "
           f"{json.dumps(reading['attribution'])}", flush=True)
 
@@ -1406,6 +1487,8 @@ def _elastic_life(torch, ckpt_dir):
     job = os.environ["DLROVER_TPU_JOB_NAME"]
     _reset_counts(attention, fce, [0])
     ctx = bootstrap.init()
+    reports = []
+    _record_reports(ctx.client, reports)
     args = _ckpt_args(4, ckpt_dir, 0)
     cfg, trainer, state, next_batch, _ = llama_pretrain.build(args)
     torch.cuda.synchronize()
@@ -1436,6 +1519,7 @@ def _elastic_life(torch, ckpt_dir):
             "losses": losses, "staged_step": step, "crc": crcs,
             "modes": [s["mode"] for s in saves],
             "counts": _launch_counts(attention, fce), "start_t": t_start,
+            "digests": [r["digest"] for r in reports],
             "kill_t": time.time()}), flush=True)
         os.kill(os.getpid(), signal.SIGKILL)
     t_restored = time.time()
@@ -1457,6 +1541,7 @@ def _elastic_life(torch, ckpt_dir):
         "restore": restore, "crc": crcs, "losses": losses, "step_s": step_s,
         "counts": _launch_counts(attention, fce), "start_t": t_start,
         "restored_t": t_restored, "crc_s": crc_s,
+        "digests": [r["digest"] for r in reports],
         "step_end_t": step_end_t}), flush=True)
     return 0
 
@@ -1683,22 +1768,10 @@ def phase_elastic(workdir, nbytes):
            os.path.abspath(__file__), "--", "--ckpt-child", "elastic", d_el]
     print(f"  [elastic] {' '.join(cmd[1:])} (master /metrics on port "
           f"{metrics_port})", flush=True)
-    lines = []
     try:
-        proc = subprocess.Popen(cmd, cwd=repo, env=env, text=True,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT)
-        timer = threading.Timer(ELASTIC_TIMEOUT_S, proc.kill)
-        timer.start()
-        try:
-            with MetricsPoller(metrics_port) as poller:
-                for line in iter(proc.stdout.readline, ""):
-                    lines.append(line.rstrip())
-                    print(f"  [elastic] {line.rstrip()}", flush=True)
-        finally:
-            timer.cancel()
-            proc.kill()
-            proc.wait(timeout=60)
+        poller = MetricsPoller(metrics_port)
+        proc, lines = _run_cli(cmd, env, "elastic", ELASTIC_TIMEOUT_S,
+                               poller)
         killed, killed_log = _life_result(job, 0)
         resumed, resumed_log = _life_result(job, 1)
         for life, log in (("first", killed_log), ("second", resumed_log)):
@@ -1758,6 +1831,13 @@ def phase_elastic(workdir, nbytes):
         check(resumed["losses"] == continued,
               f"resumed steps 3-4 {resumed['losses']} are not bitwise the "
               f"first life's {continued} (diff {diff})")
+        sample, wall = check_digest_against_wall(resumed["digests"],
+                                                 resumed["step_s"])
+        print(f"  the second life's step-time digest: median sample "
+              f"{sample:.4f} s against the median step wall {wall:.4f} s "
+              f"(within {DIGEST_WALL_TOL:.0%}); the windows its reports "
+              f"carried {resumed['digests']}, the first life's "
+              f"{killed['digests']}", flush=True)
         exit_line = [x for x in lines if "local master exiting:" in x]
         check(exit_line and exit_line[-1].endswith(
             "succeeded; checkpoint steps by node {0: 4}"),
@@ -1922,22 +2002,53 @@ def _data_emit(kind, **fields):
           flush=True)
 
 
+def _record_reports(client, sink=None, emit=False):
+    """Wrap ``client``'s step report: each call's step, stamp (``ts``,
+    the stamp the master's ledger reads), digest window, whether it
+    reached a master (``ok``) and when it returned (``done_t``), appended
+    to ``sink`` and, with ``emit``, printed as a ``report`` record."""
+    real = client.report_global_step
+
+    def report(step, digest=None, timestamp=0.0):
+        ts = timestamp or time.time()
+        ok = False
+        try:
+            resp = real(step, digest=digest, timestamp=ts)
+            ok = True
+            return resp
+        finally:
+            rec = {"step": step, "ts": ts, "digest": digest, "ok": ok,
+                   "done_t": time.time()}
+            if sink is not None:
+                sink.append(rec)
+            if emit:
+                _data_emit("report", **rec)
+
+    client.report_global_step = report
+
+
 def data_child(role, path):
-    """Phase 4d's shard-leg worker, started by the agent (module
-    docstring, 4d): registers the dataset, trains one step a shard on the
-    shard's rows of the file through ``ShardingClient`` and prints a JSON
-    line for each lease call and each shard; its first life SIGKILLs
-    itself after its ``DATA_KILL_AFTER``-th shard's step, its second takes
-    shards until the master says exhausted."""
+    """Phase 4d's shard-leg worker (``shards``) and phase 4e's workers
+    (``relaunch``, ``hang``), started by the agent (module docstring).
+    ``shards`` and ``relaunch`` register the dataset, train one step a
+    shard on the shard's rows of the file through ``ShardingClient`` and
+    print a JSON line for each lease call, each step report and each
+    shard; the ``shards`` worker's first life SIGKILLs itself after its
+    ``DATA_KILL_AFTER``-th shard's step, its second takes shards until the
+    master says exhausted; the ``relaunch`` worker is never killed.
+    ``hang``: ``_hang_child``."""
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    check(role == "shards", f"unknown data child {role!r}")
+    check(role in ("shards", "relaunch", "hang"),
+          f"unknown data child {role!r}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if role == "hang":
+        return _hang_child(path)
     from dlrover_tpu_torch.ops import attention
     from dlrover_tpu_torch.ops import fused_ce as fce
     from dlrover_tpu_torch.run import llama_pretrain
@@ -1978,6 +2089,7 @@ def data_child(role, path):
     client.lease_shards = lease
     for name in fallback:
         setattr(client, name, counted(name))
+    _record_reports(client, emit=True)
     _reset_counts(attention, fce, [0])
     sharding = ShardingClient(DATA_DATASET, client,
                               lease_count=DATA_LEASE_COUNT)
@@ -1997,13 +2109,64 @@ def data_child(role, path):
         _data_emit("shard", task_id=task.task_id, start=task.shard_start,
                    end=task.shard_end, crc=crc, loss=loss, seconds=seconds,
                    end_t=end_t)
-        if first and n == DATA_KILL_AFTER:
+        if role == "shards" and first and n == DATA_KILL_AFTER:
             _data_emit("end", counts=_launch_counts(attention, fce),
                        fallback=fallback, kill_t=time.time())
             os.kill(os.getpid(), signal.SIGKILL)
     _data_emit("end", counts=_launch_counts(attention, fce),
                fallback=fallback,
                shard_ckpt=json.loads(sharding.checkpoint_shards()))
+    return 0
+
+
+def _hang_child(path):
+    """Phase 4e's hang-leg worker: ``run/llama_pretrain.py``'s loader flow
+    on the token file (``--data``, no checkpoint), every step reported
+    (the context's step-report interval lowered to
+    ``HANG_REPORT_INTERVAL_S``). Its first life (no marker file beside the
+    corpus yet) SIGSTOPs itself after its first step report at least
+    ``HANG_STOP_AFTER_S`` into the life: alive, never stepping again, its
+    agent still heartbeating. The second life trains every step. Prints a ``life`` record, each step (its loss
+    at full precision), each step report, a ``stop`` record before the
+    stop and an ``end`` record, each life's kernel launches included."""
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.train import bootstrap
+
+    marker = os.path.join(os.path.dirname(path), "hang-stopped")
+    first = not os.path.exists(marker)
+    start_t = time.time()
+    _data_emit("life", first=first, pid=os.getpid(), start_t=start_t)
+    ctx = bootstrap.init()
+    ctx.step_report_interval = HANG_REPORT_INTERVAL_S
+    _record_reports(ctx.client, emit=True)
+    _reset_counts(attention, fce, [0])
+    real_report = ctx.report_step
+
+    def report_step(step, force=False, digest=None):
+        real_report(step, force=force, digest=digest)
+        if first and time.time() >= start_t + HANG_STOP_AFTER_S:
+            _data_emit("stop", step=step, counts=_launch_counts(
+                attention, fce), stop_t=time.time())
+            open(marker, "w").close()
+            os.kill(os.getpid(), signal.SIGSTOP)
+
+    ctx.report_step = report_step
+    real_step = llama_pretrain.timed_step
+
+    def timed(trainer, state, batch):
+        state, loss, seconds = real_step(trainer, state, batch)
+        _data_emit("step", loss=loss, seconds=seconds, end_t=time.time())
+        return state, loss, seconds
+
+    with mock.patch.object(llama_pretrain, "timed_step", timed):
+        result = llama_pretrain.run(
+            _data_args(HANG_STEPS, ["--data", path, "--data-dtype",
+                                    "uint32"]),
+            log=lambda m: print(m, flush=True))
+    _data_emit("end", counts=_launch_counts(attention, fce),
+               losses=result["losses"])
     return 0
 
 
@@ -2016,7 +2179,8 @@ def _data_life(job, restart):
     path = os.path.join(agent_log_dir(job, 0),
                         f"worker-0-restart{restart}.log")
     check(os.path.exists(path), f"no log of life {restart}: {path}")
-    life = {"shards": [], "leases": [], "end": None, "records": []}
+    life = {"shards": [], "leases": [], "reports": [], "end": None,
+            "records": []}
     with open(path, errors="replace") as f:
         for line in f:
             if not line.startswith("DATA_CHILD_JSON "):
@@ -2028,6 +2192,8 @@ def _data_life(job, restart):
                                        rec["end"], rec["crc"]])
             elif rec["kind"] == "lease":
                 life["leases"].append(rec)
+            elif rec["kind"] == "report":
+                life["reports"].append(rec)
             else:
                 life["end"] = rec
     check(life["end"] is not None, f"life {restart} printed no end record")
@@ -2113,21 +2279,8 @@ def phase_data(torch, attention, fce, chunked_calls, main_result):
                path]
         print(f"  [shards] {' '.join(cmd[1:])} (master /metrics on port "
               f"{metrics_port})", flush=True)
-        lines = []
-        proc = subprocess.Popen(cmd, cwd=repo, env=env, text=True,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT)
-        timer = threading.Timer(DATA_TIMEOUT_S, proc.kill)
-        timer.start()
-        try:
-            with MetricsPoller(metrics_port) as poller:
-                for line in iter(proc.stdout.readline, ""):
-                    lines.append(line.rstrip())
-                    print(f"  [shards] {line.rstrip()}", flush=True)
-        finally:
-            timer.cancel()
-            proc.kill()
-            proc.wait(timeout=60)
+        poller = MetricsPoller(metrics_port)
+        proc, lines = _run_cli(cmd, env, "shards", DATA_TIMEOUT_S, poller)
         first, second = _data_life(job, 0), _data_life(job, 1)
         for label, life in (("first", first), ("second", second)):
             for rec in life["records"]:
@@ -2205,6 +2358,404 @@ def phase_data(torch, attention, fce, chunked_calls, main_result):
           flush=True)
     check(seconds < DATA_PHASE_LIMIT_S,
           f"phase 4d took {seconds:.1f}s, over {DATA_PHASE_LIMIT_S}s")
+
+
+def check_digest_against_wall(windows, step_s):
+    """A life's step-time digest against the step walls this script times
+    (``llama_pretrain.timed_step``: a device sync, the step, the loss on the
+    host). ``windows``: the digest windows the life's step reports carried
+    (None where a report carried none); ``step_s``: the life's step walls,
+    its first (which the digest leaves out) included. Fails when no sample
+    arrived or the median sample is more than ``DIGEST_WALL_TOL`` off the
+    median wall
+    of the steps after the first. Returns the two medians."""
+    samples = [w["p50_s"] for w in windows if w and w.get("count")]
+    walls = list(step_s[1:])
+    check(samples, f"no step report carried a digest sample: {windows}")
+    check(walls, f"no step after the first to hold the digest to: {step_s}")
+    sample, wall = statistics.median(samples), statistics.median(walls)
+    tol = DIGEST_WALL_TOL
+    check(abs(sample - wall) <= tol * wall,
+          f"the digest's median sample {sample:.4f} s is not within "
+          f"{tol:.0%} of the median step wall {wall:.4f} s (samples "
+          f"{samples}, walls {walls})")
+    return sample, wall
+
+
+RESUMED = re.compile(r"resumed state: (\d+) datasets, global_step=(\d+)")
+
+
+def check_relaunch(life, ranges, file_crc, kill_t, reading, resumed):
+    """Phase 4e's master-relaunch leg. ``life``: the worker's one life
+    (it survives the master): its ``shards`` (``[task_id, start, end,
+    crc]``) and step ``reports`` (``step``, ``ts``, ``ok``, ``done_t``).
+    ``reading``: the relaunched master's exit summary (``master_reading``);
+    ``resumed``: the ``(datasets, global step)`` it restored. Fails on a
+    range not trained or trained twice, a step's CRC32 unlike the file's
+    rows, a restore other than one dataset and a global step in (0, the
+    last step reported before the kill], a final global step other than
+    the steps trained, goodput outside (0, 1], or downtime other than one
+    bracket from no later than the kill to the stamp of the first step
+    report the relaunched master took. Returns the bracket's seconds."""
+    trained = [(start, end) for _, start, end, _ in life["shards"]]
+    twice = sorted({r for r in trained if trained.count(r) > 1})
+    check(not twice, f"ranges {twice} trained twice across the relaunch")
+    missing = sorted(set(ranges) - set(trained))
+    check(not missing, f"ranges {missing} never trained")
+    for task_id, start, end, crc in life["shards"]:
+        check(crc == file_crc[(start, end)],
+              f"the step on range {start}:{end} (task {task_id}) has CRC32 "
+              f"{crc}, the file's rows {file_crc[(start, end)]}")
+    before = [r["step"] for r in life["reports"]
+              if r["ok"] and r["done_t"] <= kill_t]
+    check(resumed is not None and resumed[0] == 1 and before
+          and 0 < resumed[1] <= max(before),
+          f"the relaunched master resumed {resumed}; steps reported before "
+          f"the kill {before}")
+    check(reading["global_step"] == len(trained),
+          f"the relaunched master's global step {reading['global_step']}, "
+          f"not the {len(trained)} steps trained")
+    check(0.0 < reading["goodput"] <= 1.0,
+          f"the relaunched master's goodput is {reading['goodput']}")
+    after = [r for r in life["reports"] if r["ok"] and r["done_t"] > kill_t]
+    check(after, "no step report reached the relaunched master")
+    first_ts = after[0]["ts"]
+    brackets = reading["brackets"]
+    check(len(brackets) == 1, f"the relaunched master closed {len(brackets)} "
+          f"downtime brackets, not one: {brackets}")
+    start, end = brackets[0]
+    check(start <= kill_t <= end and abs(end - first_ts) < 1e-3,
+          f"the downtime bracket [{start:.3f}, {end:.3f}] does not run from "
+          f"no later than the kill ({kill_t:.3f}) to the first step report "
+          f"the relaunched master took ({first_ts:.3f})")
+    return end - start
+
+
+DECLARED = re.compile(r"collective hang declared: .* silent members (.*); ")
+
+
+def check_hang(first, second, declared, reading):
+    """Phase 4e's hang leg. ``first``, ``second``: the worker's two lives
+    (``steps`` with full-precision losses, ``reports``, the ``stop``
+    record of the first, the ``end`` record of the second); ``declared``:
+    the master's declaration lines; ``reading``: its exit summary. Fails
+    unless the master declared one hang with no silent member, billed
+    ``collective_hang`` in [W, 1.25 W + 1 s] (W ``HANG_WINDOW_S``), and
+    kept one downtime bracket from the first life's last step report (the
+    last progress stamp) to the second life's first; unless the first life
+    stopped before ``HANG_STEPS`` steps and the second trained every step,
+    its step 1 bitwise the first life's (same seed, batch and state); or
+    unless every kernel launched in both lives. Returns the hang seconds
+    and the bracket."""
+    check(len(declared) == 1, f"the master declared {len(declared)} hangs, "
+          f"not one: {declared}")
+    m = DECLARED.search(declared[0])
+    check(m and m.group(1) == "none",
+          f"the declaration named silent members: {declared[0]}")
+    check(first["stop"] is not None and len(first["steps"]) < HANG_STEPS,
+          f"the first life trained {len(first['steps'])} steps and stopped "
+          f"{first['stop']}")
+    check(second["end"] is not None and len(second["steps"]) == HANG_STEPS,
+          f"the second life trained {len(second['steps'])} of {HANG_STEPS} "
+          "steps")
+    one, two = first["steps"][0]["loss"], second["steps"][0]["loss"]
+    check(one == two, f"the second life's step-1 loss {two!r} is not "
+          f"bitwise the first life's {one!r}")
+    hang_s = reading["attribution"]["categories"]["collective_hang"]
+    window = HANG_WINDOW_S
+    check(window <= hang_s <= 1.25 * window + 1.0,
+          f"collective_hang {hang_s:.3f} s is outside [{window}, "
+          f"{1.25 * window + 1.0}] s")
+    last = [r["ts"] for r in first["reports"] if r["ok"]][-1]
+    resumed = [r["ts"] for r in second["reports"] if r["ok"]][0]
+    brackets = reading["brackets"]
+    check(len(brackets) == 1 and abs(brackets[0][0] - last) < 1e-3
+          and abs(brackets[0][1] - resumed) < 1e-3,
+          f"the downtime brackets {brackets} are not one from the last "
+          f"progress stamp {last:.3f} to the second life's first step "
+          f"report {resumed:.3f}")
+    for label, counts in (("first", first["stop"]["counts"]),
+                          ("second", second["end"]["counts"])):
+        for name, n in counts.items():
+            check(n > 0, f"kernel {name} never launched in the {label} "
+                  "life of the hang leg")
+    return hang_s, brackets[0]
+
+
+def _hang_lives(job):
+    """The hang leg's two worker lives: both wrote the one log (a re-formed
+    round restarts the worker under the same restart count), split at
+    each ``life`` record."""
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+
+    path = os.path.join(agent_log_dir(job, 0), "worker-0-restart0.log")
+    check(os.path.exists(path), f"no log of the hang leg's worker: {path}")
+    lives = []
+    with open(path, errors="replace") as f:
+        for line in f:
+            if not line.startswith("DATA_CHILD_JSON "):
+                continue
+            rec = json.loads(line.split(" ", 1)[1])
+            if rec["kind"] == "life":
+                lives.append({"life": rec, "steps": [], "reports": [],
+                              "stop": None, "end": None, "records": []})
+                continue
+            check(lives, f"a record before the first life's: {rec}")
+            life = lives[-1]
+            life["records"].append(rec)
+            if rec["kind"] in ("step", "report"):
+                life[rec["kind"] + "s"].append(rec)
+            else:
+                life[rec["kind"]] = rec
+    check(len(lives) == 2 and lives[0]["life"]["first"]
+          and not lives[1]["life"]["first"],
+          f"the hang leg's worker lived {len(lives)} lives: "
+          f"{[x['life'] for x in lives]}")
+    return lives
+
+
+def _run_cli(cmd, env, label, timeout, poller=None):
+    """Run a CLI from the checkout until it ends, killed after ``timeout``
+    seconds, printing each line under ``label`` and keeping it; a
+    ``MetricsPoller`` given reads the master's /metrics meanwhile. Returns
+    the ended process and its lines."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    lines = []
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    try:
+        with poller or contextlib.nullcontext():
+            for line in iter(proc.stdout.readline, ""):
+                lines.append(line.rstrip())
+                print(f"  [{label}] {line.rstrip()}", flush=True)
+    finally:
+        timer.cancel()
+        proc.kill()
+        proc.wait(timeout=60)
+    return proc, lines
+
+
+def _relaunch_leg(workdir, path, tokens):
+    """Phase 4e's master-relaunch leg (module docstring)."""
+    import numpy as np
+
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+    from dlrover_tpu_torch.common.ipc import default_socket_path
+    from dlrover_tpu_torch.utils.net import find_free_port
+
+    t_leg = time.perf_counter()
+    job = f"chip_smoke_relaunch_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = find_free_port()
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""),
+               DLROVER_TPU_STATE_BACKEND="file",
+               DLROVER_TPU_STATE_DIR=os.path.join(workdir, "state"),
+               DLROVER_TPU_JOB_NAME=job)
+    masters = []
+
+    def launch(tag):
+        log = os.path.join(workdir, f"master-{tag}.log")
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "dlrover_tpu_torch.master.main",
+                 "--port", str(port)], cwd=repo, env=env, stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        masters.append(proc)
+        deadline = time.time() + 60
+        while f"serving on port {port}" not in open(log).read():
+            check(proc.poll() is None and time.time() < deadline,
+                  f"the {tag} master did not serve on port {port}: "
+                  f"{open(log).read()[-2000:]}")
+            time.sleep(0.02)
+        return proc, log, time.time()
+
+    cli_out = {}
+    try:
+        m1, _, _ = launch("first")
+        print(f"  [relaunch] master on port {port}, state under "
+              f"{env['DLROVER_TPU_STATE_DIR']}", flush=True)
+        cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
+               f"--master_addr=127.0.0.1:{port}", "--nnodes=1",
+               "--nproc_per_node=1", f"--job_name={job}",
+               os.path.abspath(__file__), "--", "--data-child", "relaunch",
+               path]
+        print(f"  [relaunch] {' '.join(cmd[1:])}", flush=True)
+
+        def run_cli():
+            cli_out["proc"], cli_out["lines"] = _run_cli(
+                cmd, env, "relaunch", CONTROL_TIMEOUT_S)
+
+        cli = threading.Thread(target=run_cli, daemon=True)
+        cli.start()
+        wlog = os.path.join(agent_log_dir(job, 0), "worker-0-restart0.log")
+        deadline = time.time() + CONTROL_TIMEOUT_S
+        while True:
+            text = open(wlog).read() if os.path.exists(wlog) else ""
+            if text.count('"kind": "shard"') >= RELAUNCH_KILL_AFTER:
+                break
+            check(cli.is_alive() and time.time() < deadline,
+                  f"the worker never trained {RELAUNCH_KILL_AFTER} shards: "
+                  f"{text[-2000:]}")
+            time.sleep(0.02)
+        os.kill(m1.pid, signal.SIGKILL)
+        kill_t = time.time()
+        m1.wait(timeout=30)
+        m2, log2, serve_t = launch("second")
+        cli.join(timeout=CONTROL_TIMEOUT_S)
+        check(not cli.is_alive(), "the relaunch leg's CLI did not end")
+        m2.wait(timeout=120)
+        with open(log2) as f:
+            m2_lines = [x.rstrip() for x in f]
+        for line in m2_lines:
+            print(f"  [relaunch second master] {line}", flush=True)
+        life = _data_life(job, 0)
+        for rec in life["records"]:
+            print(f"  [relaunch worker] {json.dumps(rec)}", flush=True)
+        check(cli_out["proc"].returncode == 0,
+              f"the relaunch leg's CLI exited {cli_out['proc'].returncode}")
+        check(m2.returncode == 0 and any(
+            "local master exiting: succeeded" in x for x in m2_lines),
+            f"the relaunched master's exit {m2.returncode}: "
+            f"{[x for x in m2_lines if 'exiting' in x]}")
+        end = life["end"]
+        ckpt = end["shard_ckpt"]
+        check(ckpt["completed_records"] == DATA_RECORDS and not ckpt["todo"]
+              and not ckpt["doing"] and ckpt["epoch"] == 1,
+              f"the relaunched master's dataset at the end: {ckpt}")
+        for name, n in end["counts"].items():
+            check(n > 0, f"kernel {name} never launched in the relaunch "
+                  "leg's worker")
+        check(not any(end["fallback"].values()),
+              f"the per-task fallback fired: {end['fallback']}")
+        ranges = [(s, min(s + DATA_SHARD_SIZE, DATA_RECORDS))
+                  for s in range(0, DATA_RECORDS, DATA_SHARD_SIZE)]
+        file_crc = {(s, e): zlib.crc32(tokens[s:e].astype(np.int32)
+                                       .tobytes()) for s, e in ranges}
+        resumed = next(((int(m.group(1)), int(m.group(2))) for m in map(
+            RESUMED.search, m2_lines) if m), None)
+        reading = master_reading(m2_lines)
+        bracket_s = check_relaunch(life, ranges, file_crc, kill_t, reading,
+                                   resumed)
+        ends = [rec["end_t"] for rec in life["records"]
+                if rec["kind"] == "shard"]
+        longest = max(b - a for a, b in zip(ends, ends[1:]))
+        lease_s = max(x["seconds"] for x in life["leases"])
+        failed = sum(not r["ok"] for r in life["reports"])
+        print(f"  [relaunch] all {len(ranges)} ranges trained once, every "
+              f"step's CRC32 equal to the file's rows, the dataset complete "
+              f"with {ckpt['completed_records']} records; the relaunched "
+              f"master restored {resumed[0]} dataset at global step "
+              f"{resumed[1]} and ended at {reading['global_step']}; the "
+              f"gap from the kill to the new master serving "
+              f"{serve_t - kill_t:.3f} s; the worker's longest interval "
+              f"between two step ends {longest:.3f} s; the largest lease "
+              f"RPC {lease_s:.3f} s; step reports that failed in the gap "
+              f"{failed}", flush=True)
+        print_master("relaunch", None, reading, bracket_s,
+                     "the relaunch's bracket")
+    finally:
+        for proc in masters:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(os.path.dirname(agent_log_dir(job, 0)),
+                      ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
+    print(f"  master-relaunch leg: {time.perf_counter() - t_leg:.1f}s",
+          flush=True)
+
+
+def _hang_leg(path):
+    """Phase 4e's hang leg (module docstring)."""
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+    from dlrover_tpu_torch.common.ipc import default_socket_path
+
+    t_leg = time.perf_counter()
+    job = f"chip_smoke_hang_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""),
+               DLROVER_TPU_HANG_WATCHDOG_WINDOW_S=str(HANG_WINDOW_S))
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
+           "--standalone", "--nnodes=1", "--nproc_per_node=1",
+           "--max_restarts=1", f"--job_name={job}",
+           os.path.abspath(__file__), "--", "--data-child", "hang", path]
+    try:
+        print(f"  [hang] {' '.join(cmd[1:])}", flush=True)
+        proc, lines = _run_cli(cmd, env, "hang", CONTROL_TIMEOUT_S)
+        first, second = _hang_lives(job)
+        for label, life in (("first", first), ("second", second)):
+            for rec in life["records"]:
+                print(f"  [hang {label} life] {json.dumps(rec)}",
+                      flush=True)
+        check(proc.returncode == 0,
+              f"the hang leg's CLI exited {proc.returncode}, not 0")
+        exit_line = [x for x in lines if "local master exiting:" in x]
+        check(exit_line and "local master exiting: succeeded" in
+              exit_line[-1], f"the master's exit: {exit_line}")
+        declared = [x for x in lines if "collective hang declared" in x]
+        reading = master_reading(lines)
+        hang_s, bracket = check_hang(first, second, declared, reading)
+        declared_t = bracket[0] + hang_s
+        seen_t = _agent_stamp(lines, "membership changed; restarting",
+                              r"seen at ([0-9.]+)")
+        stopped_t = _agent_stamp(lines, "workers stopped at",
+                                 r"stopped at ([0-9.]+)")
+        starts = [float(m.group(1)) for m in (
+            re.search(r" at ([0-9.]+) log=", x) for x in lines
+            if "started worker" in x) if m]
+        check(len(starts) == 2, f"the agent started {len(starts)} workers")
+        step1_t = second["steps"][0]["end_t"]
+        phases = {
+            "stall_to_declaration_s": declared_t - bracket[0],
+            "declaration_to_agent_s": seen_t - declared_t,
+            "agent_to_worker_stopped_s": stopped_t - seen_t,
+            "stopped_to_new_worker_start_s": starts[1] - stopped_t,
+            "new_worker_start_to_step1_end_s": step1_t - starts[1],
+        }
+        print(f"  [hang] one hang declared ({declared[0].split('] ')[-1]}),"
+              f" collective_hang {hang_s:.3f} s (window {HANG_WINDOW_S} s);"
+              f" the first life stopped after step {first['stop']['step']},"
+              f" the second trained steps 1-{len(second['steps'])}, step 1 "
+              f"loss {second['steps'][0]['loss']!r} bitwise the first "
+              f"life's; time to recover {step1_t - bracket[0]:.3f} s from "
+              f"the stall to the new worker's first step end: the stall to "
+              f"the declaration {declared_t - bracket[0]:.3f} s, the "
+              f"declaration to the worker stopped {stopped_t - declared_t:.3f}"
+              f" s, the stop to the new worker's first step end "
+              f"{step1_t - stopped_t:.3f} s; by phase {json.dumps(phases)}",
+              flush=True)
+        print_master("hang", None, reading, bracket[1] - bracket[0],
+                     "the hang's bracket")
+    finally:
+        shutil.rmtree(os.path.dirname(agent_log_dir(job, 0)),
+                      ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
+    print(f"  hang leg: {time.perf_counter() - t_leg:.1f}s", flush=True)
+
+
+def phase_control(torch):
+    """Phase 4e, the control plane's recovery (module docstring)."""
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    try:
+        path = os.path.join(workdir, "corpus.bin")
+        tokens = write_corpus(path)
+        torch.cuda.empty_cache()
+        _relaunch_leg(workdir, path, tokens)
+        _hang_leg(path)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"  control-plane phase: {seconds:.1f}s (limit "
+          f"{CONTROL_PHASE_LIMIT_S}s)", flush=True)
+    check(seconds < CONTROL_PHASE_LIMIT_S,
+          f"phase 4e took {seconds:.1f}s, over {CONTROL_PHASE_LIMIT_S}s")
 
 
 def _card_vs_cpu(torch, label, params_cpu, batch_cpu, batch_gpu, loss_cpu,
@@ -2469,20 +3020,7 @@ def main_four_card():
                f"--job_name={job}", os.path.abspath(__file__), "--",
                "--ckpt-child", "four", ckpt_dir]
         print(f"  [four] {' '.join(cmd[1:])}", flush=True)
-        lines = []
-        proc = subprocess.Popen(cmd, cwd=repo, env=env, text=True,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT)
-        timer = threading.Timer(FOUR_CARD_TIMEOUT_S, proc.kill)
-        timer.start()
-        try:
-            for line in iter(proc.stdout.readline, ""):
-                lines.append(line.rstrip())
-                print(f"  [four] {line.rstrip()}", flush=True)
-        finally:
-            timer.cancel()
-            proc.kill()
-            proc.wait(timeout=60)
+        proc, lines = _run_cli(cmd, env, "four", FOUR_CARD_TIMEOUT_S)
         lives = []
         for restart in (0, 1):
             life = []
@@ -2666,6 +3204,10 @@ def main():
     print("== phase 4d: the data plane (Llama-3-8B width, 4 of 32 layers)",
           flush=True)
     phase_data(torch, attention, fce, chunked_calls, main_result)
+
+    print("== phase 4e: the control plane's recovery (Llama-3-8B width, 4 of "
+          "32 layers)", flush=True)
+    phase_control(torch)
 
     print("== phase 5: small-model reference (card bf16 vs cpu f32)",
           flush=True)

@@ -143,6 +143,9 @@ class ElasticAgent:
                 logger.info("node %s: workers succeeded", self._config.node_id)
                 self._client.report_succeeded()
                 if self._ckpt_saver is not None:
+                    # the job's last queued persist commits before its
+                    # segment goes
+                    self._ckpt_saver.drain()
                     self._ckpt_saver.cleanup_shm()
                 return 0
             if result == RunResult.AGENT_STOPPED:
@@ -153,11 +156,13 @@ class ElasticAgent:
                 return 143 if self._relaunch_requested else 0
             if result == RunResult.MEMBERSHIP_CHANGED:
                 logger.info(
-                    "node %s: membership changed; restarting workers",
-                    self._config.node_id,
+                    "node %s: membership changed; restarting workers, "
+                    "seen at %.3f", self._config.node_id, time.time(),
                 )
                 self._save_checkpoint_at_breakpoint()
                 self._stop_workers()
+                logger.info("node %s: workers stopped at %.3f",
+                            self._config.node_id, time.time())
                 continue
             # FAILED: persist what is staged, then the diagnosis decides
             # restart-in-place vs handing the node back to the platform

@@ -480,6 +480,25 @@ class AsyncCheckpointSaver:
         logger.info("checkpoint saver started (node %s, ipc %s)",
                     self.persister.node_id, self.socket_path)
 
+    def drain(self, timeout: float = 600.0) -> bool:
+        """Let the event loop handle every event queued before this call (a
+        persist the job's last save queued: its copy, fanout and commit)
+        and end, waiting at most ``timeout`` seconds; returns whether it
+        ended. The agent drains its saver when the job succeeds, before it
+        unlinks the segments and stops the saver; the JAX agent stops its
+        saver at once there, which can cut that persist short."""
+        if self._thread is None or not self._thread.is_alive():
+            return True
+        # a connection of its own: the loop's client is held by its polls
+        q = SharedQueue(CKPT_EVENT_QUEUE, self.socket_path,
+                        connect_timeout=5.0)
+        try:
+            q.put(CheckpointEvent(event_type="exit").to_wire())
+        finally:
+            q.close()
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
     def stop(self):
         """Stop the loop (an in-flight persist gets 10 s to end), the
         replica server and the IPC server."""

@@ -167,3 +167,35 @@ MASTER_METRICS_PORT = EnvFlag(
     "Master /metrics port (goodput, RPC queue depth + shed counters, "
     "straggler count; 0 = ephemeral port; unset = disabled).",
 )
+
+# -- master relaunch continuity (master/state_store.py)
+
+STATE_BACKEND = EnvFlag(
+    "DLROVER_TPU_STATE_BACKEND", "",
+    "Master state backend kind (memory | file | configmap); empty "
+    "picks the platform default.",
+)
+STATE_DIR = EnvFlag(
+    "DLROVER_TPU_STATE_DIR", "",
+    "Root directory of the file state backend (master relaunch state).",
+)
+
+# -- the collective-hang watchdog (master/monitor/hang_watchdog.py)
+
+HANG_WATCHDOG = EnvFlag(
+    "DLROVER_TPU_HANG_WATCHDOG", True,
+    "Master-side collective-hang watchdog "
+    "(master/monitor/hang_watchdog.py): 0 disables the sweep thread. "
+    "A round where every live worker is seated but step reports "
+    "stopped fleet-wide for the window is declared a collective hang: "
+    "downtime bracket opened, attributed to `collective_hang`, and "
+    "the seated cohort re-rendezvoused without its silent members.",
+)
+HANG_WATCHDOG_WINDOW_S = EnvFlag(
+    "DLROVER_TPU_HANG_WATCHDOG_WINDOW_S", 300.0,
+    "Fleet-wide no-progress window before a seated round is declared "
+    "a collective hang. Must comfortably exceed the step-report "
+    "cadence and the longest legitimate pause (checkpoint save, "
+    "eval); one slow RANK never trips it (that is the straggler "
+    "detector's job).",
+)

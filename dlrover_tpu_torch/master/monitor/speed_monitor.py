@@ -8,11 +8,12 @@ productive seconds (from the workers' step-time digests) and the lost
 categories (rendezvous, compile, state transfer, checkpoint, input stall,
 straggler wait, collective hang).
 
-Not copied yet: ``export_state`` / ``import_state`` (with the ledger's
-``export``/``import_``), which only a relaunched master's state store
-calls (ROADMAP 5b.2b). The port's local master logs ``trace_events`` (the
-downtime brackets) at its exit, where the JAX master dumps them into its
-job timeline.
+``export_state`` / ``import_state`` (with the rank ledger's ``export`` /
+``import_``) carry the ledger across a master relaunch through the state
+store (master/state_store.py); their document is the JAX one, so either
+package's master restores the other's. The port's local master logs
+``trace_events`` (the downtime brackets) at its exit, where the JAX master
+dumps them into its job timeline.
 """
 
 from __future__ import annotations
@@ -115,6 +116,41 @@ class _StripedRankLedger:
 
     def max_ckpt_blocking(self) -> float:
         return self._max("ckpt_blocking") or 0.0
+
+    def export(self) -> Dict[str, Dict]:
+        out = {"digest": {}, "productive": {}, "input_wait": {},
+               "ckpt_blocking": {}}
+        for lock, s in zip(self._locks, self._stripes):
+            with lock:
+                for key in out:
+                    out[key].update(s[key])
+        return out
+
+    def import_(
+        self,
+        digest: Dict[int, Dict],
+        productive: Dict[int, float],
+        input_wait: Dict[int, float],
+        ckpt_blocking: Dict[int, float],
+    ):
+        for lock, s in zip(self._locks, self._stripes):
+            with lock:
+                for key in ("digest", "productive", "input_wait",
+                            "ckpt_blocking"):
+                    s[key].clear()
+        for node, v in digest.items():
+            lock, s = self._slot(node)
+            with lock:
+                s["digest"][node] = dict(v)
+        for key, src in (
+            ("productive", productive),
+            ("input_wait", input_wait),
+            ("ckpt_blocking", ckpt_blocking),
+        ):
+            for node, v in src.items():
+                lock, s = self._slot(node)
+                with lock:
+                    s[key][node] = float(v)
 
 
 class SpeedMonitor:
@@ -628,3 +664,115 @@ class SpeedMonitor:
     def reset_running_speed(self):
         with self._lock:
             self._samples.clear()
+
+    # -- master-relaunch continuity -------------------------------------
+
+    def export_state(self) -> Dict:
+        """Durable ledger snapshot: global step, training-start epoch and
+        downtime totals survive a master relaunch, so goodput keeps its
+        true denominator instead of restarting from the relaunch time."""
+        ranks = self._ranks.export()
+        with self._lock:
+            return {
+                "global_step": self._global_step,
+                "start_training_time": self._start_training_time,
+                "total_downtime": self._total_downtime,
+                "downtime_events": self._downtime_events,
+                "downtime_start": self._downtime_start,
+                "breakdown_totals": dict(self._breakdown_totals),
+                "breakdown_events": self._breakdown_events,
+                "restore_tiers": dict(self._restore_tiers),
+                "last_restore_tier": self._last_restore_tier,
+                # attribution ledger: per-rank productive/input-wait
+                # accumulators, checkpoint seconds and the straggler
+                # detector — master relaunch must not lose accounting
+                "productive_s": {
+                    str(k): v for k, v in ranks["productive"].items()
+                },
+                "input_wait_s": {
+                    str(k): v for k, v in ranks["input_wait"].items()
+                },
+                "digest_last": {
+                    str(k): dict(v) for k, v in ranks["digest"].items()
+                },
+                "ckpt_blocking_s": {
+                    str(k): v for k, v in ranks["ckpt_blocking"].items()
+                },
+                "ckpt_restore_s": self._ckpt_restore_s,
+                "hang_s": self._hang_s,
+                "comm_links": {
+                    str(k): dict(v) for k, v in self._comm_links.items()
+                },
+                "overlap_ratio": {
+                    str(k): v for k, v in self._overlap_ratio.items()
+                },
+                "last_progress_ts": self._last_progress_ts,
+                "layout_spec": self._layout_spec,
+                "straggler": self.straggler_detector.export_state(),
+                # when the old master dies with no open bracket, the
+                # restore path backdates the relaunch gap to this stamp
+                "snapshot_time": self._clock(),
+            }
+
+    def import_state(self, state: Dict):
+        with self._lock:
+            self._global_step = max(
+                self._global_step, int(state.get("global_step", 0))
+            )
+            start = float(state.get("start_training_time", 0.0))
+            if start > 0.0:
+                self._start_training_time = start
+            self._total_downtime = float(state.get("total_downtime", 0.0))
+            self._downtime_events = int(state.get("downtime_events", 0))
+            # a downtime bracket that was open when the old master died
+            # stays open — the relaunch gap itself is downtime
+            self._downtime_start = float(state.get("downtime_start", 0.0))
+            totals = state.get("breakdown_totals") or {}
+            for phase in self._breakdown_totals:
+                self._breakdown_totals[phase] = float(
+                    totals.get(phase, 0.0)
+                )
+            self._breakdown_events = int(state.get("breakdown_events", 0))
+            self._restore_tiers = {
+                str(k): int(v)
+                for k, v in (state.get("restore_tiers") or {}).items()
+            }
+            self._last_restore_tier = str(
+                state.get("last_restore_tier", "")
+            )
+            self._ckpt_restore_s = float(state.get("ckpt_restore_s", 0.0))
+            self._hang_s = float(state.get("hang_s", 0.0))
+            self._comm_links = {
+                int(k): {str(a): int(b) for a, b in dict(v).items()}
+                for k, v in (state.get("comm_links") or {}).items()
+            }
+            self._overlap_ratio = {
+                int(k): float(v)
+                for k, v in (state.get("overlap_ratio") or {}).items()
+            }
+            # a relaunched master must keep planning stage-preserving
+            # targets — an empty restore (old snapshot) keeps ""
+            self._layout_spec = str(state.get("layout_spec", ""))
+        raw_blocking = state.get("ckpt_blocking_s") or {}
+        if not isinstance(raw_blocking, dict):
+            # pre-per-rank snapshot: one untagged total
+            raw_blocking = {-1: float(raw_blocking)}
+        self._ranks.import_(
+            digest={
+                int(k): dict(v)
+                for k, v in (state.get("digest_last") or {}).items()
+            },
+            productive={
+                int(k): float(v)
+                for k, v in (state.get("productive_s") or {}).items()
+            },
+            input_wait={
+                int(k): float(v)
+                for k, v in (state.get("input_wait_s") or {}).items()
+            },
+            ckpt_blocking={
+                int(k): float(v) for k, v in raw_blocking.items()
+            },
+        )
+        self._note_progress(float(state.get("last_progress_ts", 0.0)))
+        self.straggler_detector.import_state(state.get("straggler") or {})

@@ -1,7 +1,7 @@
 """Master-side straggler detection over per-rank step-time digests: the
-port's own copy of dlrover_tpu/master/monitor/straggler.py (the master
-relaunch's ``export_state``/``import_state`` wait for the state store,
-ROADMAP.md).
+port's own copy of dlrover_tpu/master/monitor/straggler.py, with the
+master relaunch's ``export_state``/``import_state`` (the speed monitor's
+snapshot carries them through master/state_store.py).
 
 Policy (the JAX package's docs/design/observability.md): each worker's
 throttled step report carries a windowed step-time digest
@@ -176,3 +176,36 @@ class StragglerDetector:
                 "strikes": dict(self._strikes),
                 "lost_s": round(self._lost_s, 6),
             }
+
+    # -- master-relaunch continuity ------------------------------------
+
+    def export_state(self) -> Dict:
+        with self._lock:
+            return {
+                "latest_p50": {str(k): v for k, v in self._latest_p50.items()},
+                "strikes": {str(k): v for k, v in self._strikes.items()},
+                "flagged": {
+                    str(k): rec.to_dict() for k, rec in self._flagged.items()
+                },
+                "lost_s": self._lost_s,
+            }
+
+    def import_state(self, state: Dict):
+        if not state:
+            return
+        with self._lock:
+            self._latest_p50 = {
+                int(k): float(v)
+                for k, v in (state.get("latest_p50") or {}).items()
+            }
+            self._strikes = {
+                int(k): int(v)
+                for k, v in (state.get("strikes") or {}).items()
+            }
+            self._flagged = {}
+            for k, d in (state.get("flagged") or {}).items():
+                try:
+                    self._flagged[int(k)] = StragglerRecord(**d)
+                except TypeError:
+                    continue  # version-skewed snapshot field
+            self._lost_s = float(state.get("lost_s", 0.0))

@@ -11,8 +11,11 @@ dlrover_tpu/master/rendezvous/manager.py.
   pairwise device and link check, over two rounds that localize fault
   nodes and stragglers.
 
-The JAX package's planner growth gate and hang-watchdog re-form signal
-wait for those modules (ROADMAP.md).
+The hang watchdog's re-form signal (``request_re_rendezvous``: a virtual
+waiter until the next round completes) and ``latest_world_ids`` are the
+JAX package's. Its planner growth gate waits for the planner (ROADMAP
+5b.2d), and with it the alive-node set that only the gate reads, so an
+excluded member here leaves only the waiting list.
 """
 
 from __future__ import annotations
@@ -73,7 +76,9 @@ class _WorldSnapshot:
     rdzv_ids: FrozenSet[int] = frozenset()
     waiting_ids: FrozenSet[int] = frozenset()
     num_waiting: int = 0
+    force_reform: bool = False
     coordinator: str = ""
+    latest_world: Tuple[int, ...] = ()
 
 
 class RendezvousManager(ABC):
@@ -91,10 +96,15 @@ class RendezvousManager(ABC):
         self._waiting_nodes: Dict[int, NodeTopologyMeta] = {}
         self._rdzv_nodes: Dict[int, NodeTopologyMeta] = {}
         self._lastcall_time: float = 0.0
+        self._latest_rdzv_nodes: List[int] = []
         self._rdzv_round = 0
         self._start_rdzv_ts: float = 0.0
         self._node_unit = 1
         self._topology_sorter = TpuTopologySorter()
+        # the hang watchdog's re-form signal: while set, workers polling
+        # num_nodes_waiting see a virtual waiter and drop back into the
+        # rendezvous; the next completed round clears it
+        self._force_reform = False
         # the poll fast path: an immutable snapshot rebuilt on every
         # MUTATION (copy-on-change) and read lock-free by the storms of
         # get_comm_world / num_nodes_waiting polls. The reference store
@@ -113,7 +123,9 @@ class RendezvousManager(ABC):
                 m.node_id for m in self._waiting_nodes.values()
             ),
             num_waiting=len(self._waiting_nodes),
+            force_reform=self._force_reform,
             coordinator=self.coordinator_addr(),
+            latest_world=tuple(self._latest_rdzv_nodes),
         )
 
     def update_rdzv_params(
@@ -159,9 +171,42 @@ class RendezvousManager(ABC):
 
     def num_nodes_waiting(self) -> int:
         """Agents poll this; >0 during training means a membership
-        change. Served from the immutable snapshot: one reference read,
-        no lock."""
-        return self._snapshot.num_waiting
+        change. While a re-form is requested (collective-hang recovery)
+        and nobody has re-joined yet, a VIRTUAL waiter is reported so
+        the seated-but-stalled cohort drops back into the rendezvous,
+        the same signal path a real joiner uses. Served from the
+        immutable snapshot: one reference read, no lock."""
+        s = self._snapshot
+        if s.num_waiting == 0 and s.force_reform:
+            return 1
+        return s.num_waiting
+
+    def request_re_rendezvous(self, exclude=()) -> None:
+        """Collective-hang recovery (master/monitor/hang_watchdog.py):
+        drop the silent members of the seated round from the waiting list
+        and raise the re-form signal. Reachable members see a waiter on
+        their next membership poll and re-join; the next completed round
+        clears the signal. An excluded node that heals simply joins
+        again."""
+        with self._lock:
+            for node_id in exclude:
+                stale = [
+                    rank for rank, m in self._waiting_nodes.items()
+                    if m.node_id == node_id
+                ]
+                for rank in stale:
+                    del self._waiting_nodes[rank]
+            self._force_reform = True
+            self._publish_locked()
+        logger.warning(
+            "%s rdzv: re-rendezvous requested (excluding %s)",
+            self.name, sorted(exclude) if exclude else "nobody",
+        )
+
+    def latest_world_ids(self) -> List[int]:
+        """Node ids of the latest completed round's world (lock-free:
+        served from the published snapshot)."""
+        return list(self._snapshot.latest_world)
 
     def _effective_world_size(self, n: int) -> int:
         """Round down to a multiple of node_unit (reference :118-156)."""
@@ -202,7 +247,9 @@ class RendezvousManager(ABC):
         self._waiting_nodes = {
             r: m for r, m in self._waiting_nodes.items() if m.node_id not in kept_ids
         }
+        self._latest_rdzv_nodes = sorted(kept_ids)
         self._rdzv_round += 1
+        self._force_reform = False  # the re-formed world answers the hang
         self._publish_locked()
         elapsed = self._clock() - self._start_rdzv_ts if self._start_rdzv_ts else 0.0
         logger.info(

@@ -93,6 +93,7 @@ class LeaseGrant:
     acked: List[int] = field(default_factory=list)
     idle: bool = False
     exhausted: bool = False
+    changed: bool = False  # any durable mutation happened (persist hint)
 
 
 @dataclass
@@ -195,6 +196,13 @@ def _legacy_shard_ckpt(payload: Dict) -> Dict:
     return out
 
 
+def _meta_fence(entry) -> int:
+    """doing_meta lease fence; legacy 5-element entries carry none.
+    (from_json normalizes to 6 elements, but raw entries reach here
+    from in-memory paths too — keep the defensive read.)"""
+    return int(entry[5]) if len(entry) > 5 else -1
+
+
 class BatchDatasetManager:
     """Dispatches shards of a bounded dataset as tasks to workers."""
 
@@ -292,8 +300,10 @@ class BatchDatasetManager:
             for tid in done_ids or ():
                 if self._finish_locked(int(tid), True, lease_epoch, now):
                     grant.acked.append(int(tid))
+                    grant.changed = True
             for tid in failed_ids or ():
-                self._finish_locked(int(tid), False, lease_epoch, now)
+                if self._finish_locked(int(tid), False, lease_epoch, now):
+                    grant.changed = True
             lease = self._leases.get(node_id)
             if count > 0:
                 self._refill_locked()
@@ -325,6 +335,7 @@ class BatchDatasetManager:
                         )
                         lease.task_ids.add(task.task_id)
                         grant.tasks.append(task)
+                    grant.changed = grant.changed or bool(grant.tasks)
             if lease is not None:
                 grant.lease_epoch = lease.epoch
                 grant.deadline = lease.deadline
@@ -519,6 +530,63 @@ class BatchDatasetManager:
             for ls in self._leases.values()
         ]
 
+    def _restore_doing_locked(self, ckpt: "DatasetShardCheckpoint"):
+        """keep_doing restore: rebuild the in-flight tasks under their
+        ORIGINAL ids and lease fences (legacy issues re-enter the
+        timeout heap), then the leases over them."""
+        now = self._clock()
+        for entry in ckpt.doing_meta:
+            task_id, node_id, partition, start, end = entry[:5]
+            task = Task(
+                task_id=int(task_id),
+                task_type=self.task_type,
+                dataset_name=self.dataset_name,
+                shard_start=start,
+                shard_end=end,
+                partition=str(partition or ""),
+                epoch=ckpt.epoch,
+            )
+            fence = _meta_fence(entry)
+            self._doing[task.task_id] = DoingTask(
+                task, int(node_id), now, fence
+            )
+            if fence < 0:
+                heapq.heappush(
+                    self._deadlines,
+                    (now + self.task_timeout, _TASK, task.task_id),
+                )
+        self._restore_leases_locked(ckpt)
+
+    def _restore_leases_locked(self, ckpt: "DatasetShardCheckpoint"):
+        """Rebuild the in-flight leases from the checkpoint. Deadlines
+        get one fresh TTL of grace from *now*: the relaunch gap may
+        have outlived the persisted deadlines, and live holders renew
+        on their next folded report — expiring them on the first sweep
+        would re-enqueue shards their workers still hold (correct but
+        wasteful at-least-once churn). Truly dead holders still expire
+        one TTL later."""
+        now = self._clock()
+        self._leases.clear()
+        self._lease_seq = max(self._lease_seq, int(ckpt.lease_seq))
+        for entry in ckpt.leases or []:
+            node_id, epoch, deadline, task_ids = (
+                int(entry[0]), int(entry[1]), float(entry[2]),
+                [int(t) for t in entry[3]],
+            )
+            progress_at = float(entry[4]) if len(entry) > 4 else now
+            held = {t for t in task_ids if t in self._doing}
+            if not held:
+                continue
+            lease = ShardLease(
+                node_id, epoch, max(deadline, now + self.lease_ttl), held,
+                progress_at=progress_at,
+            )
+            self._leases[node_id] = lease
+            self._lease_seq = max(self._lease_seq, epoch)
+            heapq.heappush(
+                self._deadlines, (lease.deadline, _LEASE, node_id)
+            )
+
     def checkpoint(self) -> DatasetShardCheckpoint:
         with self._lock:
             return DatasetShardCheckpoint(
@@ -540,11 +608,16 @@ class BatchDatasetManager:
                 lease_seq=self._lease_seq,
             )
 
-    def restore_checkpoint(self, ckpt: DatasetShardCheckpoint):
-        """Doing shards are treated as undone and go back to todo (a
-        worker restart); their leases are dropped. The JAX manager's
-        ``keep_doing``, which rebuilds them for a relaunched master, waits
-        with the state store (ROADMAP 5b.2)."""
+    def restore_checkpoint(
+        self, ckpt: DatasetShardCheckpoint, keep_doing: bool = False
+    ):
+        """Default: doing shards are treated as undone and go back to todo
+        (worker restart). ``keep_doing`` (master relaunch with workers
+        still alive): in-flight tasks are rebuilt as *doing* under their
+        original ids AND original lease fences, so live workers' late
+        (possibly batched) reports complete them exactly-once; restored
+        leases get a renewal grace and the deadline heap requeues any
+        whose worker truly died."""
         with self._lock:
             self._splitter.restore_epoch(
                 ckpt.epoch, ckpt.epoch_unit, ckpt.epoch_factor
@@ -555,7 +628,11 @@ class BatchDatasetManager:
             self._deadlines = []
             self._completed_records = ckpt.completed_records
             self._task_id_seq = max(self._task_id_seq, ckpt.task_id_seq)
-            for start, end in list(ckpt.doing) + list(ckpt.todo):
+            doing = list(ckpt.doing)
+            if keep_doing and ckpt.doing_meta:
+                doing = []
+                self._restore_doing_locked(ckpt)
+            for start, end in doing + list(ckpt.todo):
                 task = Task(
                     task_id=self._task_id_seq,
                     task_type=self.task_type,
@@ -619,7 +696,9 @@ class StreamingDatasetManager(BatchDatasetManager):
                 lease_seq=self._lease_seq,
             )
 
-    def restore_checkpoint(self, ckpt: DatasetShardCheckpoint):
+    def restore_checkpoint(
+        self, ckpt: DatasetShardCheckpoint, keep_doing: bool = False
+    ):
         with self._lock:
             self._todo.clear()
             self._doing.clear()
@@ -628,7 +707,11 @@ class StreamingDatasetManager(BatchDatasetManager):
             self._completed_records = ckpt.completed_records
             self._task_id_seq = max(self._task_id_seq, ckpt.task_id_seq)
             self._splitter.reset_offsets(ckpt.partition_offsets)
-            for partition, start, end in list(ckpt.doing) + list(ckpt.todo):
+            doing = list(ckpt.doing)
+            if keep_doing and ckpt.doing_meta:
+                doing = []
+                self._restore_doing_locked(ckpt)
+            for partition, start, end in doing + list(ckpt.todo):
                 task = Task(
                     task_id=self._task_id_seq,
                     task_type=self.task_type,

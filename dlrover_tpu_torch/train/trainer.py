@@ -32,14 +32,26 @@ gradient buffers for its update, and params and adam moments change where
 they lie. ``step`` returns the same state dict it was given.
 
 The step-time digest (``step_digest``, observability/digest.py): every
-step but the first adds its wall seconds, from ``step``'s entry to its
-return, as the JAX trainer adds its step's; the first, which builds the
-kernels and warms the allocator, would feed the straggler detector one
-giant sample per rank. The caller's step report drains it
-(``bootstrap.WorkerContext.report_step``). On the card ``step`` returns
-once its last kernel is queued, as the JAX step returns at dispatch, so a
-window reads the host's share of the step: the device's tail after the
-last launch falls to the next step's wait.
+step but the first adds one sample; the first, which builds the kernels
+and warms the allocator, would feed the straggler detector one giant
+sample per rank. The caller's step report drains it
+(``bootstrap.WorkerContext.report_step``). What a sample measures:
+
+- On the CPU the step runs synchronously, so a sample is ``step``'s wall
+  seconds from its entry to its return: the step's time.
+- On the card ``step`` returns once its last kernel is queued, so its
+  host wall is only the host's share of the step. A sample is instead the
+  device's time between two CUDA events recorded on the step's stream at
+  its entry and at its end, read once the end event has passed, never by
+  synchronising the step just queued: after queuing step N the trainer
+  waits for step N-1's end event and then reads every pair that has
+  passed (``step_digest`` reads again, without waiting, before a report
+  drains it). The host so runs at most one step ahead of the card, as
+  buffer donation holds the JAX host, and a sample converges to the
+  device's step time, as the JAX trainer's dispatch wall does
+  (dlrover_tpu/train/trainer.py's ``step``). A caller that synchronises
+  after each step sees the same: the step's device time from its first
+  launch to its last kernel's end.
 
 Meshes beyond dp (fsdp, tp, zero-1), hierarchical collectives, warm
 compile, remesh and the lint hooks are not ported yet.
@@ -111,9 +123,44 @@ class ElasticTrainer:
         #: the last step's CUDA events around the gradients' all-reduce
         #: (dp above 1 on the card), for its device time; None otherwise
         self.reduce_events: Optional[Tuple[Any, Any]] = None
-        #: each step's wall seconds but the first's (module docstring)
-        self.step_digest = StepTimeDigest()
+        #: each step's seconds but the first's (module docstring); read
+        #: through ``step_digest``
+        self._digest = StepTimeDigest()
+        #: on the card, each queued step's (start, end) CUDA events and
+        #: whether its time is a sample, oldest first
+        self._step_events: List[Tuple[Any, Any, bool]] = []
         self._steps_run = 0
+
+    @property
+    def step_digest(self) -> StepTimeDigest:
+        """The step-time digest, with the device times of every queued
+        step that the card has finished folded in (no wait)."""
+        self._read_step_events()
+        return self._digest
+
+    def _read_step_events(self):
+        """Fold the device time of each queued step whose end event has
+        passed, oldest first, into the digest."""
+        while self._step_events and self._step_events[0][1].query():
+            start, end, sample = self._step_events.pop(0)
+            if sample:
+                self._digest.add(start.elapsed_time(end) / 1e3)
+
+    def _end_step(self, t0: float, device_start, stream):
+        """Account for the step just queued on ``stream`` (module
+        docstring)."""
+        self._steps_run += 1
+        sample = self._steps_run > 1
+        if device_start is None:
+            if sample:
+                self._digest.add(time.monotonic() - t0)
+            return
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(stream)
+        if self._step_events:
+            self._step_events[-1][1].synchronize()
+        self._step_events.append((device_start, end, sample))
+        self._read_step_events()
 
     @property
     def dp(self) -> int:
@@ -185,6 +232,14 @@ class ElasticTrainer:
         state and the mean microbatch loss (of the global microbatches,
         the same on every rank) as a 0-dim tensor on the params' device."""
         t0 = time.monotonic()
+        leaves = flatten(state["params"])
+        tensors = [p for _, p in leaves]
+        # the params' device is where the step runs, whatever the batch's
+        device_start, stream = None, None
+        if tensors and tensors[0].is_cuda:
+            stream = torch.cuda.current_stream(tensors[0].device)
+            device_start = torch.cuda.Event(enable_timing=True)
+            device_start.record(stream)
         accum = self.accum_steps
         dp = self.dp
         micro = self.tc.micro_batch_size
@@ -202,8 +257,6 @@ class ElasticTrainer:
                 f"dp={dp} each takes this rank's micro_batch={micro} rows "
                 "(ElasticTrainer.local_rows)"
             )
-        leaves = flatten(state["params"])
-        tensors = [p for _, p in leaves]
         loss_sum = None
         grads = None
         for i in range(accum):
@@ -245,9 +298,7 @@ class ElasticTrainer:
         )
         state["step"] += 1
         loss = loss_sum * (1.0 / accum)
-        self._steps_run += 1
-        if self._steps_run > 1:
-            self.step_digest.add(time.monotonic() - t0)
+        self._end_step(t0, device_start, stream)
         return state, loss
 
     @torch.no_grad()

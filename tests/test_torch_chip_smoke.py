@@ -606,3 +606,311 @@ def test_four_card_checks_fail_on_each_fault(fault, match):
         second = second[:3]
     with pytest.raises(chip_smoke.SmokeFailure, match=match):
         chip_smoke.check_four_card(first, second, nbytes)
+
+
+# -- the step digest (phase 4c) and the control plane's recovery (phase 4e) -------
+
+
+def _window(sample):
+    return {"count": 1, "mean_s": sample, "p50_s": sample, "p95_s": sample,
+            "max_s": sample, "input_wait_s": 0.0}
+
+
+def test_digest_against_wall_check():
+    """The device-time digest passes; the host share of a step (the
+    digest before the fix), no sample, a sample 16 % off or a life with
+    no step after its first fails."""
+    walls = [9.8, 0.2381, 0.2352, 0.2360]
+    windows = [None, _window(0.2349), _window(0.2336), _window(0.2344)]
+    sample, wall = chip_smoke.check_digest_against_wall(windows, walls)
+    assert (sample, wall) == (0.2344, 0.2360)
+    # one sample (phase 4c's second life: steps 3-4, the first left out)
+    assert chip_smoke.check_digest_against_wall(
+        [None, _window(0.2349)], [9.8, 0.2381]) == (0.2349, 0.2381)
+    for bad, steps, match in (
+            ([None, _window(0.1152), _window(0.1149)], walls[:3],
+             "not within 15%"),
+            ([None, None], walls[:2], "no step report carried"),
+            ([None, _window(0.2381 * 1.16)], walls[:2], "not within"),
+            ([None, _window(0.2381 * 0.84)], walls[:2], "not within"),
+            ([_window(0.2)], walls[:1], "no step after the first")):
+        with pytest.raises(chip_smoke.SmokeFailure, match=match):
+            chip_smoke.check_digest_against_wall(bad, steps)
+
+
+def _relaunch_case():
+    """A worker that trained the 16 ranges once, a master SIGKILLed at
+    1001.6 after six step reports and its successor's exit summary, from
+    real port speed monitors (the ledger exported, imported, the gap
+    backdated to the last snapshot)."""
+    from dlrover_tpu_torch.master.local_master import goodput_summary
+    from dlrover_tpu_torch.master.monitor.speed_monitor import SpeedMonitor
+
+    class Clock:
+        t = 1000.0
+
+        def __call__(self):
+            return self.t
+
+    ranges = [(s, s + 2) for s in range(0, 32, 2)]
+    file_crc = {r: 7000 + r[0] for r in ranges}
+    shards = [[i + 1, s, e, file_crc[(s, e)]] for i, (s, e) in
+              enumerate(ranges)]
+    kill_t = 1001.6
+    reports = [{"step": n, "ts": 1000.0 + 0.25 * n, "ok": True,
+                "done_t": 1000.01 + 0.25 * n} for n in range(1, 7)]
+    # step 7's report is built in the gap and gives up; step 8's reaches
+    # the relaunched master on a retry
+    reports.append({"step": 7, "ts": 1001.75, "ok": False, "done_t": 1004.8})
+    reports += [{"step": n, "ts": 1004.9 + 0.25 * (n - 8), "ok": True,
+                 "done_t": 1005.0 + 0.25 * (n - 8)} for n in range(8, 17)]
+    clock = Clock()
+    old = SpeedMonitor(clock=clock)
+    for r in reports[:6]:
+        old.collect_global_step(r["step"], r["ts"])
+    clock.t = 1001.55
+    state = old.export_state()
+    clock.t = 1004.5
+    new = SpeedMonitor(clock=clock)
+    new.import_state(state)
+    new.mark_downtime_start(ts=state["snapshot_time"])
+    for r in reports[7:]:
+        new.collect_global_step(r["step"], r["ts"])
+        new.mark_downtime_end(ts=r["ts"])
+    clock.t = 1008.0
+    reading = chip_smoke.master_reading(
+        ["[INFO] [local_master.py:1:run] " + goodput_summary(new)])
+    life = {"shards": shards, "reports": reports}
+    return life, ranges, file_crc, kill_t, reading, (1, 6)
+
+
+def test_relaunch_check_passes():
+    life, ranges, file_crc, kill_t, reading, resumed = _relaunch_case()
+    assert reading["global_step"] == 16
+    assert chip_smoke.check_relaunch(life, ranges, file_crc, kill_t, reading,
+                                     resumed) == pytest.approx(1004.9
+                                                               - 1001.55)
+    line = "... local master resumed state: 1 datasets, global_step=6"
+    assert chip_smoke.RESUMED.search(line).groups() == ("1", "6")
+
+
+@pytest.mark.parametrize("fault, match", [
+    ("twice", "trained twice"),
+    ("missing", "never trained"),
+    ("crc", "CRC32"),
+    ("no_resume", "resumed None"),
+    ("resume_zero", "resumed"),
+    ("resume_ahead", "resumed"),
+    ("two_datasets", "resumed"),
+    ("final_step", "global step 15"),
+    ("goodput", "goodput"),
+    ("no_report_after", "no step report reached"),
+    ("two_brackets", "2 downtime brackets"),
+    ("late_start", "does not run from"),
+    ("early_end", "does not run from"),
+])
+def test_relaunch_check_fails_on_each_fault(fault, match):
+    life, ranges, file_crc, kill_t, reading, resumed = _relaunch_case()
+    if fault == "twice":
+        life["shards"].append(list(life["shards"][3]))
+    elif fault == "missing":
+        del life["shards"][10]
+    elif fault == "crc":
+        life["shards"][4][3] += 1
+    elif fault == "no_resume":
+        resumed = None
+    elif fault == "resume_zero":
+        resumed = (1, 0)
+    elif fault == "resume_ahead":
+        resumed = (1, 7)
+    elif fault == "two_datasets":
+        resumed = (2, 6)
+    elif fault == "final_step":
+        reading["global_step"] = 15
+    elif fault == "goodput":
+        reading["goodput"] = 0.0
+    elif fault == "no_report_after":
+        life["reports"] = life["reports"][:7]
+    elif fault == "two_brackets":
+        reading["brackets"].append([1006.0, 1006.5])
+    elif fault == "late_start":
+        reading["brackets"][0][0] = kill_t + 0.1
+    elif fault == "early_end":
+        # a report built before the kill closed the bracket
+        reading["brackets"][0][1] = kill_t - 0.05
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_relaunch(life, ranges, file_crc, kill_t, reading,
+                                  resumed)
+
+
+def _hang_case():
+    """The hang leg's two lives and what the port's master made of them:
+    a real watchdog, rendezvous manager and speed monitor on a clock (the
+    first life's last report at 1001.5, a sweep at 1045 past the 40 s
+    window, the re-formed round, the second life's first report at
+    1070.0), its declaration captured as the module logs it."""
+    from dlrover_tpu_torch.master.local_master import goodput_summary
+    from dlrover_tpu_torch.master.monitor import hang_watchdog
+    from dlrover_tpu_torch.master.monitor.speed_monitor import SpeedMonitor
+    from dlrover_tpu_torch.master.rendezvous.manager import (
+        ElasticTrainingRendezvousManager,
+    )
+    from dlrover_tpu_torch.master.rendezvous.net_topology import (
+        NodeTopologyMeta,
+    )
+
+    class Clock:
+        t = 990.0
+
+        def __call__(self):
+            return self.t
+
+    clock = Clock()
+    sm = SpeedMonitor(clock=clock)
+    rdzv = ElasticTrainingRendezvousManager(clock=clock)
+    rdzv.update_rdzv_params(min_nodes=1, max_nodes=1, node_unit=1)
+    wd = hang_watchdog.HangWatchdog(speed_monitor=sm, rdzv_manager=rdzv,
+                                    window_s=chip_smoke.HANG_WINDOW_S,
+                                    clock=clock)
+    declared = []
+    real_warning = hang_watchdog.logger.warning
+    hang_watchdog.logger.warning = lambda fmt, *a: declared.append(
+        "[WARNING] [hang_watchdog.py:1:sweep] " + fmt % a)
+
+    def seat():
+        rdzv.join_rendezvous(0, 0, NodeTopologyMeta(
+            node_id=0, node_rank=0, process_num=1, node_ip="127.0.0.1",
+            node_port=1))
+        rdzv.get_comm_world(0)
+        wd.sweep()
+
+    try:
+        seat()
+        sm.add_running_worker("worker", 0)
+        first_reports = [{"step": 1, "ts": 1001.25, "ok": True},
+                         {"step": 2, "ts": 1001.5, "ok": True}]
+        for r in first_reports:
+            sm.collect_global_step(r["step"], r["ts"])
+        clock.t = 1045.0
+        assert wd.sweep() is not None
+        clock.t = 1058.0
+        seat()  # the agent re-joins; the round re-forms
+        second_reports = [{"step": n, "ts": 1070.0 + 0.25 * n, "ok": True}
+                          for n in range(0, 4)]
+        for r in second_reports:
+            sm.mark_downtime_end(ts=r["ts"])
+        clock.t = 1075.0
+    finally:
+        hang_watchdog.logger.warning = real_warning
+    counts = {"flash_fwd": 16, "fused_ce_fwd": 2}
+    first = {"steps": [{"loss": 11.936391830444336, "end_t": 1001.2},
+                       {"loss": 11.89, "end_t": 1001.45}],
+             "reports": first_reports, "stop": {"step": 2,
+                                                "counts": dict(counts)},
+             "end": None}
+    second = {"steps": [{"loss": 11.936391830444336, "end_t": 1069.9}]
+              + [{"loss": 11.8, "end_t": 1070.2 + 0.25 * i}
+                 for i in range(chip_smoke.HANG_STEPS - 1)],
+              "reports": second_reports, "stop": None,
+              "end": {"counts": dict(counts)}}
+    reading = chip_smoke.master_reading(
+        ["[INFO] [local_master.py:1:run] " + goodput_summary(sm)])
+    # the script's filter of the master's lines
+    declared = [x for x in declared if "collective hang declared" in x]
+    return first, second, declared, reading
+
+
+def test_hang_check_passes():
+    first, second, declared, reading = _hang_case()
+    hang_s, bracket = chip_smoke.check_hang(first, second, declared, reading)
+    assert hang_s == pytest.approx(1045.0 - 1001.5)
+    assert bracket == [1001.5, 1070.0]
+
+
+@pytest.mark.parametrize("fault, match", [
+    ("none_declared", "declared 0 hangs"),
+    ("two_declared", "declared 2 hangs"),
+    ("silent", "silent members"),
+    ("not_stopped", "stopped None"),
+    ("short_second_life", f"trained {chip_smoke.HANG_STEPS - 1} of "
+                          f"{chip_smoke.HANG_STEPS}"),
+    ("first_life_never_stopped", "trained 24 steps and stopped"),
+    ("step1_loss", "not bitwise"),
+    ("hang_short", "outside"),
+    ("hang_long", "outside"),
+    ("bracket_start", "not one from the last"),
+    ("bracket_end", "not one from the last"),
+    ("two_brackets", "not one from the last"),
+    ("first_launch", "never launched in the first"),
+    ("second_launch", "never launched in the second"),
+])
+def test_hang_check_fails_on_each_fault(fault, match):
+    first, second, declared, reading = _hang_case()
+    cats = reading["attribution"]["categories"]
+    if fault == "none_declared":
+        declared = []
+    elif fault == "two_declared":
+        declared = declared * 2
+    elif fault == "silent":
+        declared = [declared[0].replace("silent members none",
+                                        "silent members [0]")]
+    elif fault == "not_stopped":
+        first["stop"] = None
+    elif fault == "short_second_life":
+        second["steps"] = second["steps"][:-1]
+    elif fault == "first_life_never_stopped":
+        first["steps"] = first["steps"] * (chip_smoke.HANG_STEPS // 2)
+    elif fault == "step1_loss":
+        second["steps"][0]["loss"] = 11.936391830444338
+    elif fault == "hang_short":
+        cats["collective_hang"] = chip_smoke.HANG_WINDOW_S - 0.5
+    elif fault == "hang_long":
+        cats["collective_hang"] = 1.25 * chip_smoke.HANG_WINDOW_S + 1.5
+    elif fault == "bracket_start":
+        reading["brackets"][0][0] = 1001.25  # not the last progress stamp
+    elif fault == "bracket_end":
+        reading["brackets"][0][1] = 1075.0
+    elif fault == "two_brackets":
+        reading["brackets"].append([1072.0, 1073.0])
+    elif fault == "first_launch":
+        first["stop"]["counts"]["fused_ce_fwd"] = 0
+    elif fault == "second_launch":
+        second["end"]["counts"]["flash_fwd"] = 0
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_hang(first, second, declared, reading)
+
+
+def test_hang_lives_split_the_one_log(tmp_path, monkeypatch):
+    """Both lives of the hang leg's worker write one log (a re-formed round
+    restarts it under the same restart count): split at the life records;
+    one life alone fails."""
+    import json
+
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    import tempfile
+
+    monkeypatch.setattr(tempfile, "tempdir", None)
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+
+    job = "chip-smoke-hang-lives"
+    os.makedirs(agent_log_dir(job, 0))
+    path = os.path.join(agent_log_dir(job, 0), "worker-0-restart0.log")
+
+    def rec(kind, **kw):
+        return "DATA_CHILD_JSON " + json.dumps({"kind": kind, **kw}) + "\n"
+
+    first = [rec("life", first=True), rec("step", loss=1.5),
+             "step 1 loss 1.5000 (9.0s)\n", rec("report", ts=1.0, ok=True),
+             rec("stop", step=1, counts={})]
+    second = [rec("life", first=False), rec("step", loss=1.5),
+              rec("report", ts=9.0, ok=True), rec("end", counts={})]
+    with open(path, "w") as f:
+        f.writelines(first + second)
+    one, two = chip_smoke._hang_lives(job)
+    assert one["stop"]["step"] == 1 and one["end"] is None
+    assert [s["loss"] for s in one["steps"]] == [1.5]
+    assert two["reports"][0]["ts"] == 9.0 and two["end"] is not None
+    with open(path, "w") as f:
+        f.writelines(first)
+    with pytest.raises(chip_smoke.SmokeFailure, match="lived 1 lives"):
+        chip_smoke._hang_lives(job)

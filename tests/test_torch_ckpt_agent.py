@@ -340,6 +340,35 @@ def test_back_pressure_holds_the_next_stage(job, monkeypatch):
         reader.close(unlink_shm=True)
 
 
+def test_drain_finishes_the_queued_persist(job, monkeypatch):
+    """``drain`` lets the saver handle what was queued before it (here a
+    persist slowed to 0.5 s) and then ends its loop, as the agent needs
+    when the job succeeds; ``stop`` alone would cut the persist short."""
+    name, ckpt_dir = job
+    host = AsyncCheckpointSaver(job_name=name, node_id=0)
+    done = []
+
+    def slow_persist(event):
+        time.sleep(0.5)
+        done.append(event.step)
+
+    monkeypatch.setattr(host, "_persist", slow_persist)
+    host.start()
+    q = ipc.SharedQueue(saver.CKPT_EVENT_QUEUE, host.socket_path,
+                        connect_timeout=5)
+    try:
+        for step in (2, 4):
+            q.put(saver.CheckpointEvent(event_type="save", step=step,
+                                        persist=True,
+                                        ckpt_dir=ckpt_dir).to_wire())
+        assert host.drain(timeout=WAIT_S)
+        assert done == [2, 4]
+        assert host.drain(timeout=WAIT_S)  # an ended loop: nothing to wait
+    finally:
+        q.close()
+        host.stop()
+
+
 def test_update_topology_clears_stale_marks(job):
     """A rendezvous round is a restart boundary: the saver drops every
     ``copied-<pid>`` mark and takes the new topology."""

@@ -22,7 +22,9 @@ package's, on the CPU.
 (e) The master's ``/metrics`` on an ephemeral port serves the gate's and
     the speed monitor's lines, and the local master starts it only under
     ``DLROVER_TPU_MASTER_METRICS_PORT``.
-(f) The worker side: the trainer's digest skips the first step, and
+(f) The worker side: the trainer's digest skips the first step, is the
+    step's host wall on the CPU and its device time between CUDA events on
+    the card (waiting only for the step before the one just queued), and
     ``WorkerContext.report_step`` drains a window with the input wait and
     keeps a window whose report failed for the next report, as the JAX
     bootstrap does.
@@ -481,6 +483,92 @@ def test_trainer_digest_skips_the_first_step():
     window = trainer.step_digest.snapshot_and_reset()
     assert window["count"] == 2 and window["mean_s"] > 0
     assert trainer.step_digest.snapshot_and_reset() is None
+
+
+def test_trainer_digest_on_the_cpu_is_the_host_wall():
+    """On the CPU the step is synchronous: each sample is the step's host
+    wall from its entry to its return."""
+    import time
+
+    from dlrover_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny()
+
+    def slow_loss(p, t):
+        time.sleep(0.05)
+        return llama.loss_fn(p, t, cfg)
+
+    trainer = ElasticTrainer(slow_loss, TrainConfig(global_batch_size=1,
+                                                    micro_batch_size=1))
+    state = trainer.init_state(
+        llama.init_params(cfg, torch.Generator().manual_seed(0)))
+    batch = torch.zeros((1, 1, 8), dtype=torch.long)
+    walls = []
+    for _ in range(4):
+        t0 = time.monotonic()
+        state, _ = trainer.step(state, batch)
+        walls.append(time.monotonic() - t0)
+    window = trainer.step_digest.snapshot_and_reset()
+    assert window["count"] == 3
+    assert 0.05 <= window["mean_s"] <= sum(walls[1:]) / 3
+    assert window["max_s"] <= max(walls[1:])
+
+
+def test_trainer_digest_on_the_card_reads_step_events(monkeypatch):
+    """On the card a sample is the device time between the step's start
+    and end events: after queuing step N the trainer waits for step N-1's
+    end event only (never the step just queued), reads every pair that has
+    passed, skips the first step's, and ``step_digest`` reads a passed
+    pair without waiting. Fake events stand in for CUDA's."""
+    from dlrover_tpu_torch.train import trainer as trainer_mod
+
+    now = [0.0]
+    waits = []
+
+    class FakeEvent:
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+            self.t, self.done = None, False
+
+        def record(self, stream=None):
+            self.t = now[0]
+
+        def query(self):
+            return self.done
+
+        def synchronize(self):
+            waits.append(self)
+            self.done = True
+
+        def elapsed_time(self, end):
+            return (end.t - self.t) * 1e3
+
+    monkeypatch.setattr(trainer_mod.torch.cuda, "Event", FakeEvent)
+    trainer = ElasticTrainer(lambda p, t: None, TrainConfig(
+        global_batch_size=1, micro_batch_size=1))
+    device_times = [5.0, 0.2, 0.25, 0.3]  # the first step builds
+    starts, t = [], 0.0
+    for dur in device_times:
+        start = FakeEvent(enable_timing=True)
+        now[0] = t
+        start.record()
+        starts.append(start)
+        t += dur
+        now[0] = t  # the end event's device time
+        trainer._end_step(0.0, start, stream=None)
+    ends = [e for _, e, _ in trainer._step_events]
+    # the host waited for each step's predecessor's end, in order
+    assert len(waits) == 3 and all(w.t is not None for w in waits)
+    assert not ends[-1].done and len(ends) == 1
+    assert trainer._digest.snapshot_and_reset() == {
+        "count": 2, "mean_s": 0.225, "p50_s": 0.2, "p95_s": 0.25,
+        "max_s": 0.25}
+    # the last step's pair is read once the card has passed its end
+    assert trainer.step_digest.snapshot_and_reset() is None
+    ends[-1].done = True
+    window = trainer.step_digest.snapshot_and_reset()
+    assert window["count"] == 1 and window["mean_s"] == pytest.approx(0.3)
+    assert len(waits) == 3 and not trainer._step_events
 
 
 def test_report_step_drains_a_window_and_keeps_a_failed_one():
