@@ -161,13 +161,20 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    master-relaunch leg: the script starts the port's master itself on a
    fixed free port, ``python -m dlrover_tpu_torch.master.main --port P``
    with ``DLROVER_TPU_STATE_BACKEND=file`` and a state directory under the
-   phase's temporary directory, then ``python -m
-   dlrover_tpu_torch.run.elastic_run --master_addr 127.0.0.1:P --nnodes=1
-   --nproc_per_node=1``, its worker ``chip_smoke.py --data-child relaunch
-   FILE`` (4d's shard worker, never killed, printing each step report's
-   stamp and outcome). Once the worker's log shows its
-   ``RELAUNCH_KILL_AFTER``-th shard's step, the script SIGKILLs the master
-   and starts it again on the same port with the same state directory;
+   phase's temporary directory, the goodput planner armed
+   (``DLROVER_TPU_PLANNER=1``, a decision every
+   ``RELAUNCH_PLANNER_INTERVAL_S`` once the auto-scaler's 90 s warmup has
+   passed) and ``/metrics`` on a free port read every ``METRICS_POLL_S``,
+   then ``python -m dlrover_tpu_torch.run.elastic_run --master_addr
+   127.0.0.1:P --nnodes=1 --nproc_per_node=1``, its worker
+   ``chip_smoke.py --data-child relaunch FILE`` (4d's shard worker, never
+   killed, printing each step report's stamp and outcome; it holds before
+   its first step until the script saw the first master's planner
+   document record a decision, and before its last until the relaunched
+   master's did, so that both lives of the master outlast the warmup).
+   Once the worker's log shows its ``RELAUNCH_KILL_AFTER``-th shard's
+   step, the script SIGKILLs the master and starts it again on the same
+   port with the same state directory;
    the worker's lease calls, step reports and its agent's heartbeats ride
    the gap on the client's retries. ``check_relaunch``: every one of the
    16 ranges trained exactly once, each step's CRC32 equal to the file's
@@ -178,8 +185,19 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    took; the CLI exits 0, the relaunched master finds the dataset complete
    and logs the job as succeeded, every kernel launched. Prints the gap
    from the kill to the new master serving, the worker's longest interval
-   between two step ends, the largest lease RPC, the bracket, goodput and
-   the attribution. The hang leg: ``elastic_run --standalone`` with
+   between two step ends before its hold for the last, the largest lease
+   RPC, the bracket, goodput and the attribution. The worker's trainer polls the runtime config and the
+   planner's hint at its default cadence. ``check_relaunch_planner``: the
+   planner document the first master left in the state store (what the
+   relaunched one imports) holds at least one decision, the relaunched
+   master's last document (read every ``METRICS_POLL_S / 2``: the master
+   clears it when the job succeeds) continues that ledger and count with
+   at least one more, every decision is HOLD (world 1, nothing waiting)
+   and none executed, ``/metrics`` carries
+   ``dlrover_tpu_scale_decisions_total``, no master logged a failed
+   planner sweep, and the last decision that observed a step p50 reads
+   within ``PLANNER_STEP_TOL`` (15 %) of the median of the digest samples
+   the worker's reports carried; both are printed. The hang leg: ``elastic_run --standalone`` with
    ``DLROVER_TPU_HANG_WATCHDOG_WINDOW_S`` = ``HANG_WINDOW_S`` (40 s: over
    twice the agent's 15 s heartbeat, so its node is never taken for a
    silent member), its worker ``chip_smoke.py --data-child hang FILE``:
@@ -224,13 +242,54 @@ every leaf's CRC32 equal across the ranks and to the state the first life
 staged, the resumed steps 3-4 bitwise the first life's, every kernel
 launched on every rank in both lives. Prints each step's gradient
 all-reduce (``reduce_ms``), global tokens/s and the time to recover by
-phase; its last line is the contract's, with the cards' count.
+phase.
+
+Then the scale-out leg (``SCALE_*``): the script starts the port's master
+through ``--master-child`` (``LocalJobMaster(node_num=2, min_node_num=1,
+planner=True)``, the file state backend, a planner decision every
+``SCALE_PLANNER_INTERVAL_S``, hysteresis ``SCALE_HYSTERESIS``,
+``DLROVER_TPU_PLANNER_HBM_GB`` ``SCALE_HBM_GB``, the local master's
+defaults otherwise: the 60 s last-call window and the auto-scaler's 90 s
+warmup), then node 0, ``elastic_run
+--master_addr 127.0.0.1:P --nnodes=1:2 --nproc_per_node=2 --node_id=0``
+under ``CUDA_VISIBLE_DEVICES=0,1``, its workers ``chip_smoke.py
+--ckpt-child scale DIR`` (``_scale_life``: the main path's widths at dp2,
+global batch 8, a corpus of ``SCALE_RECORDS`` sequences from the seed, a
+memory save, a loader sidecar and a step report with the digest every
+step, the runtime config polled at every step), and, once node 0's rank
+0 logged its ``SCALE_JOIN_AFTER``-th step, node 1 the same with
+``--node_id=1`` under ``CUDA_VISIBLE_DEVICES=2,3``. The growth gate hides
+node 1 until the planner's RESIZE is executed; node 0's agent then
+persists its breakpoint and restarts, and the round re-forms at four
+ranks once node 0 has re-joined (node 1, which waited longer than the
+window, forms no round alone), each restoring the persisted step and
+training ``SCALE_AFTER`` steps. ``check_scale_out``: HOLDs up to the hysteresis streak, exactly
+one RESIZE to 2 nodes, executed once; node 0's ranks stepped at dp2 at
+least twice between node 1's start and their agent seeing the waiter and
+armed the hint ``dp4`` before their life ended; ranks 0-3 at dp4, started
+after the execution, one restored step, every persisted piece's CRC32
+(node 0's manifests: what the dp2 life staged) equal on every rank; every
+step of both lives trained its rows of the loader's order (the committed
+steps train every record once); the dp4 ranks' losses equal, their first
+step's within ``SCALE_LOSS_RTOL`` of the dp2 life's same step; every
+kernel launched on every rank in both lives; both CLIs and the master
+exit 0 and no sweep failed. Prints dp2 and dp4 global tokens/s, the
+planner's predicted dp4 step against the measured one, the time from node
+1's join to the decision and from the decision to the first dp4 step's
+end by phase, and the downtime bracket the ledger billed (the
+auto-scaler opens it when the grown round forms, backdated to the last
+dp2 step report) with the ``resize_cost_s`` later decisions read.
+Global tokens/s is every token of a life's steps after its first over the
+wall from the first step's end to the last step's end, saves and reports
+included; the median step wall is printed beside it. The last line is the
+contract's, with the cards' count.
 
 Exits with code 2 and prints no result when CUDA is not available.
 ``--ckpt-child ROLE DIR`` runs one of phase 4c's children or the
-four-card leg's worker and ``--data-child ROLE FILE`` phase 4d's worker
-(``shards``) or one of phase 4e's (``relaunch``, ``hang``); none is run by
-hand.
+four-card leg's workers (``four``, ``scale``), ``--data-child ROLE FILE``
+phase 4d's worker (``shards``) or one of phase 4e's (``relaunch``,
+``hang``), and ``--master-child SPEC`` the scale-out leg's master; none
+is run by hand.
 """
 
 import contextlib
@@ -375,6 +434,19 @@ DATA_PHASE_LIMIT_S = 120
 # the script SIGKILLs the master once the worker has trained
 # RELAUNCH_KILL_AFTER shards and starts it again on its port.
 RELAUNCH_KILL_AFTER = 6
+# the relaunch leg's masters (the master CLI) arm the goodput planner
+# (DLROVER_TPU_PLANNER) and decide every RELAUNCH_PLANNER_INTERVAL_S once
+# the auto-scaler's warmup (the master config's seconds_to_autoscale_worker,
+# 90 s from each master's first poll) has passed. So that both lives of the
+# master decide, the worker holds before its first step until the script
+# has seen the first master decide, and before its last until the script
+# has seen the relaunched master decide (RELAUNCH_GO files beside the
+# corpus). A decision's observed step p50 must lie within PLANNER_STEP_TOL
+# of the median of the digest samples the worker reported (both read the
+# card's step time)
+RELAUNCH_PLANNER_INTERVAL_S = 1.0
+RELAUNCH_GO = ("relaunch-go-first", "relaunch-go-last")
+PLANNER_STEP_TOL = 0.15
 # the hang leg: the worker trains HANG_STEPS steps through the loader,
 # reporting every step (its step-report interval lowered to
 # HANG_REPORT_INTERVAL_S); its first life SIGSTOPs itself after its first
@@ -393,9 +465,10 @@ HANG_STOP_AFTER_S = HANG_WINDOW_S / 4 + 2.0
 # the digest against the step wall (phase 4c's second life): the median
 # sample within DIGEST_WALL_TOL of the median step the script times
 DIGEST_WALL_TOL = 0.15
-# seconds each leg's CLI may take, and the whole of phase 4e
+# seconds each leg's CLI may take, and the whole of phase 4e (the relaunch
+# leg waits out the auto-scaler's warmup in both lives of its master)
 CONTROL_TIMEOUT_S = 600
-CONTROL_PHASE_LIMIT_S = 300
+CONTROL_PHASE_LIMIT_S = 450
 # the master's /metrics (phases 4c and 4d): read every METRICS_POLL_S while
 # the CLI runs; the last reading before the master exits is kept
 METRICS_POLL_S = 0.25
@@ -410,6 +483,36 @@ FOUR_CARD_RECORDS = 64
 FOUR_CARD_KILL_RANK = 3
 FOUR_CARD_SHARE_TOL = 0.02
 FOUR_CARD_TIMEOUT_S = 1500
+# the four-card scale-out leg: the script's own master (node_num 2,
+# min_node_num 1, the planner armed, a decision every
+# SCALE_PLANNER_INTERVAL_S, hysteresis SCALE_HYSTERESIS, the memory gate at
+# SCALE_HBM_GB a card, the local master's defaults otherwise: its 60 s
+# last-call window, which the first round waits out with node 0 alone, and
+# the auto-scaler's 90 s warmup); node 0 (cards 0-1) trains at dp2 on the
+# main path's widths at global batch 8 (four microbatches a rank) over a
+# corpus of SCALE_RECORDS sequences, a memory save, a loader sidecar and a
+# step report every step; node 1 (cards 2-3) starts once node 0's rank 0
+# logged SCALE_JOIN_AFTER steps. After the restore the dp4 ranks train
+# SCALE_AFTER steps, long enough for a decision to read the resize's billed
+# cost. SCALE_STEPS is both lives' schedule length (and the cap of the dp2
+# life)
+SCALE_WORLD = 4
+SCALE_NODE_PROCS = 2
+SCALE_RECORDS = 1024
+SCALE_STEPS = 128
+SCALE_JOIN_AFTER = 3
+SCALE_AFTER = 24
+SCALE_PLANNER_INTERVAL_S = 5.0
+SCALE_HYSTERESIS = 2
+SCALE_HBM_GB = 80
+SCALE_TIMEOUT_S = 1200
+# the dp4 life's first step against the dp2 life's same step: the same
+# params (the restored state), the same eight rows, the same kernels, so
+# each row's loss term is the same bits; only the order of the f32 sums
+# differs (four microbatches and a two-rank all-reduce against two and a
+# four-rank one), at most a few ulps of 8 additions, 8 * 2^-24 = 4.8e-7
+# relative: SCALE_LOSS_RTOL leaves a factor of 20 over that
+SCALE_LOSS_RTOL = 1e-5
 # manifests, commit votes and the tracker beside a persisted step's leaves
 CKPT_DISK_SLACK = 64 << 20
 # a PCIe link's transfer rate a lane (GT/s) by generation; gens 1-2 encode
@@ -1178,27 +1281,25 @@ def parse_metrics(text):
     return out
 
 
-class MetricsPoller:
-    """Reads ``http://127.0.0.1:<port>/metrics`` every METRICS_POLL_S in a
-    thread while it is entered, keeping the last reading (``last``, empty
-    until the master serves)."""
+class Poller:
+    """Calls ``read`` every ``period`` seconds in a thread while it is
+    entered, keeping the last result that is not None (``value``; a read
+    that raises OSError or ValueError is skipped)."""
 
-    def __init__(self, port):
-        self.port = port
-        self.last = {}
+    def __init__(self, read, period=METRICS_POLL_S):
+        self.value = None
+        self._read, self._period = read, period
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
 
     def _run(self):
-        import urllib.request
-
-        url = f"http://127.0.0.1:{self.port}/metrics"
-        while not self._stop.wait(METRICS_POLL_S):
+        while not self._stop.wait(self._period):
             try:
-                with urllib.request.urlopen(url, timeout=2) as r:
-                    self.last = parse_metrics(r.read().decode())
-            except OSError:
+                value = self._read()
+            except (OSError, ValueError):
                 continue
+            if value is not None:
+                self.value = value
 
     def __enter__(self):
         self._thread.start()
@@ -1207,6 +1308,32 @@ class MetricsPoller:
     def __exit__(self, *exc):
         self._stop.set()
         self._thread.join(timeout=10)
+
+
+class MetricsPoller(Poller):
+    """Reads ``http://127.0.0.1:<port>/metrics`` every METRICS_POLL_S while
+    it is entered: ``text``, the last body (labelled samples included);
+    ``last``, its samples without labels (empty until the master
+    serves)."""
+
+    def __init__(self, port):
+        import urllib.request
+
+        def read():
+            url = f"http://127.0.0.1:{port}/metrics"
+            with urllib.request.urlopen(url, timeout=2) as resp:
+                return resp.read().decode()
+
+        super().__init__(read)
+        self.port = port
+
+    @property
+    def text(self):
+        return self.value or ""
+
+    @property
+    def last(self):
+        return parse_metrics(self.text)
 
 
 MASTER_SUMMARY = re.compile(
@@ -1455,6 +1582,8 @@ def ckpt_child(role, ckpt_dir):
         return _elastic_life(torch, ckpt_dir)
     if role == "four":
         return _four_card_life(torch, ckpt_dir)
+    if role == "scale":
+        return _scale_life(torch, ckpt_dir)
     args = _ckpt_args(4, ckpt_dir, 0)
     _, _, state, next_batch, _ = llama_pretrain.build(args)
     torch.cuda.synchronize()
@@ -2035,7 +2164,9 @@ def data_child(role, path):
     print a JSON line for each lease call, each step report and each
     shard; the ``shards`` worker's first life SIGKILLs itself after its
     ``DATA_KILL_AFTER``-th shard's step, its second takes shards until the
-    master says exhausted; the ``relaunch`` worker is never killed.
+    master says exhausted; the ``relaunch`` worker is never killed and
+    holds before its first and its last step for the script's
+    ``RELAUNCH_GO`` files beside ``path``.
     ``hang``: ``_hang_child``."""
     import numpy as np
     import torch
@@ -2059,7 +2190,10 @@ def data_child(role, path):
     first = os.environ["DLROVER_TPU_RESTART_COUNT"] == "0"
     ctx = bootstrap.init()
     device = torch.device("cuda", ctx.local_rank)
-    _, trainer, state, _, _ = llama_pretrain.build(_data_args(1), device)
+    # the trainer polls the runtime config and the planner's hint at its
+    # default cadence (its first step)
+    _, trainer, state, _, _ = llama_pretrain.build(_data_args(1), device,
+                                                   ctx)
     a, b = trainer.step_batch_shape
     dataset = TokenFileDataset(path, DATA_SEQ, dtype="uint32")
     client = ctx.client
@@ -2096,7 +2230,16 @@ def data_child(role, path):
     sharding.register_dataset(DATA_RECORDS, DATA_SHARD_SIZE, num_epochs=1,
                               shuffle=False)
     n = 0
+    shards = DATA_RECORDS // DATA_SHARD_SIZE
     for task in sharding.iter_tasks():
+        if role == "relaunch" and n in (0, shards - 1):
+            go = os.path.join(os.path.dirname(path),
+                              RELAUNCH_GO[0 if n == 0 else 1])
+            deadline = time.time() + CONTROL_TIMEOUT_S
+            while not os.path.exists(go):
+                check(time.time() < deadline, f"no {go} in time")
+                time.sleep(0.05)
+            _data_emit("go", file=os.path.basename(go), t=time.time())
         rows = np.stack([dataset[i] for i in
                          range(task.shard_start, task.shard_end)])
         batch = torch.from_numpy(rows.reshape(a, b, DATA_SEQ)).to(device)
@@ -2194,7 +2337,7 @@ def _data_life(job, restart):
                 life["leases"].append(rec)
             elif rec["kind"] == "report":
                 life["reports"].append(rec)
-            else:
+            elif rec["kind"] == "end":
                 life["end"] = rec
     check(life["end"] is not None, f"life {restart} printed no end record")
     return life
@@ -2431,6 +2574,90 @@ def check_relaunch(life, ranges, file_crc, kill_t, reading, resumed):
     return end - start
 
 
+def check_relaunch_planner(before, after, metrics_text, windows):
+    """Phase 4e's planner checks across the master's relaunch. ``before``:
+    the planner document the first master left in the state store (what
+    the relaunched one imports); ``after``: the relaunched master's last;
+    ``metrics_text``: a ``/metrics`` body of the run; ``windows``: the
+    digest windows the worker's step reports carried. Fails unless a
+    decision was recorded before the kill and one after the relaunch, the
+    relaunched ledger continues the imported one and its decision count
+    the imported count, every decision is HOLD (world 1 with nothing
+    waiting has only the incumbent) and no plan was executed, ``/metrics``
+    carries ``dlrover_tpu_scale_decisions_total``, and the last decision
+    that observed a step p50 reads within PLANNER_STEP_TOL of the digest
+    samples' median. Returns that p50, the median and the two counts."""
+    check(before is not None and before["decisions_total"] >= 1,
+          f"no decision before the kill: {before}")
+    check(after is not None and after["decisions_total"]
+          > before["decisions_total"],
+          f"no decision after the relaunch: {before and before['decisions_total']}"
+          f" imported, {after and after['decisions_total']} at the end")
+    n = len(before["ledger"])
+    check(after["ledger"][:n] == before["ledger"]
+          and after["decisions_total"] == before["decisions_total"]
+          + len(after["ledger"]) - n,
+          "the relaunched planner's ledger does not continue the imported "
+          "one")
+    verdicts = sorted({d["verdict"] for d in after["ledger"]})
+    check(verdicts == ["hold"] and after["counts"].get("resize", 0) == 0
+          and not after["executed"] and not after["intent"],
+          f"the planner did more than HOLD: verdicts {verdicts}, counts "
+          f"{after['counts']}, executed {after['executed']}")
+    check('dlrover_tpu_scale_decisions_total{verdict="hold"}' in metrics_text,
+          "the master's /metrics carries no planner lines")
+    p50s = [d["inputs"]["step_p50_s"] for d in after["ledger"]
+            if d["inputs"]["step_p50_s"] > 0]
+    samples = [w["p50_s"] for w in windows if w and w.get("count")]
+    check(p50s and samples, f"no decision observed a step p50 ({p50s}) or "
+          f"no digest sample reached the master ({samples})")
+    planner, median = p50s[-1], statistics.median(samples)
+    check(abs(planner - median) <= PLANNER_STEP_TOL * median,
+          f"the planner's step p50 {planner:.4f} s is not within "
+          f"{PLANNER_STEP_TOL:.0%} of the digest samples' median "
+          f"{median:.4f} s")
+    return planner, median, before["decisions_total"], after[
+        "decisions_total"]
+
+
+def load_planner_doc(state_dir, job):
+    """The planner document a master keeps in the file state store under
+    ``state_dir`` for ``job`` (None when there is none)."""
+    from dlrover_tpu_torch.master.state_store import (
+        FileStateBackend, MasterStateManager)
+
+    return MasterStateManager(FileStateBackend(
+        os.path.join(state_dir, job))).load_planner()
+
+
+def planner_doc_poller(state_dir, job):
+    """A ``Poller`` of the planner document (``value``: the last one found;
+    the master clears it when the job succeeds)."""
+    return Poller(lambda: load_planner_doc(state_dir, job),
+                  METRICS_POLL_S / 2)
+
+
+def master_child(spec):
+    """The scale-out leg's master, started by this script (the master CLI
+    takes no ``min_node_num``): ``spec`` is a JSON object with ``port``,
+    ``node_num`` and ``min_node_num``; the planner is armed and every
+    other setting is the local master's default. Runs the master to the
+    job's end; its log is the caller's."""
+    from dlrover_tpu_torch.master.local_master import LocalJobMaster
+
+    spec = json.loads(spec)
+    master = LocalJobMaster(
+        port=spec["port"], node_num=spec["node_num"],
+        min_node_num=spec["min_node_num"], planner=True)
+    master.prepare()
+    return master.run()
+
+
+def _master_cmd(spec):
+    return [sys.executable, os.path.abspath(__file__), "--master-child",
+            json.dumps(spec)]
+
+
 DECLARED = re.compile(r"collective hang declared: .* silent members (.*); ")
 
 
@@ -2549,11 +2776,14 @@ def _relaunch_leg(workdir, path, tokens):
     job = f"chip_smoke_relaunch_{os.getpid()}_{uuid.uuid4().hex[:8]}"
     repo = os.path.dirname(os.path.abspath(__file__))
     port = find_free_port()
-    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
-               + os.environ.get("PYTHONPATH", ""),
-               DLROVER_TPU_STATE_BACKEND="file",
-               DLROVER_TPU_STATE_DIR=os.path.join(workdir, "state"),
-               DLROVER_TPU_JOB_NAME=job)
+    state_dir = os.path.join(workdir, "state")
+    # the master CLI with the planner armed by its flags
+    env, mport = metrics_env(dict(
+        os.environ, PYTHONPATH=repo + os.pathsep
+        + os.environ.get("PYTHONPATH", ""),
+        DLROVER_TPU_STATE_BACKEND="file", DLROVER_TPU_STATE_DIR=state_dir,
+        DLROVER_TPU_JOB_NAME=job, DLROVER_TPU_PLANNER="1",
+        DLROVER_TPU_PLANNER_INTERVAL_S=str(RELAUNCH_PLANNER_INTERVAL_S)))
     masters = []
 
     def launch(tag):
@@ -2573,10 +2803,13 @@ def _relaunch_leg(workdir, path, tokens):
         return proc, log, time.time()
 
     cli_out = {}
+    metrics = MetricsPoller(mport)
     try:
-        m1, _, _ = launch("first")
-        print(f"  [relaunch] master on port {port}, state under "
-              f"{env['DLROVER_TPU_STATE_DIR']}", flush=True)
+        metrics.__enter__()
+        m1, log1, _ = launch("first")
+        print(f"  [relaunch] master on port {port} (planner armed, a "
+              f"decision every {RELAUNCH_PLANNER_INTERVAL_S} s after the "
+              f"auto-scaler's warmup), state under {state_dir}", flush=True)
         cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
                f"--master_addr=127.0.0.1:{port}", "--nnodes=1",
                "--nproc_per_node=1", f"--job_name={job}",
@@ -2592,6 +2825,22 @@ def _relaunch_leg(workdir, path, tokens):
         cli.start()
         wlog = os.path.join(agent_log_dir(job, 0), "worker-0-restart0.log")
         deadline = time.time() + CONTROL_TIMEOUT_S
+        go_dir = os.path.dirname(path)
+
+        def decided(n, what):
+            """Wait for the master's planner document to count more than
+            ``n`` decisions, then let the worker past its hold."""
+            while True:
+                doc = load_planner_doc(state_dir, job)
+                if doc is not None and doc["decisions_total"] > n:
+                    break
+                check(cli.is_alive() and time.time() < deadline,
+                      f"the {what} master decided nothing")
+                time.sleep(0.1)
+            open(os.path.join(go_dir, RELAUNCH_GO[what != "first"]),
+                 "w").close()
+
+        decided(0, "first")
         while True:
             text = open(wlog).read() if os.path.exists(wlog) else ""
             if text.count('"kind": "shard"') >= RELAUNCH_KILL_AFTER:
@@ -2603,14 +2852,24 @@ def _relaunch_leg(workdir, path, tokens):
         os.kill(m1.pid, signal.SIGKILL)
         kill_t = time.time()
         m1.wait(timeout=30)
-        m2, log2, serve_t = launch("second")
-        cli.join(timeout=CONTROL_TIMEOUT_S)
-        check(not cli.is_alive(), "the relaunch leg's CLI did not end")
-        m2.wait(timeout=120)
+        # what the relaunched master imports
+        imported = load_planner_doc(state_dir, job)
+        with planner_doc_poller(state_dir, job) as docs:
+            m2, log2, serve_t = launch("second")
+            decided(imported["decisions_total"], "relaunched")
+            cli.join(timeout=CONTROL_TIMEOUT_S)
+            check(not cli.is_alive(), "the relaunch leg's CLI did not end")
+            m2.wait(timeout=120)
+        metrics.__exit__(None, None, None)
+        with open(log1) as f:
+            m1_lines = [x.rstrip() for x in f]
         with open(log2) as f:
             m2_lines = [x.rstrip() for x in f]
         for line in m2_lines:
             print(f"  [relaunch second master] {line}", flush=True)
+        check(not any("planner sweep failed" in x
+                      for x in m1_lines + m2_lines),
+              "a master's planner sweep raised")
         life = _data_life(job, 0)
         for rec in life["records"]:
             print(f"  [relaunch worker] {json.dumps(rec)}", flush=True)
@@ -2639,8 +2898,9 @@ def _relaunch_leg(workdir, path, tokens):
         reading = master_reading(m2_lines)
         bracket_s = check_relaunch(life, ranges, file_crc, kill_t, reading,
                                    resumed)
+        # the last step waited for the relaunched master's decision
         ends = [rec["end_t"] for rec in life["records"]
-                if rec["kind"] == "shard"]
+                if rec["kind"] == "shard"][:-1]
         longest = max(b - a for a, b in zip(ends, ends[1:]))
         lease_s = max(x["seconds"] for x in life["leases"])
         failed = sum(not r["ok"] for r in life["reports"])
@@ -2651,12 +2911,26 @@ def _relaunch_leg(workdir, path, tokens):
               f"{resumed[1]} and ended at {reading['global_step']}; the "
               f"gap from the kill to the new master serving "
               f"{serve_t - kill_t:.3f} s; the worker's longest interval "
-              f"between two step ends {longest:.3f} s; the largest lease "
+              f"between two step ends before its hold for the last "
+              f"{longest:.3f} s; the largest lease "
               f"RPC {lease_s:.3f} s; step reports that failed in the gap "
               f"{failed}", flush=True)
         print_master("relaunch", None, reading, bracket_s,
                      "the relaunch's bracket")
+        p50, median, n_before, n_after = check_relaunch_planner(
+            imported, docs.value, metrics.text,
+            [r["digest"] for r in life["reports"]])
+        print(f"  [relaunch] planner: {n_before} decisions before the kill, "
+              f"the relaunched master imported them and ended at "
+              f"{n_after}, every one HOLD ({sorted({d['reason'] for d in docs.value['ledger']})}),"
+              f" none executed; its last observed step p50 {p50:.4f} s "
+              f"against the digest samples' median {median:.4f} s "
+              f"({(p50 - median) / median:+.1%}, tol "
+              f"{PLANNER_STEP_TOL:.0%}); /metrics: "
+              f"{[x for x in metrics.text.splitlines() if 'scale_decisions' in x and not x.startswith('#')]}",
+              flush=True)
     finally:
+        metrics.__exit__(None, None, None)
         for proc in masters:
             if proc.poll() is None:
                 proc.kill()
@@ -2961,6 +3235,524 @@ def _four_card_life(torch, ckpt_dir):
     return 0
 
 
+def _scale_args(ckpt_dir):
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    return llama_pretrain.parse_args([
+        "--model", "8b", "--layers", "4", "--seq", str(DATA_SEQ),
+        "--micro-batch", "1", "--global-batch", str(FOUR_CARD_GLOBAL_BATCH),
+        "--steps", str(SCALE_STEPS), "--device", "cuda", "--seed", "0",
+        "--data", os.path.join(os.path.dirname(ckpt_dir), "corpus.bin"),
+        "--data-dtype", "uint32", "--ckpt-dir", ckpt_dir,
+        "--save-every", "0"])
+
+
+def persisted_pieces(ckpt_dir, step, node=0, procs=SCALE_NODE_PROCS):
+    """The pieces (``TensorMeta``) of ``step`` that node ``node``'s agent
+    persisted from its ``procs`` processes' segments, from its local tier's
+    manifests: together the whole state, each with the CRC32 of its bytes
+    as staged."""
+    from dlrover_tpu_torch.checkpoint.saver import local_tier_dir, step_dir
+    from dlrover_tpu_torch.checkpoint.shm_handler import CheckpointMeta
+
+    pieces = []
+    for proc in range(procs):
+        path = os.path.join(step_dir(local_tier_dir(ckpt_dir, node), step),
+                            f"proc-{proc}", "meta.json")
+        with open(path) as f:
+            pieces += CheckpointMeta.from_json(f.read()).leaves
+    return pieces
+
+
+def piece_crcs(torch, state, pieces):
+    """The CRC32 of the bytes each persisted piece covers in ``state``,
+    under the piece's path: the piece's rows (``index``) of its leaf."""
+    from dlrover_tpu_torch.checkpoint.shm_handler import as_bytes, flatten_state
+
+    leaves = {leaf.name: leaf.value for leaf in flatten_state(state)}
+    buf = None
+    out = {}
+    for m in pieces:
+        value = leaves[m.path.rsplit("#", 1)[0]]
+        if m.index and isinstance(value, torch.Tensor):
+            value = value[tuple(slice(a, b) for a, b in m.index)]
+        flat = as_bytes(value)
+        if not flat.is_cuda:
+            out[m.path] = zlib.crc32(memoryview(flat.numpy()))
+            continue
+        if buf is None:
+            buf = torch.empty(CRC_CHUNK, dtype=torch.uint8, pin_memory=True)
+        crc = 0
+        for o in range(0, flat.numel(), CRC_CHUNK):
+            n = min(CRC_CHUNK, flat.numel() - o)
+            buf[:n].copy_(flat[o:o + n])
+            crc = zlib.crc32(memoryview(buf[:n].numpy()), crc)
+        out[m.path] = crc
+    return out
+
+
+def _scale_emit(kind, **fields):
+    print("SCALE_CHILD_JSON " + json.dumps({"kind": kind, **fields}),
+          flush=True)
+
+
+def _scale_life(torch, ckpt_dir):
+    """One rank of the scale-out leg, in its agent's environment (module
+    docstring): ``run/llama_pretrain.py``'s build, checkpoint and data flow
+    with the worker context, the runtime config polled at every step
+    (``poll_every_steps`` 1), a step report with the digest, a memory save
+    and the loader's sidecar after it. At dp2 it trains until its agent stops it;
+    at dp4 it restores, takes the CRC32 of every persisted piece of the
+    restored state, and trains SCALE_AFTER steps. Prints a ``life`` record,
+    each step (its loss, seconds, the CRC32 of this rank's rows, the armed
+    hint, the kernel launches so far) and an ``end`` record."""
+    import numpy as np
+
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.train import bootstrap
+
+    t_start = time.time()
+    _reset_counts(attention, fce, [0])
+    ctx = bootstrap.init()
+    ctx.step_report_interval = 0.0
+    rank, world = bootstrap.process_index(), bootstrap.process_count()
+    args = _scale_args(ckpt_dir)
+    device = f"cuda:{ctx.local_rank}"
+    cfg, trainer, state, _, tokens = llama_pretrain.build(args, device, ctx)
+    trainer.poll_every_steps = 1
+    torch.cuda.synchronize()
+    ckpt, start, restore = llama_pretrain.open_checkpoint(args, state, None)
+    batches, positions, loader_restored = llama_pretrain.open_data(
+        args, cfg, trainer, args.seq, device,
+        None if restore is None else start)
+    grown = world == SCALE_WORLD
+    life = {"rank": rank, "world": world, "start": start,
+            "start_t": t_start, "restore": restore,
+            "loader_restored": loader_restored, "tokens_per_step": tokens}
+    if grown:
+        check(restore is not None, "the grown world restored nothing")
+        life["restored_t"] = time.time()
+        life["pieces"] = piece_crcs(torch, state,
+                                    persisted_pieces(ckpt_dir, start))
+        life["crc_s"] = time.time() - life["restored_t"]
+    _scale_emit("life", **life)
+    end = start + SCALE_AFTER if grown else args.steps
+    for step in range(start, end):
+        batch = next(batches)
+        loader_pos = positions.popleft()
+        crc = zlib.crc32(batch.cpu().numpy().astype(np.int64).tobytes())
+        state, loss, seconds = llama_pretrain.timed_step(trainer, state,
+                                                         batch)
+        ctx.report_step(step + 1, force=True, digest=trainer.step_digest)
+        hint = trainer.speculation_hint
+        begin, done = trainer.reduce_events
+        # before the save: every step that can be staged is on record
+        _scale_emit("step", step=step + 1, loss=loss, seconds=seconds,
+                    reduce_ms=begin.elapsed_time(done), end_t=time.time(),
+                    crc=crc, hint=hint.spec if hint is not None else "",
+                    counts=_launch_counts(attention, fce))
+        ckpt.save(step + 1, state)
+        llama_pretrain.write_sidecar(
+            llama_pretrain.sidecar_path(ckpt_dir, rank), step + 1,
+            loader_pos)
+    ckpt.close()
+    _scale_emit("end", counts=_launch_counts(attention, fce))
+    return 0
+
+
+def scale_rows_crc(tokens, step, rank, world, global_batch=FOUR_CARD_GLOBAL_BATCH,
+                   micro=1):
+    """The CRC32 of the rows rank ``rank`` of a dp ``world`` must train at
+    ``step`` (1-based): the loader's global batch of that step in the
+    sampler's order from the epoch's start (``loader_rows``), shaped
+    (accum, micro x world, seq), this rank's micro rows of each
+    microbatch, as int64."""
+    import numpy as np
+
+    rows = loader_rows(tokens, step, global_batch)[step - 1]
+    accum = global_batch // (micro * world)
+    mine = rows.reshape(accum, micro * world, -1)[
+        :, rank * micro:(rank + 1) * micro]
+    return zlib.crc32(np.ascontiguousarray(mine).astype(np.int64).tobytes())
+
+
+def check_scale_out(firsts, seconds, ledger, executed, join_t, seen_t,
+                    pieces, expected_crc):
+    """The scale-out leg's checks. ``firsts``: node 0's ranks' dp2 lives;
+    ``seconds``: the four dp4 lives (by rank); each ``{"life", "steps",
+    "end"}``. ``ledger``, ``executed``: the planner's last document's;
+    ``join_t``: node 1's start; ``seen_t``: when node 0's agent saw the
+    waiter; ``pieces``: ``{path: crc32}`` of the persisted step's
+    manifests; ``expected_crc(step, rank, world)``: the CRC32 of the rows a
+    rank must train. Fails unless: the ledger holds HOLDs up to the
+    hysteresis streak and then exactly one RESIZE, to 2 nodes, executed
+    once; node 0's ranks trained at dp2 only, at least two steps after
+    node 1 started and before their agent saw the waiter, and armed the
+    hint ``dp4`` before their life ended; the re-formed round has ranks
+    0-3 at dp4, each started after the execution and restored one step,
+    the same, every persisted piece's CRC32 equal on every rank to its
+    manifest's; every step of every life trained its rows of the loader's
+    order, so the committed trajectory (dp2 steps up to the restored one,
+    then dp4) trains every record once; the dp4 ranks' losses are equal
+    and its first step's is the dp2 life's same step within
+    SCALE_LOSS_RTOL; every kernel launched on every rank in both lives.
+    Returns the restored step."""
+    verdicts = [d["verdict"] for d in ledger]
+    check(verdicts.count("resize") == 1,
+          f"the planner decided {verdicts.count('resize')} RESIZEs: "
+          f"{[(d['verdict'], d['reason']) for d in ledger]}")
+    i = verdicts.index("resize")
+    resize = ledger[i]
+    check(resize["target"] == "dp2" and resize["target_world"] == 2
+          and resize["current_world"] == 1,
+          f"the RESIZE was {resize['current_world']} -> {resize['target']}")
+    check(i >= 1 and ledger[i - 1]["reason"]
+          == f"hysteresis:{SCALE_HYSTERESIS - 1}/{SCALE_HYSTERESIS}"
+          and all(v == "hold" for v in verdicts[:i]),
+          f"the decisions before the RESIZE: "
+          f"{[(d['verdict'], d['reason']) for d in ledger[:i]]}")
+    check([e["target_world"] for e in executed] == [2],
+          f"the executed plans: {executed}")
+    exec_ts = executed[0]["ts"]
+    check(len(firsts) == SCALE_NODE_PROCS and len(seconds) == SCALE_WORLD,
+          f"{len(firsts)} dp2 lives and {len(seconds)} dp4 lives")
+    for x in firsts:
+        rank = x["life"]["rank"]
+        steps = x["steps"]
+        check(x["life"]["world"] == SCALE_NODE_PROCS
+              and x["life"]["start"] == 0 and x["life"]["restore"] is None,
+              f"node 0's rank {rank} first life: {x['life']}")
+        waited = [st for st in steps if join_t < st["end_t"] < seen_t]
+        check(len(waited) >= 2, f"rank {rank} reported {len(waited)} steps "
+              "between node 1's start and its agent seeing the waiter")
+        check(steps and steps[-1]["hint"] == f"dp{SCALE_WORLD}"
+              and all(st["hint"] == "" for st in steps
+                      if st["end_t"] < exec_ts),
+              f"rank {rank}'s hints: {[(st['step'], st['hint']) for st in steps[-4:]]}")
+    check(sorted(x["life"]["rank"] for x in seconds)
+          == list(range(SCALE_WORLD))
+          and all(x["life"]["world"] == SCALE_WORLD
+                  and x["life"]["start_t"] > exec_ts for x in seconds),
+          f"the re-formed round: {[x['life']['rank'] for x in seconds]}")
+    starts = {x["life"]["start"] for x in seconds}
+    check(len(starts) == 1, f"the dp4 ranks restored steps {starts}")
+    start = starts.pop()
+    check(0 < start <= min(x["steps"][-1]["step"] for x in firsts),
+          f"the dp4 ranks restored step {start}")
+    check((start + SCALE_AFTER) * FOUR_CARD_GLOBAL_BATCH <= SCALE_RECORDS,
+          f"steps 1-{start + SCALE_AFTER} run past one epoch of "
+          f"{SCALE_RECORDS} records")
+    for x in seconds:
+        compare_crcs(pieces, x["life"]["pieces"],
+                     f"rank {x['life']['rank']}'s restored pieces against "
+                     "the persisted manifests")
+        check([st["step"] for st in x["steps"]] == list(
+            range(start + 1, start + 1 + SCALE_AFTER)),
+            f"rank {x['life']['rank']}'s dp4 steps "
+            f"{[st['step'] for st in x['steps']]}")
+    for x in firsts + seconds:
+        rank, world = x["life"]["rank"], x["life"]["world"]
+        for st in x["steps"]:
+            check(st["crc"] == expected_crc(st["step"], rank, world),
+                  f"rank {rank} at dp{world} trained other rows at step "
+                  f"{st['step']} than the loader's order gives")
+    losses = [[st["loss"] for st in x["steps"]] for x in seconds]
+    check(all(x == losses[0] for x in losses),
+          f"the dp4 ranks' losses differ: {losses}")
+    dp2 = {st["step"]: st["loss"] for st in firsts[0]["steps"]}
+    check(start + 1 in dp2, f"the dp2 life never trained step {start + 1}")
+    check(abs(losses[0][0] - dp2[start + 1])
+          <= SCALE_LOSS_RTOL * abs(dp2[start + 1]),
+          f"the dp4 life's step {start + 1} loss {losses[0][0]!r} is not "
+          f"within {SCALE_LOSS_RTOL} of the dp2 life's {dp2[start + 1]!r}")
+    for label, lives, key in (("dp2", firsts, None), ("dp4", seconds, "end")):
+        for x in lives:
+            counts = (x[key] or {}).get("counts") if key else \
+                x["steps"][-1]["counts"]
+            check(counts and all(n > 0 for n in counts.values()),
+                  f"a kernel never launched on rank {x['life']['rank']} in "
+                  f"the {label} life: {counts}")
+    return start
+
+
+def _scale_lives(job, node, pid):
+    """The ``SCALE_CHILD_JSON`` records of process ``pid`` of node
+    ``node``, split into lives at each ``life`` record."""
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+
+    path = os.path.join(agent_log_dir(job, node),
+                        f"worker-{pid}-restart0.log")
+    check(os.path.exists(path), f"no log of node {node}'s process {pid}")
+    lives = []
+    with open(path, errors="replace") as f:
+        for line in f:
+            if not line.startswith("SCALE_CHILD_JSON "):
+                continue
+            rec = json.loads(line.split(" ", 1)[1])
+            if rec["kind"] == "life":
+                lives.append({"life": rec, "steps": [], "end": None})
+            elif lives and rec["kind"] == "step":
+                lives[-1]["steps"].append(rec)
+            elif lives:
+                lives[-1]["end"] = rec
+    return lives
+
+
+def _scale_out_leg(torch):
+    """The four-card leg's planner-directed scale-out (module docstring):
+    node 0 at dp2, node 1 joins, the planner's RESIZE, dp4."""
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+    from dlrover_tpu_torch.agent.paral_config_tuner import (
+        default_config_path)
+    from dlrover_tpu_torch.common.ipc import default_socket_path
+    from dlrover_tpu_torch.utils.net import find_free_port
+
+    t_leg = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    job = f"chip_smoke_scale_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    ckpt_dir = os.path.join(workdir, "ck")
+    state_dir = os.path.join(workdir, "state")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = find_free_port()
+    base = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+    menv, mport = metrics_env(dict(
+        base, DLROVER_TPU_JOB_NAME=job, DLROVER_TPU_STATE_BACKEND="file",
+        DLROVER_TPU_STATE_DIR=state_dir,
+        DLROVER_TPU_PLANNER_INTERVAL_S=str(SCALE_PLANNER_INTERVAL_S),
+        DLROVER_TPU_PLANNER_HYSTERESIS=str(SCALE_HYSTERESIS),
+        DLROVER_TPU_PLANNER_HBM_GB=str(SCALE_HBM_GB)))
+    spec = {"port": port, "node_num": 2, "min_node_num": 1}
+    master = None
+    clis = {}
+    try:
+        tokens = write_corpus(os.path.join(workdir, "corpus.bin"),
+                              records=SCALE_RECORDS)
+        mlog = os.path.join(workdir, "master.log")
+        with open(mlog, "w") as out:
+            master = subprocess.Popen(
+                _master_cmd(spec), cwd=repo, env=menv, stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        deadline = time.time() + 60
+        while f"serving on port {port}" not in open(mlog).read():
+            check(master.poll() is None and time.time() < deadline,
+                  f"the scale-out master did not serve: "
+                  f"{open(mlog).read()[-2000:]}")
+            time.sleep(0.05)
+        print(f"  [scale] master on port {port}: node_num 2, min_node_num "
+              f"1, planner every {SCALE_PLANNER_INTERVAL_S} s, hysteresis "
+              f"{SCALE_HYSTERESIS}, memory gate {SCALE_HBM_GB} GB",
+              flush=True)
+
+        def run_node(node):
+            env = dict(base, CUDA_VISIBLE_DEVICES=",".join(
+                str(node * SCALE_NODE_PROCS + i)
+                for i in range(SCALE_NODE_PROCS)))
+            cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
+                   f"--master_addr=127.0.0.1:{port}", "--nnodes=1:2",
+                   f"--nproc_per_node={SCALE_NODE_PROCS}",
+                   f"--node_id={node}", f"--job_name={job}",
+                   "--max_restarts=0", os.path.abspath(__file__), "--",
+                   "--ckpt-child", "scale", ckpt_dir]
+            print(f"  [scale node {node}] CUDA_VISIBLE_DEVICES="
+                  f"{env['CUDA_VISIBLE_DEVICES']} {' '.join(cmd[1:])}",
+                  flush=True)
+            clis[node] = _run_cli(cmd, env, f"scale node {node}",
+                                  SCALE_TIMEOUT_S)
+
+        with MetricsPoller(mport) as metrics, \
+                planner_doc_poller(state_dir, job) as docs:
+            threads = [threading.Thread(target=run_node, args=(0,),
+                                        daemon=True)]
+            threads[0].start()
+            log0 = os.path.join(agent_log_dir(job, 0),
+                                "worker-0-restart0.log")
+            deadline = time.time() + SCALE_TIMEOUT_S
+            while True:
+                text = open(log0).read() if os.path.exists(log0) else ""
+                if text.count('"kind": "step"') >= SCALE_JOIN_AFTER:
+                    break
+                check(threads[0].is_alive() and time.time() < deadline,
+                      f"node 0 never trained {SCALE_JOIN_AFTER} steps: "
+                      f"{text[-2000:]}")
+                time.sleep(0.05)
+            join_t = time.time()
+            threads.append(threading.Thread(target=run_node, args=(1,),
+                                            daemon=True))
+            threads[1].start()
+            for t in threads:
+                t.join(timeout=SCALE_TIMEOUT_S)
+            check(not any(t.is_alive() for t in threads),
+                  "a scale-out CLI did not end")
+            master.wait(timeout=120)
+        with open(mlog) as f:
+            mlines = [x.rstrip() for x in f]
+        for line in mlines:
+            print(f"  [scale master] {line}", flush=True)
+        for node in (0, 1):
+            check(clis[node][0].returncode == 0,
+                  f"node {node}'s CLI exited {clis[node][0].returncode}")
+        check(master.returncode == 0 and any(
+            "local master exiting: succeeded" in x for x in mlines),
+            f"the scale-out master's exit {master.returncode}")
+        check(not any("planner sweep failed" in x for x in mlines),
+              "the master's planner sweep raised")
+        doc = docs.value
+        check(doc is not None, "the master wrote no planner document")
+        firsts, seconds = [], []
+        for pid in range(SCALE_WORLD):
+            lives = _scale_lives(job, pid // SCALE_NODE_PROCS, pid)
+            want = 2 if pid < SCALE_NODE_PROCS else 1
+            check(len(lives) == want, f"process {pid} lived {len(lives)} "
+                  f"lives, not {want}")
+            if pid < SCALE_NODE_PROCS:
+                firsts.append(lives[0])
+            seconds.append(lives[-1])
+        lines0 = clis[0][1]
+        seen_t = _agent_stamp(lines0, "node 0: membership changed",
+                              r"seen at ([0-9.]+)")
+        pieces_meta = None
+        start = None
+        restored = {x["life"]["start"] for x in seconds}
+        check(len(restored) == 1, f"the dp4 ranks restored {restored}")
+        start = restored.pop()
+        pieces_meta = persisted_pieces(ckpt_dir, start)
+        pieces = {m.path: m.crc32 for m in pieces_meta}
+        start = check_scale_out(
+            firsts, seconds, doc["ledger"], doc["executed"], join_t, seen_t,
+            pieces, lambda step, rank, world: scale_rows_crc(
+                tokens, step, rank, world))
+        _print_scale_out(firsts, seconds, doc, mlines, lines0, join_t,
+                         seen_t, start, len(pieces), metrics.last)
+    finally:
+        if master is not None and master.poll() is None:
+            master.kill()
+            master.wait()
+        for node in (0, 1):
+            for pid in range(SCALE_WORLD):
+                _unlink_node_segment(job, node, pid)
+            shutil.rmtree(os.path.dirname(agent_log_dir(job, node)),
+                          ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_config_path(job, 0))), ignore_errors=True)
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"  scale-out leg: {time.perf_counter() - t_leg:.1f}s", flush=True)
+
+
+def _unlink_node_segment(job, node, pid):
+    from dlrover_tpu_torch.checkpoint.shm_handler import (
+        SharedMemoryHandler, shm_name)
+
+    h = SharedMemoryHandler(shm_name(job, node, pid))
+    if h.attach():
+        h.close(unlink=True)
+
+
+def _print_scale_out(firsts, seconds, doc, mlines, lines0, join_t, seen_t,
+                     start, n_pieces, gauges):
+    """The scale-out leg's numbers: global tokens/s at dp2 and dp4, the
+    planner's predicted dp4 step against the measured one, the time from
+    node 1's join to the decision and from the decision to the first dp4
+    step's end by phase, and the downtime the ledger billed."""
+    tokens = firsts[0]["life"]["tokens_per_step"]
+
+    def walls(lives):
+        n = min(len(x["steps"]) for x in lives)
+        return [max(x["steps"][i]["seconds"] for x in lives)
+                for i in range(1, n)]
+
+    def rate(lives, last):
+        """Global tokens/s of the steps after a life's first up to
+        ``last``: their tokens over the wall from the first step's end to
+        step ``last``'s end (the slowest rank's), with every save, sidecar
+        and report between them. Returns it and the steps counted."""
+        first = lives[0]["steps"][0]["step"]
+        t0 = max(x["steps"][0]["end_t"] for x in lives)
+        t1 = max(st["end_t"] for x in lives for st in x["steps"]
+                 if st["step"] == last)
+        return tokens * (last - first) / (t1 - t0), last - first
+
+    dp2, dp4 = walls(firsts), walls(seconds)
+    # the dp2 life's committed steps end at the restored one
+    rate2, n2 = rate(firsts, start)
+    rate4, n4 = rate(seconds, start + SCALE_AFTER)
+    ledger = doc["ledger"]
+    resize = next(d for d in ledger if d["verdict"] == "resize")
+    pred = next(sc["t_pred_s"] for sc in resize["scores"]
+                if sc["world"] == 2)
+    saw = next(d for d in ledger
+               if d["inputs"]["waiting"] >= 1 and d["inputs"]["world"] >= 1)
+    exec_ts = doc["executed"][0]["ts"]
+    persist_s = _agent_stamp(lines0, "node 0: breakpoint persist True",
+                             r"in ([0-9.]+)s")
+    stopped_t = _agent_stamp(lines0, "node 0: workers stopped at",
+                             r"stopped at ([0-9.]+)")
+    rdzv_s = _agent_stamp(lines0, "node 0: rendezvous round 2 in",
+                          r"in ([0-9.]+)s")
+    starts = [float(m.group(1)) for m in (
+        re.search(r" at ([0-9.]+) log=", x) for x in lines0
+        if "started worker" in x) if m]
+    restart_t = min(starts[SCALE_NODE_PROCS:])
+    restored_t = max(x["life"]["restored_t"] for x in seconds)
+    crc_s = max(x["life"]["crc_s"] for x in seconds)
+    step1_t = max(x["steps"][0]["end_t"] for x in seconds)
+    phases = {
+        "decision_to_agent_seen_s": seen_t - exec_ts,
+        "breakpoint_persist_s": persist_s,
+        "persist_end_to_workers_stopped_s": stopped_t - seen_t - persist_s,
+        "rendezvous_s": rdzv_s,
+        "restart_to_restored_s": restored_t - restart_t,
+        "piece_crc_s": crc_s,
+        "restored_to_first_dp4_step_end_s": step1_t - restored_t - crc_s,
+    }
+    reading = master_reading(mlines)
+    brackets = reading["brackets"]
+    later = [d for d in ledger if d["ts"] > step1_t]
+    costs = [d["inputs"]["resize_cost_s"] for d in later]
+    dp4_p50 = [d["inputs"]["step_p50_s"] for d in later]
+    print(f"  [scale] decisions: {[(d['verdict'], d['reason']) for d in ledger]}",
+          flush=True)
+    print(f"  [scale] restored step {start} on every dp4 rank (tiers "
+          f"{[x['life']['restore']['tier'] for x in seconds]}, "
+          f"{[round(x['life']['restore']['seconds'], 3) for x in seconds]} s);"
+          f" {n_pieces} persisted pieces' CRC32s equal on every rank; the "
+          f"loader's order trained (every record once on the committed "
+          f"steps 1-{start + SCALE_AFTER}); dp4 step {start + 1} loss "
+          f"{seconds[0]['steps'][0]['loss']!r} against dp2's "
+          f"{ {st['step']: st['loss'] for st in firsts[0]['steps']}[start + 1]!r}",
+          flush=True)
+    print(f"  [scale] global tokens/s, every token over the wall: dp2 "
+          f"{rate2:.1f} (steps 2-{start}, {n2} steps), dp4 {rate4:.1f} "
+          f"(steps {start + 2}-{start + SCALE_AFTER}, {n4} steps); the "
+          f"median step wall (the slowest rank's): dp2 "
+          f"{statistics.median(dp2):.4f} s over {len(dp2)} steps "
+          f"({tokens / statistics.median(dp2):.1f} tokens/s at the median), "
+          f"dp4 {statistics.median(dp4):.4f} s over {len(dp4)} steps "
+          f"({tokens / statistics.median(dp4):.1f}); the planner's predicted dp4 step {pred:.4f} s (from "
+          f"its observed dp2 step p50 {resize['inputs']['step_p50_s']:.4f} "
+          f"s) against the measured {statistics.median(dp4):.4f} s (the "
+          f"digest's device step p50 the later decisions observed: "
+          f"{dp4_p50})", flush=True)
+    print(f"  [scale] node 1 started at {join_t:.3f}; the first decision "
+          f"that saw it waiting {saw['ts'] - join_t:.3f} s later "
+          f"({saw['reason']}); the RESIZE {resize['ts'] - join_t:.3f} s "
+          f"after the start, executed at {exec_ts - join_t:.3f} s; from "
+          f"the decision to the first dp4 step's end "
+          f"{step1_t - exec_ts:.3f} s, by phase {json.dumps(phases)}",
+          flush=True)
+    print(f"  [scale] the ledger billed {len(brackets)} bracket(s) "
+          f"{brackets} ({[round(b - a, 3) for a, b in brackets]} s), "
+          f"downtime {reading['downtime_s']} s, goodput "
+          f"{reading['goodput']}; decisions after the first dp4 step read "
+          f"resize_cost_s {costs} (avg_downtime); /metrics at the end: "
+          f"{ {k: v for k, v in gauges.items() if 'planner' in k} }",
+          flush=True)
+
+
 def main_four_card():
     """The four-card leg (module docstring)."""
     import torch
@@ -3098,6 +3890,9 @@ def main_four_card():
                       ignore_errors=True)
         shutil.rmtree(os.path.dirname(os.path.dirname(
             default_socket_path(job, 0))), ignore_errors=True)
+    print("== the four-card leg: a planner-directed scale-out, dp2 -> dp4",
+          flush=True)
+    _scale_out_leg(torch)
     print(f"== done in {time.perf_counter() - t_start:.1f}s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3252,6 +4047,8 @@ if __name__ == "__main__":
             sys.exit(ckpt_child(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--data-child"]:
             sys.exit(data_child(*sys.argv[2:4]))
+        if sys.argv[1:2] == ["--master-child"]:
+            sys.exit(master_child(sys.argv[2]))
         if sys.argv[1:2] == ["--four-card"]:
             sys.exit(main_four_card())
         sys.exit(main())

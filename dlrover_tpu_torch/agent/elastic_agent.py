@@ -9,11 +9,13 @@ watches them. It hosts the node's flash-checkpoint saver
 worker's death in shm, and the agent persists it at the breakpoint before
 it restarts the workers, in the JAX package's order. A failed worker is
 reported to the master, its log tail classified (``diagnosis_agent``), and
-the workers restarted in place while the restart budget lasts.
+the workers restarted in place while the restart budget lasts. It runs the
+parallel-config tuner (agent/paral_config_tuner.py), which writes the
+master's pushed config to a file whose path the workers get in
+``DLROVER_TPU_PARAL_CONFIG_PATH``.
 
-The JAX agent's device timer, comm metrics, metric endpoints, parallel
-config tuner, diagnosis observe loop and replica peer sync wait for their
-modules (ROADMAP.md).
+The JAX agent's device timer, comm metrics, metric endpoints, diagnosis
+observe loop and replica peer sync wait for their modules (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -95,6 +97,7 @@ class ElasticAgent:
         self._status_reporter = None
         self._rdzv_handler: Optional[MasterRendezvousHandler] = None
         self._ckpt_saver = None
+        self._paral_tuner = None
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -103,15 +106,34 @@ class ElasticAgent:
         self._start_ckpt_saver()
         self._start_heartbeats()
         self._install_signal_handlers()
+        self._start_paral_config_tuner()
         try:
             return self._invoke_run()
         finally:
             self._stop_evt.set()
             if self._status_reporter is not None:
                 self._status_reporter.stop()
+            if self._paral_tuner is not None:
+                self._paral_tuner.stop()
             self._stop_workers()
             if self._ckpt_saver is not None:
                 self._ckpt_saver.stop()
+
+    def _start_paral_config_tuner(self):
+        from dlrover_tpu_torch.agent.paral_config_tuner import (
+            ParalConfigTuner,
+        )
+
+        try:
+            self._paral_tuner = ParalConfigTuner(
+                self._client,
+                job_name=self._config.job_name,
+                node_id=self._config.node_id,
+            )
+            self._paral_tuner.start()
+        except Exception:
+            logger.exception("paral config tuner failed to start")
+            self._paral_tuner = None
 
     def _start_ckpt_saver(self):
         """Host the flash-checkpoint saver so staged state survives worker
@@ -259,6 +281,12 @@ class ElasticAgent:
                 "DLROVER_TPU_STACK_DIR": os.path.join(self._log_dir, "hang"),
             }
         )
+        if self._paral_tuner is not None:
+            from dlrover_tpu_torch.agent.paral_config_tuner import (
+                PARAL_CONFIG_PATH_ENV,
+            )
+
+            env[PARAL_CONFIG_PATH_ENV] = self._paral_tuner.path
         return env
 
     def _start_workers(self, world: CommWorld):

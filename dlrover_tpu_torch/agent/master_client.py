@@ -2,20 +2,21 @@
 port's own copy of dlrover_tpu/agent/master_client.py, over the port's
 transport (rpc/transport.py).
 
-It carries every call the port's agent and worker make: rendezvous, node
-lifecycle, the folded worker report, the global step and the checkpoint
-step; data sharding (dataset params, per-task dispatch, batched shard
-leases, the shard checkpoint, the dataset epoch); and the KV store. The JAX
-client's process singleton and its other calls (the network check,
-barriers, model info, parallel config, diagnosis data, the resize
-breakdown, the legacy heartbeat and resource reports) wait for the code
-that makes them (ROADMAP.md).
+It carries every call the port's agent and worker make: rendezvous (the
+membership poll with the goodput planner's speculation hint included),
+node lifecycle, the folded worker report, the global step and the
+checkpoint step; data sharding (dataset params, per-task dispatch, batched
+shard leases, the shard checkpoint, the dataset epoch); the parallel
+config the agent's tuner fetches; and the KV store. The JAX client's
+process singleton and its other calls (the network check, barriers, model
+info, diagnosis data, the resize breakdown, the legacy heartbeat and
+resource reports) wait for the code that makes them (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch.common import messages as msg
 from dlrover_tpu_torch.common.constants import NodeType, RendezvousName
@@ -72,6 +73,31 @@ class MasterClient:
     def num_nodes_waiting(self, rdzv_name: str = RendezvousName.TRAINING) -> int:
         resp = self._client.get(msg.NumNodesWaitingRequest(rdzv_name=rdzv_name))
         return resp.waiting_num
+
+    def rendezvous_status(
+        self, rdzv_name: str = RendezvousName.TRAINING
+    ) -> Tuple[int, int, Dict]:
+        """(waiting_num, latest_round, speculation_hint). A worker whose
+        seated round is older than ``latest_round`` is hung in a dead
+        collective (the hang watchdog re-formed the world without it).
+        The hint is the goodput planner's intended next world ({} = no
+        executed intent, or a master without the field: the ``getattr``
+        default keeps version skew harmless); it rides the same response,
+        so a caller that already polls membership pays no extra RPC."""
+        resp = self._client.get(msg.NumNodesWaitingRequest(rdzv_name=rdzv_name))
+        return (
+            resp.waiting_num,
+            getattr(resp, "latest_round", 0),
+            dict(getattr(resp, "speculation_hint", None) or {}),
+        )
+
+    def speculation_hint(
+        self, rdzv_name: str = RendezvousName.TRAINING
+    ) -> Dict:
+        """Hint-only poll for processes that do not otherwise poll
+        membership (the training worker's throttled
+        ``WorkerContext.poll_speculation_hint``)."""
+        return self.rendezvous_status(rdzv_name)[2]
 
     # -- node lifecycle -----------------------------------------------------
 
@@ -239,6 +265,13 @@ class MasterClient:
         return self._client.get(
             msg.DatasetEpochRequest(dataset_name=dataset_name)
         ).epoch
+
+    # -- runtime config -----------------------------------------------------
+
+    def get_paral_config(self) -> msg.ParallelConfig:
+        """The parallel config the master pushed for this node (the
+        agent's ``ParalConfigTuner`` polls it)."""
+        return self._client.get(msg.ParallelConfigRequest(node_id=self.node_id))
 
     # -- kv store ----------------------------------------------------------
 

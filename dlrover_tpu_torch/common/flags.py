@@ -199,3 +199,49 @@ HANG_WATCHDOG_WINDOW_S = EnvFlag(
     "eval); one slow RANK never trips it (that is the straggler "
     "detector's job).",
 )
+
+# -- the goodput planner (brain/planner.py)
+
+PLANNER = EnvFlag(
+    "DLROVER_TPU_PLANNER", False,
+    "Arm the goodput planner (brain/planner.py): scale decisions are "
+    "driven by the measured goodput ledger (digest p50s, the resize "
+    "downtime, straggler flags) with payback-amortized scoring, "
+    "hysteresis and cooldown, and scale-out waits for its executed plan "
+    "(the rendezvous growth gate). Off by default.",
+)
+PLANNER_COOLDOWN_S = EnvFlag(
+    "DLROVER_TPU_PLANNER_COOLDOWN_S", 300.0,
+    "Seconds after an executed plan during which every decision is "
+    "HOLD: at most one executed plan per cooldown window.",
+)
+PLANNER_HORIZON_S = EnvFlag(
+    "DLROVER_TPU_PLANNER_HORIZON_S", 1800.0,
+    "Payback horizon: a resize is accepted only if its predicted "
+    "throughput gain amortizes the measured resize downtime within "
+    "this many seconds.",
+)
+PLANNER_HYSTERESIS = EnvFlag(
+    "DLROVER_TPU_PLANNER_HYSTERESIS", 2,
+    "Consecutive decisions the same winning candidate must survive "
+    "before it becomes a plan; instability (stragglers, open downtime) "
+    "resets the streak.",
+)
+PLANNER_INTERVAL_S = EnvFlag(
+    "DLROVER_TPU_PLANNER_INTERVAL_S", 30.0,
+    "Decision cadence: planner.sweep() no-ops until this many seconds "
+    "passed since the last decision.",
+)
+PLANNER_HBM_GB = EnvFlag(
+    "DLROVER_TPU_PLANNER_HBM_GB", 0.0,
+    "Per-device memory capacity (GB) for the planner's shrink-feasibility "
+    "gate: with it set, a candidate whose projected occupancy (reported "
+    "used x world/world') lands inside the headroom reserve is rejected. "
+    "0 (default) = unknown, the gate is off.",
+)
+PLANNER_DCN_GBPS = EnvFlag(
+    "DLROVER_TPU_PLANNER_DCN_GBPS", 25.0,
+    "Assumed bandwidth (GB/s) of the slow link between slices, for "
+    "converting measured per-step dcn bytes into predicted step seconds "
+    "at candidate worlds.",
+)

@@ -2,7 +2,8 @@
 dlrover_tpu/common/global_context.py (``MasterConfigContext``).
 
 Every field is runtime-mutable with type coercion, so an operator can
-retune a live master (timeouts, the rendezvous last-call window) without a
+retune a live master (timeouts, the rendezvous last-call window, the
+auto-scaler's warmup and cadence) without a
 restart. Consumers read attributes each time they need a value, no
 caching, which is what makes runtime mutation take effect.
 """
@@ -28,7 +29,12 @@ class MasterConfigContext:
         self._lock = threading.Lock()
         # Every field here has a live consumer that re-reads it per use;
         # the JAX package's other fields wait for theirs (the dist job
-        # manager, the auto-scaler, the hang check).
+        # manager, the hang check).
+        # -- autoscaling (job_auto_scaler) -----------------------------------
+        self.auto_worker_enabled = True
+        self.seconds_to_autoscale_worker = 90.0  # warmup before 1st cycle
+        self.seconds_interval_to_optimize = 300.0
+        self.sample_count_to_adjust_worker = 5
         # -- rendezvous (rendezvous.manager, re-read per completion check) ---
         # last-call window past min_nodes before the round closes
         self.rdzv_waiting_timeout = 60.0

@@ -10,7 +10,7 @@ GPU's memory occupancy goes into ``tpu_hbm_used_mb``).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 from dlrover_tpu_torch.common.constants import NodeExitReason, NodeStatus
@@ -27,6 +27,22 @@ class NodeResource:
     tpu_duty_cycle: float = 0.0  # observed busy fraction (usage only)
     tpu_hbm_used_mb: float = 0.0  # observed HBM occupancy (usage only)
     gpu_num: int = 0
+
+
+@dataclass
+class NodeGroupResource:
+    """Resource of a node group: replica count x per-node resource (the
+    unit the optimizer's plans and the scalers move)."""
+
+    count: int = 0
+    node_resource: NodeResource = field(default_factory=NodeResource)
+
+    def update(self, count: Optional[int] = None,
+               resource: Optional[NodeResource] = None):
+        if count is not None and count >= 0:
+            self.count = count
+        if resource is not None:
+            self.node_resource = resource
 
 
 @dataclass

@@ -1,12 +1,12 @@
 """JobContainer: the per-job master state behind one root, as far as the
 port's master has it (the part of dlrover_tpu/master/job_container.py that
 holds the job's uid and name, the job context, the master config, the
-durable state store and the speed monitor).
+durable state store, the speed monitor and the goodput planner's slot).
 
-The JAX container also owns the metrics registry and the planner slot;
-those wait for their modules (ROADMAP.md). Each master builds its own
-container and hands its slots to the objects it wires, so two masters in
-one process share nothing.
+The JAX container also owns the metrics registry, which waits for the
+metric collector (ROADMAP 5b.3). Each master builds its own container and
+hands its slots to the objects it wires, so two masters in one process
+share nothing.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ class JobContainer:
     """All mutable master state for one job, keyed by ``job_uid``."""
 
     def __init__(self, job_uid: str = "", job_name: str = "",
-                 state_backend=None):
+                 state_backend=None, clock=None):
         self.job_uid = job_uid
         self.job_name = job_name
         #: node registry + diagnosis action queue (master/node/job_context)
@@ -39,5 +39,10 @@ class JobContainer:
             else MemoryStateBackend(),
             job_uid=job_uid,
         )
-        #: goodput ledger + step/straggler observation
-        self.speed_monitor = SpeedMonitor()
+        #: goodput ledger + step/straggler observation (injectable clock)
+        self.speed_monitor = SpeedMonitor(clock=clock)
+        #: goodput planner slot: attached by the master when armed
+        self.planner = None
+
+    def attach_planner(self, planner) -> None:
+        self.planner = planner

@@ -12,6 +12,18 @@ manager with its error monitor and the collective-hang watchdog
 ``DLROVER_TPU_MASTER_METRICS_PORT`` (master/metrics.py), and ``run``
 decides the job's exit and logs the goodput attribution.
 
+The goodput planner (brain/planner.py), armed by ``planner=True`` or
+``DLROVER_TPU_PLANNER``: the master builds it over the speed monitor, the
+training rendezvous and the job context, installs its growth gate on the
+training rendezvous (scale-out waits for its executed plan), hands it to
+the servicer (the membership poll carries its speculation hint) and to
+``/metrics``, and wraps it in a ``JobAutoScaler`` over a
+``LocalOptimizer`` and a ``LocalScaler``; every poll of ``run`` runs the
+auto-scaler's ``sweep`` (throttled by the planner's decide interval and
+the master config's ``seconds_to_autoscale_worker`` warmup) and writes
+the planner's ledger through to the state store, which ``prepare``
+restores before serving.
+
 Relaunch continuity, as the JAX master wires it: the job's container sits
 on ``create_state_backend(DLROVER_TPU_JOB_NAME)`` (master/state_store.py;
 memory unless ``DLROVER_TPU_STATE_BACKEND`` says ``file``), the task
@@ -22,16 +34,18 @@ master SIGKILLed and started again on the same port with the same state
 directory (``python -m dlrover_tpu_torch.master.main --port P``) honours
 the surviving workers' leases and fences, carries the global step and the
 goodput ledger on, and bills the gap as downtime backdated to the old
-master's last snapshot. The JAX master also wires the metric collector,
-diagnosis manager, goodput planner and auto-scaler; the servicer and job
-manager skip each one that is absent, and each waits in ROADMAP.md.
+master's last snapshot. The JAX master also wires the metric collector and
+the diagnosis manager; the servicer and job manager skip each one that is
+absent, and each waits in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import json
 import time
+from typing import Dict, Optional
 
+from dlrover_tpu_torch.brain.planner import GoodputPlanner
 from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.common.constants import JobExitReason, RendezvousName
 from dlrover_tpu_torch.common.log import logger
@@ -39,6 +53,7 @@ from dlrover_tpu_torch.master import metrics as master_metrics
 from dlrover_tpu_torch.master.job_container import JobContainer
 from dlrover_tpu_torch.master.monitor.error_monitor import ErrorMonitor
 from dlrover_tpu_torch.master.monitor.hang_watchdog import HangWatchdog
+from dlrover_tpu_torch.master.node.job_auto_scaler import JobAutoScaler
 from dlrover_tpu_torch.master.node.job_manager import LocalJobManager
 from dlrover_tpu_torch.master.rendezvous.kv_store import KVStoreService
 from dlrover_tpu_torch.master.rendezvous.manager import (
@@ -46,6 +61,8 @@ from dlrover_tpu_torch.master.rendezvous.manager import (
     NetworkCheckRendezvousManager,
 )
 from dlrover_tpu_torch.master.rendezvous.sync_service import SyncService
+from dlrover_tpu_torch.master.resource.optimizer import LocalOptimizer
+from dlrover_tpu_torch.master.scaler.base import LocalScaler
 from dlrover_tpu_torch.master.servicer import MasterServicer
 from dlrover_tpu_torch.master.shard.task_manager import TaskManager
 from dlrover_tpu_torch.master.state_store import create_state_backend
@@ -58,16 +75,23 @@ class LocalJobMaster:
         port: int = 0,
         node_num: int = 1,
         heartbeat_timeout: float = 600,
+        min_node_num: Optional[int] = None,
         rdzv_waiting_timeout: float = 60,
+        clock=None,
+        planner: Optional[bool] = None,
+        planner_kwargs: Optional[Dict] = None,
     ):
         # per-job state container: a fresh master gets a fresh container;
         # its continuity state is memory by default (dies with the
         # process), DLROVER_TPU_STATE_BACKEND=file makes a killed and
-        # relaunched master resume its shard queues and ledger
+        # relaunched master resume its shard queues and ledger. clock:
+        # the injectable "now" of the ledger, the rendezvous, the
+        # planner and the auto-scaler (None = wall time)
         job_name = flags.JOB_NAME.get()
         self.container = JobContainer(
             job_name=job_name,
             state_backend=create_state_backend(job_name),
+            clock=clock,
         )
         ctx = self.container.job_context
         self.state_manager = self.container.state_manager
@@ -76,14 +100,15 @@ class LocalJobMaster:
         self.task_manager = TaskManager(
             speed_monitor=self.speed_monitor,
             state_manager=self.state_manager,
+            clock=clock,
         )
         self.error_monitor = ErrorMonitor()
         self.rdzv_managers = {
             RendezvousName.TRAINING: ElasticTrainingRendezvousManager(
-                config=self.container.config
+                clock=clock, config=self.container.config
             ),
             RendezvousName.NETWORK_CHECK: NetworkCheckRendezvousManager(
-                config=self.container.config
+                clock=clock, config=self.container.config
             ),
         }
         self.job_manager = LocalJobManager(
@@ -93,15 +118,46 @@ class LocalJobMaster:
             rdzv_managers=self.rdzv_managers,
             job_context=ctx,
         )
+        min_n = min_node_num if min_node_num is not None else node_num
         for mgr in self.rdzv_managers.values():
             mgr.update_rdzv_params(
-                min_nodes=node_num,
+                min_nodes=min_n,
                 max_nodes=node_num,
                 waiting_timeout=rdzv_waiting_timeout,
                 node_unit=1,
             )
         self.kv_store = KVStoreService()
         self.sync_service = SyncService(ctx)
+        # the goodput planner: observe -> decide -> act over the speed
+        # monitor's measured ledgers (module docstring)
+        self.planner = None
+        self.auto_scaler = None
+        armed = planner if planner is not None else flags.PLANNER.get()
+        if armed:
+            training = self.rdzv_managers[RendezvousName.TRAINING]
+            self.planner = GoodputPlanner(
+                speed_monitor=self.speed_monitor,
+                rdzv_manager=training,
+                job_context=ctx,
+                clock=clock,
+                min_nodes=min_n,
+                max_nodes=node_num,
+                **(planner_kwargs or {}),
+            )
+            self.container.attach_planner(self.planner)
+            training.set_growth_gate(self.planner.growth_allowed)
+            self.auto_scaler = JobAutoScaler(
+                optimizer=LocalOptimizer(
+                    min_workers=min_n, max_workers=node_num
+                ),
+                scaler=LocalScaler(job_context=ctx),
+                speed_monitor=self.speed_monitor,
+                planner=self.planner,
+                clock=clock,
+                job_context=ctx,
+                config=self.container.config,
+                rdzv_manager=training,
+            )
         # eviction must also re-enqueue the dead node's data shards
         self.job_manager.attach_task_manager(self.task_manager)
         self.servicer = MasterServicer(
@@ -111,6 +167,7 @@ class LocalJobMaster:
             rdzv_managers=self.rdzv_managers,
             kv_store=self.kv_store,
             sync_service=self.sync_service,
+            planner=self.planner,
             job_context=ctx,
         )
         self._server = RpcServer(self.servicer, port=port)
@@ -125,6 +182,7 @@ class LocalJobMaster:
             rdzv_manager=self.rdzv_managers[RendezvousName.TRAINING],
             job_context=ctx,
             task_manager=self.task_manager,
+            clock=clock,
         )
         self.port = self._server.port
         self._metrics_server = None
@@ -139,6 +197,13 @@ class LocalJobMaster:
         speed_state = self.state_manager.load_speed()
         if speed_state:
             self.speed_monitor.import_state(speed_state)
+        if self.planner is not None:
+            planner_state = self.state_manager.load_planner()
+            if planner_state:
+                # the relaunched planner keeps its cooldown window and
+                # hysteresis streak: it must not re-execute the plan the
+                # dead master paid for
+                self.planner.import_state(planner_state)
         if restored or speed_state:
             logger.info(
                 "local master resumed state: %s datasets, global_step=%s",
@@ -151,7 +216,7 @@ class LocalJobMaster:
             self.speed_monitor.mark_downtime_start(ts=snap_ts or None)
         self._server.start()
         self._metrics_server = master_metrics.maybe_start(
-            self._server, self.speed_monitor)
+            self._server, self.speed_monitor, planner=self.planner)
         self.task_manager.start()
         self.job_manager.start()
         if flags.HANG_WATCHDOG.get():
@@ -166,6 +231,16 @@ class LocalJobMaster:
                 time.sleep(poll_interval)
                 self.state_manager.save_speed(
                     self.speed_monitor.export_state())
+                if self.auto_scaler is not None:
+                    # the decision cycle rides the poll loop (throttled
+                    # by the planner's decide interval)
+                    try:
+                        self.auto_scaler.sweep()
+                    except Exception:
+                        logger.exception("planner sweep failed")
+                if self.planner is not None:
+                    self.state_manager.save_planner(
+                        self.planner.export_state())
                 if self.job_manager.all_workers_succeeded():
                     self._exit_reason = JobExitReason.SUCCEEDED
                     break

@@ -2,10 +2,10 @@
 port's own copy of dlrover_tpu/master/metrics.py.
 
 The control plane's own health (RPC queue depth, shed counters, goodput,
-downtime, straggler count) as gauges. Enabled by
-``DLROVER_TPU_MASTER_METRICS_PORT`` (0 = ephemeral). The JAX master also
-adds the goodput planner's lines, which wait for the planner (ROADMAP
-5b.2d).
+downtime, straggler count) as gauges, and, when the goodput planner is
+armed, its decision counters and last-decision gauges
+(``dlrover_tpu_scale_decisions_total``, brain/planner.py). Enabled by
+``DLROVER_TPU_MASTER_METRICS_PORT`` (0 = ephemeral).
 """
 
 from __future__ import annotations
@@ -92,9 +92,13 @@ def speed_monitor_lines(speed_monitor) -> List[str]:
     return lines
 
 
-def maybe_start(rpc_server, speed_monitor) -> Optional[MasterMetricsServer]:
+def maybe_start(
+    rpc_server, speed_monitor, planner=None
+) -> Optional[MasterMetricsServer]:
     """Boot the endpoint when ``DLROVER_TPU_MASTER_METRICS_PORT`` is set:
-    the RPC gate's depth and shed counters and the goodput gauges."""
+    the RPC gate's depth and shed counters, the goodput gauges and (when
+    the goodput planner is armed) ``dlrover_tpu_scale_decisions_total``
+    and the last-decision gauges."""
     from dlrover_tpu_torch.common import flags
 
     if not flags.MASTER_METRICS_PORT.present():
@@ -104,6 +108,8 @@ def maybe_start(rpc_server, speed_monitor) -> Optional[MasterMetricsServer]:
         server.add_provider(rpc_server.gate.prometheus_lines)
     if speed_monitor is not None:
         server.add_provider(lambda: speed_monitor_lines(speed_monitor))
+    if planner is not None:
+        server.add_provider(planner.prometheus_lines)
     try:
         server.start()
     except OSError as e:

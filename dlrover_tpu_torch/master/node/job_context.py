@@ -93,6 +93,13 @@ class JobContext:
             and not n.is_released
         ]
 
+    def next_node_id(self, node_type: str) -> int:
+        """The id a newly requested node of ``node_type`` gets (the
+        local scaler's launches)."""
+        with self._lock:
+            nodes = self._nodes.get(node_type, {})
+            return max(nodes.keys(), default=-1) + 1
+
     # -- checkpoint steps ----------------------------------------------------
 
     def record_ckpt_step(self, node_id: int, step: int):

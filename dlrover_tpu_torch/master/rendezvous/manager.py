@@ -12,10 +12,24 @@ dlrover_tpu/master/rendezvous/manager.py.
   nodes and stragglers.
 
 The hang watchdog's re-form signal (``request_re_rendezvous``: a virtual
-waiter until the next round completes) and ``latest_world_ids`` are the
-JAX package's. Its planner growth gate waits for the planner (ROADMAP
-5b.2d), and with it the alive-node set that only the gate reads, so an
-excluded member here leaves only the waiting list.
+waiter until the next round completes), ``latest_world_ids`` and the
+goodput planner's growth gate are the JAX package's. The gate
+(``set_growth_gate``, brain/planner.py): waiting capacity that would only
+grow a healthy seated world (``_pure_growth``: a round exists, every
+seated member is alive, no waiting node is a seated member re-joining) is
+advertised as 0 waiters and cannot complete a round until the planner's
+executed plan opens the gate. Recovery never waits: a dead seated member,
+a member re-joining and the watchdog's virtual waiter all bypass it. The
+alive-node set the published snapshot carries (``world_snapshot``) is
+what tells growth from recovery.
+
+One difference from the JAX manager (``_growth_holds_round``): while the
+open gate lets an executed plan grow a healthy seated world, a round
+completes only once every seated member has re-joined. The JAX manager
+lets the joiners complete a round on their own once the last-call window
+has passed since their join, which at the local master's 60 s window
+seats a joiner that waited behind the gate alone while the seated node
+is still persisting its breakpoint.
 """
 
 from __future__ import annotations
@@ -79,6 +93,7 @@ class _WorldSnapshot:
     force_reform: bool = False
     coordinator: str = ""
     latest_world: Tuple[int, ...] = ()
+    alive_ids: FrozenSet[int] = frozenset()
 
 
 class RendezvousManager(ABC):
@@ -93,6 +108,7 @@ class RendezvousManager(ABC):
         # join stamps share one clock
         self._clock = clock or time.time
         self._params = RendezvousParameters(1, 1)
+        self._alive_nodes: set = set()
         self._waiting_nodes: Dict[int, NodeTopologyMeta] = {}
         self._rdzv_nodes: Dict[int, NodeTopologyMeta] = {}
         self._lastcall_time: float = 0.0
@@ -110,6 +126,11 @@ class RendezvousManager(ABC):
         # get_comm_world / num_nodes_waiting polls. The reference store
         # is atomic in CPython; readers grab one coherent version.
         self._snapshot = _WorldSnapshot()
+        # the planner's growth gate (brain/planner.py): scale-out is a
+        # choice, so waiting capacity that would only grow a healthy
+        # seated world is advertised (and may complete a round) only when
+        # the gate approves. Recovery is never gated. None = no planner.
+        self._growth_gate = None
 
     def _publish_locked(self):
         """Rebuild the published snapshot. Caller holds the lock."""
@@ -126,7 +147,13 @@ class RendezvousManager(ABC):
             force_reform=self._force_reform,
             coordinator=self.coordinator_addr(),
             latest_world=tuple(self._latest_rdzv_nodes),
+            alive_ids=frozenset(self._alive_nodes),
         )
+
+    def world_snapshot(self) -> _WorldSnapshot:
+        """The current published view (lock-free; the planner's
+        observation, tests and metrics)."""
+        return self._snapshot
 
     def update_rdzv_params(
         self, min_nodes: int, max_nodes: int, node_unit: int,
@@ -141,9 +168,19 @@ class RendezvousManager(ABC):
     def get_rdzv_round(self) -> int:
         return self._rdzv_round
 
+    def add_alive_node(self, node_id: int):
+        with self._lock:
+            if node_id not in self._alive_nodes:
+                self._alive_nodes.add(node_id)
+                # the snapshot carries alive_ids (the gate's recovery vs
+                # growth distinction): republish on a liveness change
+                self._publish_locked()
+
     def remove_alive_node(self, node_id: int):
         """Node died: drop it so a pending rendezvous does not stall on it."""
         with self._lock:
+            changed = node_id in self._alive_nodes
+            self._alive_nodes.discard(node_id)
             removed = None
             for rank, meta in list(self._waiting_nodes.items()):
                 if meta.node_id == node_id:
@@ -156,6 +193,7 @@ class RendezvousManager(ABC):
                     self.name,
                     node_id,
                 )
+            if changed or removed is not None:
                 self._publish_locked()
 
     def join_rendezvous(self, node_id: int, node_rank: int, meta: NodeTopologyMeta) -> int:
@@ -166,30 +204,85 @@ class RendezvousManager(ABC):
             # re-join replaces the stale entry
             self._waiting_nodes[node_rank] = meta
             self._lastcall_time = meta.join_time
+            self._alive_nodes.add(node_id)
             self._publish_locked()
         return self._rdzv_round
+
+    def set_growth_gate(self, gate) -> None:
+        """Install the planner's growth gate: ``gate(seated_world_size)
+        -> bool``. Called on the poll fast path and under the manager
+        lock from round completion, so the gate only reads its own state
+        (the planner takes only its own lock inside)."""
+        self._growth_gate = gate
+
+    @staticmethod
+    def _pure_growth(s: "_WorldSnapshot") -> bool:
+        """True iff admitting the waiting nodes would only grow a healthy
+        seated world: a round exists, every seated member is still alive,
+        and no waiting node is a seated member re-joining (a re-form
+        already in progress). Anything else is recovery and never waits
+        for the planner."""
+        if not s.latest_world or s.force_reform:
+            return False
+        world = set(s.latest_world)
+        if not world <= s.alive_ids:
+            return False  # a seated member died: re-form is recovery
+        return world.isdisjoint(s.waiting_ids)
+
+    def _growth_holds_round(self) -> bool:
+        """Caller holds the lock. True iff the gate keeps the waiting
+        nodes from completing a round: pure growth the gate has not
+        approved (the JAX rule), or, where the port differs (module
+        docstring), growth of a healthy seated world the open gate
+        approved before every seated member re-joined."""
+        gate = self._growth_gate
+        s = self._snapshot
+        if gate is None or not s.latest_world or s.force_reform:
+            return False
+        world = set(s.latest_world)
+        if not world <= s.alive_ids or world <= s.waiting_ids:
+            return False  # recovery, or the whole seated world re-joined
+        allowed = gate(len(world))
+        if self._pure_growth(s) and not allowed:
+            return True
+        return allowed
 
     def num_nodes_waiting(self) -> int:
         """Agents poll this; >0 during training means a membership
         change. While a re-form is requested (collective-hang recovery)
         and nobody has re-joined yet, a VIRTUAL waiter is reported so
         the seated-but-stalled cohort drops back into the rendezvous,
-        the same signal path a real joiner uses. Served from the
-        immutable snapshot: one reference read, no lock."""
+        the same signal path a real joiner uses.
+
+        With a growth gate installed, waiting capacity that would only
+        grow a healthy seated world reads as 0 until the planner's
+        executed plan opens the gate: the seated fleet keeps training
+        instead of paying re-form downtime the planner has not approved.
+        Served from the immutable snapshot: one reference read, no
+        lock."""
         s = self._snapshot
         if s.num_waiting == 0 and s.force_reform:
             return 1
+        gate = self._growth_gate
+        if (
+            gate is not None
+            and s.num_waiting > 0
+            and self._pure_growth(s)
+            and not gate(len(s.latest_world))
+        ):
+            return 0
         return s.num_waiting
 
     def request_re_rendezvous(self, exclude=()) -> None:
         """Collective-hang recovery (master/monitor/hang_watchdog.py):
-        drop the silent members of the seated round from the waiting list
-        and raise the re-form signal. Reachable members see a waiter on
-        their next membership poll and re-join; the next completed round
-        clears the signal. An excluded node that heals simply joins
-        again."""
+        drop the silent members of the seated round from the alive set and
+        the waiting list and raise the re-form signal. Reachable members
+        see a waiter on their next membership poll and re-join; the next
+        completed round clears the signal. An excluded node that heals
+        simply joins again."""
         with self._lock:
             for node_id in exclude:
+                self._alive_nodes.discard(node_id)
                 stale = [
                     rank for rank, m in self._waiting_nodes.items()
                     if m.node_id == node_id
@@ -216,6 +309,11 @@ class RendezvousManager(ABC):
         """Caller holds the lock. Completes the round when ready."""
         waiting = len(self._waiting_nodes)
         if waiting == 0:
+            return False
+        if self._growth_holds_round():
+            # a pure-growth cohort big enough to complete a round on its
+            # own must not form one behind the planner's back, nor, once
+            # the plan is executed, without the seated world it grows
             return False
         p = self._params
         completed = False

@@ -355,7 +355,8 @@ class MasterStateManager:
     def save_planner(self, state: Dict):
         """The planner's decision ledger and cooldown state: a relaunched
         master must not re-execute a plan the dead one just paid for (the
-        port's planner is ROADMAP 5b.2d; the document is the JAX one)."""
+        document is the JAX one, so a ledger crosses between the
+        packages)."""
         fp = json.dumps(state, sort_keys=True, default=str)
         if self._last_written.get(self.K_PLANNER) == fp:
             return

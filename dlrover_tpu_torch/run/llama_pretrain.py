@@ -19,7 +19,13 @@ flight on the device, each process copying only its own rows. With
 ``loader_state-<rank>.json``, written at every ``--save-every``-th step
 through a temporary file and a rename; a restore loads it only when it is
 not ahead of the restored step and every process holds the same step, so a
-restore past the last sidecar replays data rather than skipping it.
+restore past the last sidecar replays data rather than skipping it. Two
+differences from the JAX example, so that a resized world trains every
+record once: a process the world grew by (dp2 -> dp4) has no sidecar of
+its own and reads process 0's, the same position; and a sidecar ahead of
+the restored step (the worker stepped on while the agent persisted the
+breakpoint) is rewound by one global batch a step where the JAX example
+replays the epoch from its start.
 
 With ``--ckpt-dir``, flash checkpoint as examples/llama_pretrain.py runs it:
 the state is restored at start (from shm, else the node-local disk, else
@@ -106,12 +112,14 @@ def model_config(name: str, layers: int) -> llama.LlamaConfig:
     return cfg
 
 
-def build(args: argparse.Namespace, device=None):
+def build(args: argparse.Namespace, device=None, worker_ctx=None):
     """The trainer, its state and a synthetic batch maker for ``args``;
     returns ``(cfg, trainer, state, next_batch, tokens_per_step)``.
     ``next_batch`` draws the global batch (the same on every process) and
     returns this process's rows; ``tokens_per_step`` counts the global
-    batch's tokens. ``device``: ``args.device`` when None."""
+    batch's tokens. ``device``: ``args.device`` when None. ``worker_ctx``:
+    the worker's bootstrap context, through which the trainer polls the
+    runtime config and the planner's hint."""
     device = resolve_device(args.device if device is None else device)
     cfg = model_config(args.model, args.layers)
     seq = args.seq or min(2048, cfg.max_seq_len)
@@ -121,7 +129,8 @@ def build(args: argparse.Namespace, device=None):
         total_steps=args.steps,
     )
     trainer = ElasticTrainer(lambda p, t: llama.loss_fn(p, t, cfg), tc,
-                             lambda p, t: llama.loss_sums(p, t, cfg))
+                             lambda p, t: llama.loss_sums(p, t, cfg),
+                             worker_ctx=worker_ctx)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = trainer.init_state(llama.init_params(cfg, gen))
     a, b = trainer.step_batch_shape
@@ -189,12 +198,17 @@ def write_sidecar(path: str, step: int, loader_pos: dict):
     os.replace(tmp, path)
 
 
-def read_sidecar(path: str, restored_step: int) -> Optional[dict]:
+def read_sidecar(path: str, restored_step: int,
+                 global_batch: int = 0) -> Optional[dict]:
     """The sidecar to resume the loader from, or None: a torn or missing
-    file, one ahead of the restored step (the persist is async: a crash
-    inside that window must replay data, never skip it), or processes
-    that disagree (every process must load the same position or none, as
-    each draws the identical global batch) give None."""
+    file, or processes that disagree (every process must load the same
+    position or none, as each draws the identical global batch) give None.
+    A sidecar ahead of the restored step (the persist is async: a crash
+    inside that window must replay data, never skip it) is rewound by the
+    ``global_batch`` samples of each step in between when they lie in its
+    epoch (every step consumes one global batch of the one-replica
+    sampler, whatever the dp), else, or without ``global_batch``, gives
+    None, as the JAX example does."""
     side = None
     if os.path.exists(path):
         try:
@@ -203,7 +217,14 @@ def read_sidecar(path: str, restored_step: int) -> Optional[dict]:
         except ValueError:
             side = None  # torn write: fall back to the epoch's start
     if side is not None and side.get("step", 0) > restored_step:
-        side = None
+        ahead = int(side["step"]) - restored_step
+        loader = dict(side.get("loader") or {})
+        done = int(loader.get("completed_samples", 0)) - ahead * global_batch
+        if global_batch > 0 and done >= 0:
+            side = {"step": restored_step,
+                    "loader": {**loader, "completed_samples": done}}
+        else:
+            side = None
     steps = bootstrap.process_allgather(
         side["step"] if side is not None else -1)
     if any(s != steps[0] for s in steps) or steps[0] < 0:
@@ -236,9 +257,14 @@ def open_data(args: argparse.Namespace, cfg, trainer, seq: int, device,
         collate=lambda xs: np.stack(xs).reshape(a, b, seq))
     loader_restored = None
     if restored_step is not None:
-        side = read_sidecar(sidecar_path(args.ckpt_dir,
-                                         bootstrap.process_index()),
-                            restored_step)
+        path = sidecar_path(args.ckpt_dir, bootstrap.process_index())
+        if not os.path.exists(path):
+            # a process the world grew by has no sidecar of its own; every
+            # process draws the identical global batch, so process 0's
+            # position is this one's too (the JAX example replays the
+            # epoch from its start there)
+            path = sidecar_path(args.ckpt_dir, 0)
+        side = read_sidecar(path, restored_step, a * b)
         if side is not None:
             loader.load_state_dict(side["loader"])
             loader_restored = side["step"]
@@ -271,7 +297,7 @@ def run(args: argparse.Namespace, log=print) -> dict:
     device = args.device
     if ctx is not None and device == "cuda":
         device = f"cuda:{ctx.local_rank}"
-    cfg, trainer, state, next_batch, tokens = build(args, device)
+    cfg, trainer, state, next_batch, tokens = build(args, device, ctx)
     seq = args.seq or min(2048, cfg.max_seq_len)
     if args.data:
         ckpt, start, restore = open_checkpoint(args, state, None, log)

@@ -17,8 +17,11 @@ seconds the steps waited for input since the last report. Known
 difference: the JAX worker reads that wait from its trace ring's
 ``input_wait`` spans; the port has no trace ring, so the caller adds its
 measured waits (``add_input_wait``: ``run/llama_pretrain.py``'s wait for
-each batch on the prefetch). The JAX bootstrap's stack dumper, tracer,
-stack sampler and compile cache wait for the profiler slice (ROADMAP.md).
+each batch on the prefetch). ``poll_speculation_hint`` reads the goodput
+planner's intended next world from the membership poll and arms the
+trainer with it (brain/planner.py). The JAX bootstrap's stack dumper,
+tracer, stack sampler and compile cache wait for the profiler slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -95,6 +98,41 @@ class WorkerContext:
     @property
     def local_rank(self) -> int:
         return self.env.local_rank
+
+    @property
+    def processes_per_node(self) -> int:
+        """Worker processes (one a card) each node of the world runs, from
+        the environment the agent set: the world's processes over its
+        nodes."""
+        return max(1, self.env.num_processes // max(1, self.env.node_num))
+
+    def poll_speculation_hint(self, trainer) -> Optional[dict]:
+        """Fetch the goodput planner's intended-next-world hint from the
+        membership poll and arm the trainer with it (brain/planner.py).
+        The master plans in nodes; the hint scales by the processes a node
+        runs (``processes_per_node``, from the agent's environment: the
+        port runs one process a card, where the JAX worker multiplies by
+        ``jax.local_device_count()``), so the trainer records the process
+        world the planner-directed resize will seat. A missing or empty
+        hint arms nothing and returns None: a master without a planner,
+        or with no executed intent, is harmless."""
+        if self.client is None:
+            return None
+        try:
+            hint = self.client.speculation_hint()
+        except Exception as e:
+            logger.debug("speculation-hint poll failed: %s", e)
+            return None
+        if not hint:
+            return None
+        world_nodes = int(hint.get("world", 0) or 0)
+        if world_nodes <= 0:
+            return None
+        trainer.set_speculation_hint(
+            world_nodes * self.processes_per_node,
+            n_slices=int(hint.get("n_slices", 0) or 0) or None,
+        )
+        return hint
 
     def add_input_wait(self, seconds: float):
         """Add a step's wait for its input (the digest's ``input_wait_s``

@@ -53,6 +53,18 @@ sample per rank. The caller's step report drains it
   after each step sees the same: the step's device time from its first
   launch to its last kernel's end.
 
+Runtime config, as the JAX trainer polls it: with a ``worker_ctx`` (the
+worker's ``bootstrap.WorkerContext``) each step first runs
+``poll_runtime_config``, which every ``poll_every_steps`` host steps (100
+by default, as the JAX step polls) re-reads the agent's parallel-config
+file and applies a pushed ``optimizer_learning_rate`` as ``lr_scale``
+relative to the configured base lr (``apply_paral_config``; the
+schedule's shape is kept, and ``lr_scale`` stays a host float, so nothing
+on the step path syncs the device), then polls the goodput planner's
+speculation hint (``set_speculation_hint`` records the target world and
+logs it; the warm compiler that would build it ahead waits for ROADMAP
+item 8).
+
 Meshes beyond dp (fsdp, tp, zero-1), hierarchical collectives, warm
 compile, remesh and the lint hooks are not ported yet.
 """
@@ -65,7 +77,10 @@ from typing import Any, Callable, Iterable, List, Optional, Tuple
 
 import torch
 
+from dlrover_tpu_torch.agent.paral_config_tuner import read_paral_config
+from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.tree import Tree, flatten
+from dlrover_tpu_torch.common.world import WorldDescriptor
 from dlrover_tpu_torch.observability.digest import StepTimeDigest
 from dlrover_tpu_torch.train import bootstrap
 from dlrover_tpu_torch.train.optim import make_optimizer
@@ -115,10 +130,20 @@ class ElasticTrainer:
     """Owns the optimizer and runs the accumulate-reduce-clip-adamw step."""
 
     def __init__(self, loss_fn: LossFn, train_config: TrainConfig,
-                 loss_sums_fn: Optional[LossSumsFn] = None):
+                 loss_sums_fn: Optional[LossSumsFn] = None,
+                 worker_ctx=None):
         self.loss_fn = loss_fn
         self.loss_sums_fn = loss_sums_fn
         self.tc = train_config
+        #: the worker's bootstrap context: runtime config and the
+        #: planner's hint are polled through it (module docstring)
+        self.worker_ctx = worker_ctx
+        #: host steps between two runtime-config polls of ``step``
+        self.poll_every_steps = 100
+        self._applied_config_version = 0
+        #: the world the goodput planner's executed plan seats next
+        #: (set_speculation_hint); None without a hint
+        self.speculation_hint: Optional[WorldDescriptor] = None
         self.optimizer = make_optimizer(train_config)
         #: the last step's CUDA events around the gradients' all-reduce
         #: (dp above 1 on the card), for its device time; None otherwise
@@ -129,7 +154,8 @@ class ElasticTrainer:
         #: on the card, each queued step's (start, end) CUDA events and
         #: whether its time is a sample, oldest first
         self._step_events: List[Tuple[Any, Any, bool]] = []
-        self._steps_run = 0
+        #: steps this process has run (the JAX trainer's host step)
+        self._host_step = 0
 
     @property
     def step_digest(self) -> StepTimeDigest:
@@ -149,8 +175,8 @@ class ElasticTrainer:
     def _end_step(self, t0: float, device_start, stream):
         """Account for the step just queued on ``stream`` (module
         docstring)."""
-        self._steps_run += 1
-        sample = self._steps_run > 1
+        self._host_step += 1
+        sample = self._host_step > 1
         if device_start is None:
             if sample:
                 self._digest.add(time.monotonic() - t0)
@@ -231,6 +257,8 @@ class ElasticTrainer:
         shaped (accum_steps, micro, ...). Returns the (updated in place)
         state and the mean microbatch loss (of the global microbatches,
         the same on every rank) as a 0-dim tensor on the params' device."""
+        if self.worker_ctx is not None:
+            state = self.poll_runtime_config(state, self.poll_every_steps)
         t0 = time.monotonic()
         leaves = flatten(state["params"])
         tensors = [p for _, p in leaves]
@@ -300,6 +328,86 @@ class ElasticTrainer:
         loss = loss_sum * (1.0 / accum)
         self._end_step(t0, device_start, stream)
         return state, loss
+
+    # -- runtime config and the planner's hint ------------------------------
+
+    def _descriptor_for_world(
+        self, world: int, n_slices: Optional[int] = None
+    ) -> Optional[WorldDescriptor]:
+        """This trainer's layout (pure dp) on ``world`` processes, or None
+        when that world is inadmissible: the global batch must divide
+        into ``micro_batch x world``, and a multislice world must split
+        dp evenly over its slices."""
+        if world <= 0:
+            return None
+        slices = max(1, int(n_slices)) if n_slices is not None else 1
+        if world % slices:
+            return None
+        if self.tc.global_batch_size % (self.tc.micro_batch_size * world):
+            return None
+        return WorldDescriptor.from_axis_sizes(
+            {"dp": world}, n_slices=slices, hier=slices > 1)
+
+    def set_speculation_hint(self, hint, n_slices: Optional[int] = None):
+        """Record the exact world the master's goodput planner intends to
+        resize to next (brain/planner.py) and log it. ``hint``: a
+        :class:`WorldDescriptor`, a process-world size (the caller
+        converts the master's node-level hint, ``WorkerContext.
+        poll_speculation_hint``), or None to clear. An inadmissible hint,
+        or the world this trainer already runs, records nothing. The warm
+        compiler that would build the target ahead waits for ROADMAP
+        item 8."""
+        if hint is None:
+            self.speculation_hint = None
+            return
+        if isinstance(hint, WorldDescriptor):
+            wd = self._descriptor_for_world(hint.world_size,
+                                            n_slices=hint.n_slices)
+        else:
+            wd = self._descriptor_for_world(int(hint), n_slices=n_slices)
+        if wd is not None and wd.world_size == self.dp:
+            wd = None  # already there
+        if wd is not None:
+            logger.info("speculation hint armed: planner intends world %s",
+                        wd.spec)
+        self.speculation_hint = wd
+
+    def apply_paral_config(self, state: dict, config: dict) -> dict:
+        """Apply a master-pushed runtime config to the train state: a new
+        ``optimizer_learning_rate`` becomes the update multiplier
+        ``lr_scale`` relative to the configured base lr (the schedule's
+        shape is kept). A host float: the step reads it without a device
+        sync. The dataloader fields are ``ElasticDataLoader``'s."""
+        new_lr = float(config.get("optimizer_learning_rate", 0.0) or 0.0)
+        if new_lr > 0 and self.tc.learning_rate > 0 and "lr_scale" in state:
+            scale = new_lr / self.tc.learning_rate
+            if abs(scale - float(state["lr_scale"])) > 1e-9:
+                state["lr_scale"] = scale
+                logger.info("runtime lr update: base=%g -> %g (scale %.4f)",
+                            self.tc.learning_rate, new_lr, scale)
+        return state
+
+    def poll_runtime_config(self, state: dict,
+                            every_steps: int = 100) -> dict:
+        """Cheap per-step hook: every ``every_steps`` host steps re-read
+        the agent-pushed parallel-config file, apply an optimizer change
+        (``apply_paral_config``), and poll the planner's speculation hint
+        through the worker context. Hint failures never touch the
+        training loop."""
+        if self._host_step % max(1, every_steps):
+            return state
+        config = read_paral_config()
+        version = int(config.get("optimizer_version", 0)
+                      or config.get("dataloader_version", 0) or 0)
+        if config and version != self._applied_config_version:
+            self._applied_config_version = version
+            state = self.apply_paral_config(state, config)
+        if self.worker_ctx is not None:
+            try:
+                self.worker_ctx.poll_speculation_hint(self)
+            except Exception:
+                logger.exception("speculation-hint poll failed")
+        return state
 
     @torch.no_grad()
     def eval_step(self, state: dict, batch: Batch) -> torch.Tensor:

@@ -914,3 +914,298 @@ def test_hang_lives_split_the_one_log(tmp_path, monkeypatch):
         f.writelines(first)
     with pytest.raises(chip_smoke.SmokeFailure, match="lived 1 lives"):
         chip_smoke._hang_lives(job)
+
+
+# -- the planner in phase 4e's relaunch leg ---------------------------------------
+
+
+def _planner_docs(sample=0.23, n_before=3, n_after=2):
+    """The planner documents of phase 4e's two masters, from real port
+    planners over one worker's digests: the first decides ``n_before``
+    times, its successor imports its export (through JSON, as the state
+    store does) and decides ``n_after`` times; the /metrics body of the
+    successor; the digest windows the worker reported."""
+    import json
+    import types
+
+    from dlrover_tpu_torch.brain.planner import GoodputPlanner
+    from dlrover_tpu_torch.master import metrics as mm
+    from dlrover_tpu_torch.master.monitor.speed_monitor import SpeedMonitor
+
+    clock = [1000.0]
+    sm = SpeedMonitor(clock=lambda: clock[0])
+    rdzv = types.SimpleNamespace(world_snapshot=lambda: types.SimpleNamespace(
+        latest_world=(0,), num_waiting=0, rdzv_nodes={}))
+    windows = [_window(sample * (1 + 0.01 * (i % 3))) for i in range(6)]
+
+    def planner():
+        return GoodputPlanner(speed_monitor=sm, rdzv_manager=rdzv,
+                              clock=lambda: clock[0], decide_interval_s=1.0)
+
+    first = planner()
+    for i in range(n_before):
+        sm.collect_global_step(i + 1, clock[0])
+        sm.collect_step_digest(0, windows[i], ts=clock[0])
+        clock[0] += 1.0
+        first.sweep()
+    before = json.loads(json.dumps(first.export_state()))
+    second = planner()
+    second.import_state(before)
+    for i in range(n_after):
+        clock[0] += 1.0
+        second.sweep()
+    after = json.loads(json.dumps(second.export_state()))
+    server = mm.MasterMetricsServer(port=0)
+    server.add_provider(second.prometheus_lines)
+    text = "\n".join(second.prometheus_lines())
+    return before, after, text, windows
+
+
+def test_relaunch_planner_check_passes():
+    before, after, text, windows = _planner_docs()
+    p50, median, n0, n1 = chip_smoke.check_relaunch_planner(
+        before, after, text, windows)
+    assert (n0, n1) == (3, 5)
+    assert median == pytest.approx(0.23 * 1.01)
+    assert abs(p50 - median) <= chip_smoke.PLANNER_STEP_TOL * median
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("none_before", "no decision before the kill"),
+    ("none_after", "no decision after the relaunch"),
+    ("not_continued", "does not continue"),
+    ("resize", "more than HOLD"),
+    ("executed", "more than HOLD"),
+    ("no_metrics", "no planner lines"),
+    ("no_p50", "observed a step p50"),
+    ("no_samples", "observed a step p50"),
+    ("p50_off", "not within"),
+])
+def test_relaunch_planner_check_fails_on_each_fault(fault, match):
+    before, after, text, windows = _planner_docs()
+    if fault == "none_before":
+        before = None
+    elif fault == "none_after":
+        _, after, _, _ = _planner_docs(n_after=0)
+    elif fault == "not_continued":
+        after["ledger"][0]["ts"] += 1.0
+    elif fault == "resize":
+        after["ledger"][-1]["verdict"] = "resize"
+    elif fault == "executed":
+        after["executed"] = [{"ts": 1.0, "target": "dp2",
+                              "target_world": 2}]
+    elif fault == "no_metrics":
+        text = "dlrover_tpu_master_goodput 0.9"
+    elif fault == "no_p50":
+        for d in before["ledger"] + after["ledger"]:
+            d["inputs"]["step_p50_s"] = 0.0
+    elif fault == "no_samples":
+        windows = [None] * 6
+    elif fault == "p50_off":
+        windows = [_window(0.3)] * 6
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_relaunch_planner(before, after, text, windows)
+
+
+def test_planner_doc_reads_the_masters_file_state(tmp_path, monkeypatch):
+    """``load_planner_doc`` reads what a port master's state manager wrote
+    under ``DLROVER_TPU_STATE_DIR`` for its job (None before)."""
+    from dlrover_tpu_torch.master.state_store import (
+        MasterStateManager, create_state_backend)
+
+    monkeypatch.setenv("DLROVER_TPU_STATE_BACKEND", "file")
+    monkeypatch.setenv("DLROVER_TPU_STATE_DIR", str(tmp_path))
+    assert chip_smoke.load_planner_doc(str(tmp_path), "j") is None
+    before, _, _, _ = _planner_docs()
+    MasterStateManager(create_state_backend("j")).save_planner(before)
+    assert chip_smoke.load_planner_doc(str(tmp_path), "j") == before
+
+
+# -- the four-card scale-out leg --------------------------------------------------
+
+
+def _scale_case():
+    """A scale-out that went right, as the leg reads it: node 0's two dp2
+    lives up to step 9 (the hint armed after the execution at 1014), node
+    1's start at 1006 and its agent's detection at 1019, the persisted
+    step 8 restored on all four dp4 ranks, every step's rows the loader's
+    order's (``crc_of`` stands for their CRC32), and the planner's
+    ledger."""
+    counts = {"flash_fwd": 4, "fused_ce_fwd": 2}
+    pieces = {"params#s0": 11, "params#s1": 12, "opt.mu#s0": 13}
+
+    def crc_of(step, rank, world):
+        return step * 100 + rank * 10 + world
+
+    def step(n, rank, world, t, hint="", loss=None):
+        return {"step": n, "loss": 10.0 - 0.1 * n if loss is None else loss,
+                "seconds": 0.5, "end_t": t, "crc": crc_of(n, rank, world),
+                "hint": hint, "counts": dict(counts)}
+
+    firsts = [{"life": {"rank": r, "world": 2, "start": 0, "restore": None},
+               "steps": [step(n, r, 2, 1000.0 + 2 * n,
+                              "dp4" if 1000.0 + 2 * n > 1014.0 else "")
+                         for n in range(1, 10)], "end": None}
+              for r in range(2)]
+    seconds = [{"life": {"rank": r, "world": 4, "start": 8,
+                         "start_t": 1030.0, "pieces": dict(pieces),
+                         "restore": {"step": 8, "tier": "disk"}},
+                "steps": [step(n, r, 4, 1040.0 + n,
+                               loss=10.0 - 0.1 * n + (2e-7 if n == 9 else 0))
+                          for n in range(9, 9 + chip_smoke.SCALE_AFTER)],
+                "end": {"counts": dict(counts)}}
+               for r in range(4)]
+    ledger = [{"verdict": "hold", "reason": "no_signal", "target": "",
+               "target_world": 0, "current_world": 1},
+              {"verdict": "hold", "reason": "hysteresis:1/2",
+               "target": "dp2", "target_world": 2, "current_world": 1},
+              {"verdict": "resize", "reason": "payback", "target": "dp2",
+               "target_world": 2, "current_world": 1},
+              {"verdict": "hold", "reason": "cooldown", "target": "",
+               "target_world": 0, "current_world": 2}]
+    executed = [{"ts": 1014.0, "target": "dp2", "target_world": 2}]
+    return dict(firsts=firsts, seconds=seconds, ledger=ledger,
+                executed=executed, join_t=1006.0, seen_t=1019.0,
+                pieces=pieces, expected_crc=crc_of)
+
+
+def test_scale_out_check_passes():
+    assert chip_smoke.check_scale_out(**_scale_case()) == 8
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("two_resizes", "2 RESIZEs"),
+    ("no_resize", "0 RESIZEs"),
+    ("wrong_target", "RESIZE was"),
+    ("no_streak", "before the RESIZE"),
+    ("not_executed", "executed plans"),
+    ("executed_twice", "executed plans"),
+    ("no_wait", "steps between node 1's start"),
+    ("no_hint", "hints"),
+    ("early_hint", "hints"),
+    ("early_reform", "re-formed round"),
+    ("three_ranks", "dp4 lives"),
+    ("restored_apart", "restored steps"),
+    ("piece_crc", "restored pieces"),
+    ("rows", "other rows"),
+    ("dp4_losses", "losses differ"),
+    ("continuity", "not within"),
+    ("no_launch_dp2", "never launched on rank 1 in the dp2"),
+    ("no_launch_dp4", "never launched on rank 2 in the dp4"),
+    ("dp4_steps", "dp4 steps"),
+])
+def test_scale_out_check_fails_on_each_fault(fault, match):
+    case = _scale_case()
+    firsts, seconds, ledger = case["firsts"], case["seconds"], case["ledger"]
+    if fault == "two_resizes":
+        ledger[3]["verdict"] = "resize"
+    elif fault == "no_resize":
+        ledger[2]["verdict"] = "hold"
+    elif fault == "wrong_target":
+        ledger[2]["target"] = "dp3"
+    elif fault == "no_streak":
+        ledger[1]["reason"] = "no_paying_candidate"
+    elif fault == "not_executed":
+        case["executed"] = []
+    elif fault == "executed_twice":
+        case["executed"] = case["executed"] * 2
+    elif fault == "no_wait":
+        case["seen_t"] = 1009.0
+    elif fault == "no_hint":
+        firsts[0]["steps"][-1]["hint"] = ""
+    elif fault == "early_hint":
+        firsts[1]["steps"][0]["hint"] = "dp4"
+    elif fault == "early_reform":
+        seconds[3]["life"]["start_t"] = 1013.0
+    elif fault == "three_ranks":
+        case["seconds"] = seconds[:3]
+    elif fault == "restored_apart":
+        seconds[2]["life"]["start"] = 7
+    elif fault == "piece_crc":
+        seconds[1]["life"]["pieces"]["opt.mu#s0"] += 1
+    elif fault == "rows":
+        firsts[1]["steps"][4]["crc"] += 1
+    elif fault == "dp4_losses":
+        seconds[3]["steps"][1]["loss"] += 1e-6
+    elif fault == "continuity":
+        for x in seconds:
+            x["steps"][0]["loss"] += 1e-3
+    elif fault == "no_launch_dp2":
+        firsts[1]["steps"][-1]["counts"]["flash_fwd"] = 0
+    elif fault == "no_launch_dp4":
+        seconds[2]["end"]["counts"]["fused_ce_fwd"] = 0
+    elif fault == "dp4_steps":
+        for x in seconds:
+            x["steps"] = x["steps"][:-1]
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_scale_out(**case)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_scale_rows_equal_the_port_loaders_rows(tmp_path, world):
+    """``scale_rows_crc`` (the script's own replica of a rank's rows) equals
+    the CRC32 of the rows the port's token-file flow gives each rank at dp2
+    and dp4, from the epoch's start and from a sidecar's position."""
+    import types
+    import zlib
+
+    import numpy as np
+
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    path = str(tmp_path / "corpus.bin")
+    tokens = chip_smoke.write_corpus(path, seed=3, records=32, seq=16,
+                                     vocab=300)
+    args = llama_pretrain.parse_args([
+        "--device", "cpu", "--model", "tiny", "--seq", "16",
+        "--micro-batch", "1", "--global-batch", "8", "--data", path,
+        "--data-dtype", "uint32", "--ckpt-dir", str(tmp_path / "ck")])
+    cfg = types.SimpleNamespace(vocab_size=512)
+    llama_pretrain.write_sidecar(llama_pretrain.sidecar_path(
+        args.ckpt_dir, 0), 2, {"epoch": 0, "completed_samples": 16})
+    for rank in range(world):
+        trainer = types.SimpleNamespace(
+            step_batch_shape=(8 // world, world), dp=world,
+            rows=slice(rank, rank + 1))
+        for restored, first in ((None, 1), (2, 3)):
+            batches, _, _ = llama_pretrain.open_data(
+                args, cfg, trainer, 16, "cpu", restored, log=lambda m: None)
+            for step in range(first, first + 3):
+                got = next(batches).numpy().astype(np.int64)
+                assert zlib.crc32(got.tobytes()) == chip_smoke.scale_rows_crc(
+                    tokens, step, rank, world, global_batch=8)
+
+
+def test_piece_crcs_cover_each_pieces_rows():
+    """``piece_crcs`` takes each persisted piece's rows (``index``) of its
+    leaf by the flattened state's names: equal to the CRC32 of the numpy
+    slices, the scalars whole."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.checkpoint.shm_handler import (
+        TensorMeta, flatten_state)
+
+    w = torch.arange(24, dtype=torch.float32).reshape(6, 4)
+    state = {"params": {"w": w}, "step": 3}
+    names = [leaf.name for leaf in flatten_state(state)]
+    wname = next(n for n in names if "w" in n and "step" not in n)
+    sname = next(n for n in names if "step" in n)
+    pieces = [
+        TensorMeta(f"{wname}#s0", "float32", (3, 4), 0, 48, (6, 4),
+                   ((0, 3), (0, 4)), 0),
+        TensorMeta(f"{wname}#s1", "float32", (3, 4), 0, 48, (6, 4),
+                   ((3, 6), (0, 4)), 0),
+        TensorMeta(sname, "int32", (), 0, 4, (), (), 0),
+    ]
+    got = chip_smoke.piece_crcs(torch, state, pieces)
+    full = w.numpy()
+    assert got[f"{wname}#s0"] == zlib.crc32(full[:3].tobytes())
+    assert got[f"{wname}#s1"] == zlib.crc32(full[3:].tobytes())
+    step_leaf = next(leaf for leaf in flatten_state(state)
+                     if leaf.name == sname)
+    from dlrover_tpu_torch.checkpoint.shm_handler import as_bytes
+
+    assert got[sname] == zlib.crc32(as_bytes(step_leaf.value).numpy())

@@ -134,6 +134,9 @@ def _run_ranks(script, args_for):
     env = dict(os.environ, STORE_HOST="127.0.0.1", STORE_PORT=str(store.port),
                WORLD_SIZE="2", OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    # the group is destroyed before the interpreter exits: gloo's threads
+    # torn down at exit can abort the child
+    script += "\ndist.destroy_process_group()\n"
     procs = [subprocess.Popen(
         [sys.executable, "-c", script, *args_for(rank)], cwd=REPO_ROOT,
         env=dict(env, RANK=str(rank)), stdout=subprocess.PIPE,
