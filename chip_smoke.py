@@ -215,7 +215,35 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    the first life's, every kernel launched in both lives, the CLI exits 0.
    Prints the time to recover by phase: the stall to the declaration, the
    declaration to the worker stopped, the stop to the new worker's first
-   step end. The phase fails past ``CONTROL_PHASE_LIMIT_S``.
+   step end. The diagnosis and the hang legs run, one after the other,
+   while the relaunch leg's worker holds before its first step (the hold
+   waits for them). The diagnosis leg: the script's own master
+   (``--master-child``: the planner off, the diagnosis chain every
+   ``DIAG_MASTER_INTERVAL_S``, ``seconds_hang_threshold``
+   ``DIAG_SILENCE_S``, the hang watchdog at ``DIAG_WATCHDOG_WINDOW_S``),
+   ``elastic_run --master_addr --tpu-timer`` (the device timer in the
+   worker; the agent's interval ``DIAG_AGENT_INTERVAL_S``, the timer's
+   hang timeout ``DIAG_TIMER_HANG_S``), its worker ``chip_smoke.py
+   --data-child diag FILE`` (``_diag_child``: phase 4d's configuration and
+   corpus, a save every step, the one before the spin's step a storage
+   save; the first life reads its own timer after steps 2 and 11, then
+   enqueues ``torch.cuda._sleep`` for ``DIAG_SPIN_S`` in step 12 before
+   the optimizer). The script reads the worker's ``/pending`` during the
+   hang. ``check_diagnosis``: one hang confirmed; the master's actions a
+   ``CollectHangDump`` then one ``RestartWorker`` whose reason names
+   ``stuck_at`` (``check_action_sequence``), the worker's wait for its
+   step in ``timed_step``, the leaf of the dumped stacks' path through
+   ``llama_pretrain.run`` (``check_stuck_at``); a hang dump holding the
+   first life's stack; pending ``train_step``; one restart before the
+   spin's end; the second life restored step 11 and trained steps 12-16
+   at the first life's step time; every kernel launched in both lives;
+   the timer's ``train_step`` between the two scrapes within
+   ``DIAG_TIMER_TOL`` of the digest's mean over the same steps and its
+   MFU gauge within ``DIAG_MFU_TOL`` of the script's MFU
+   (``check_timer_against_digest``). Prints the readings, every action the
+   master enqueued and the time between each step of the chain. Every
+   other leg of phases 4c-4e fails if its master enqueued any action
+   (``check_no_actions``). The phase fails past ``CONTROL_PHASE_LIMIT_S``.
 5. reference: a small Llama (head dim 128) and a small ViT (head dim 64,
    100 patches, 300 classes) on the card, bf16 with the kernels, against
    the same weights on the CPU in f32 with the plain versions: loss and
@@ -242,7 +270,27 @@ every leaf's CRC32 equal across the ranks and to the state the first life
 staged, the resumed steps 3-4 bitwise the first life's, every kernel
 launched on every rank in both lives. Prints each step's gradient
 all-reduce (``reduce_ms``), global tokens/s and the time to recover by
-phase.
+phase. The leg runs under ``--tpu-timer``: in its first life's unsaved
+steps 3-4 each rank reads its device timer just before and just after the
+step's gradient all-reduces, and after step 4 every program it timed;
+``check_nccl_programs`` prints each rank's ``nccl:*`` programs (count,
+bytes, µs) and fails unless every rank timed ``nccl:AllReduce``, and
+unless in each of the two steps the timer ended exactly one all-reduce a
+gradient leaf between its reads, their device µs within
+``FOUR_CARD_REDUCE_BOUNDS`` of the trainer's ``reduce_events`` span.
+
+Then the collective hang (``COLL_HANG_*``, ``DIAG_*``): the script's own
+master as in phase 4e's diagnosis leg, ``elastic_run --master_addr
+--nproc_per_node 4 --tpu-timer``, its workers ``chip_smoke.py
+--ckpt-child collhang DIR`` (``_coll_hang_life``: the kill leg's
+configuration, a save every step, the third a storage save); rank 3
+SIGSTOPs itself in step 4 before the step's last all-reduce, so ranks 0-2
+wait in NCCL. ``check_coll_hang``: one hang confirmed, a dump request and
+one restart whose ``stuck_at`` is the running ranks' wait in
+``timed_step`` and whose pending programs hold ``nccl:AllReduce``, a hang
+dump of every running rank, eight workers started, every rank restored
+the same step and trained the rest with equal losses, every kernel
+launched after the restart.
 
 Then the scale-out leg (``SCALE_*``): the script starts the port's master
 through ``--master-child`` (``LocalJobMaster(node_num=2, min_node_num=1,
@@ -300,6 +348,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -466,9 +515,10 @@ HANG_STOP_AFTER_S = HANG_WINDOW_S / 4 + 2.0
 # sample within DIGEST_WALL_TOL of the median step the script times
 DIGEST_WALL_TOL = 0.15
 # seconds each leg's CLI may take, and the whole of phase 4e (the relaunch
-# leg waits out the auto-scaler's warmup in both lives of its master)
+# leg waits out the auto-scaler's warmup in both lives of its master, the
+# first behind the diagnosis and the hang legs)
 CONTROL_TIMEOUT_S = 600
-CONTROL_PHASE_LIMIT_S = 450
+CONTROL_PHASE_LIMIT_S = 600
 # the master's /metrics (phases 4c and 4d): read every METRICS_POLL_S while
 # the CLI runs; the last reading before the master exits is kept
 METRICS_POLL_S = 0.25
@@ -483,6 +533,19 @@ FOUR_CARD_RECORDS = 64
 FOUR_CARD_KILL_RANK = 3
 FOUR_CARD_SHARE_TOL = 0.02
 FOUR_CARD_TIMEOUT_S = 1500
+# the hook's gradient all-reduces against the trainer's reduce_events, in
+# the kill leg's first-life steps 3-4 (no save, no barrier): each rank reads
+# its timer once the step's last token-count all-reduce has ended and again
+# before the step's loss all-reduce, so the reads bracket exactly the
+# gradients' collectives. Kernels serial on one stream cannot take longer
+# than the span the trainer's events bracket around them, so the timer's
+# device µs pass it only by the events' rounding (the upper bound), where
+# host times from each call to its poll would count the kernels queued
+# ahead of it; they fall short of it by the host's launch gaps between
+# the kernels, and a hook missing half the span (the lower bound) would
+# time something other than the kernels
+FOUR_CARD_REDUCE_STEPS = (3, 4)
+FOUR_CARD_REDUCE_BOUNDS = (0.5, 1.01)
 # the four-card scale-out leg: the script's own master (node_num 2,
 # min_node_num 1, the planner armed, a decision every
 # SCALE_PLANNER_INTERVAL_S, hysteresis SCALE_HYSTERESIS, the memory gate at
@@ -513,6 +576,52 @@ SCALE_TIMEOUT_S = 1200
 # four-rank one), at most a few ulps of 8 additions, 8 * 2^-24 = 4.8e-7
 # relative: SCALE_LOSS_RTOL leaves a factor of 20 over that
 SCALE_LOSS_RTOL = 1e-5
+# the diagnosis chain on the card (phase 4e's diagnosis leg, the four-card
+# collective hang): the device timer's hang timeout, the agent's and the
+# master's diagnosis intervals and the hang check's step-report silence,
+# each cut from the JAX default (300, 60, 60 and 300 s) to fit a run. The
+# master's interval stays above the time from its restart to the restarted
+# workers' timers reporting no hang (the agent's 15 s heartbeat, the
+# breakpoint persist, the stop, one agent interval): a cycle inside it would
+# read the old workers' flag and confirm the hang again
+DIAG_TIMER_HANG_S = 20
+DIAG_AGENT_INTERVAL_S = 5.0
+DIAG_MASTER_INTERVAL_S = 50.0
+DIAG_SILENCE_S = 20.0
+# the hang watchdog stays on, its window above the chain's (about 1-2 min
+# from the stall to the restart, and the breakpoint persist after it)
+DIAG_WATCHDOG_WINDOW_S = 600.0
+# the diagnosis leg's worker (phase 4d's configuration and corpus, a
+# save every step): its first life enqueues a spin of DIAG_SPIN_S (sized
+# from the card's clock) in step DIAG_SPIN_STEP, before the optimizer, and
+# reads its own timer after the steps of DIAG_SCRAPE_AFTER; the save of the
+# step before the spin is a storage save, whose persist the agent's saver
+# runs during the hang, so the breakpoint persist finds it done; the second
+# life restores the last staged step and trains to DIAG_STEPS
+DIAG_STEPS = 16
+DIAG_SPIN_STEP = 12
+DIAG_SCRAPE_AFTER = (2, DIAG_SPIN_STEP - 1)
+DIAG_SPIN_S = 600.0
+# the timer's train_step latency between the two scrapes against the
+# digest's mean over the same steps (both CUDA events around the same
+# work on one stream), and its MFU gauge (an average decaying by 0.8 a
+# step) against the script's MFU from that mean
+DIAG_TIMER_TOL = 0.05
+DIAG_MFU_TOL = 0.10
+# a life after the spin against the life before it: a spin that outlived
+# its process would share the card and slow the new steps by about half
+DIAG_RESUMED_STEP_TOL = 0.25
+DIAG_TIMEOUT_S = 900
+# the four-card collective hang: NCCL dp4 at the kill leg's configuration
+# and corpus, a save every step (a storage save at the step before the
+# stop, as in the diagnosis leg); rank COLL_HANG_RANK SIGSTOPs itself in
+# step COLL_HANG_STOP_STEP before the step's last all-reduce, so ranks 0-2
+# wait in NCCL for it; NCCL's own watchdog (the process group's timeout) is
+# set past the chain's restart, so the chain and not NCCL ends the hang
+COLL_HANG_STEPS = 8
+COLL_HANG_STOP_STEP = 4
+COLL_HANG_RANK = 3
+COLL_DIST_TIMEOUT_S = 900
 # manifests, commit votes and the tracker beside a persisted step's leaves
 CKPT_DISK_SLACK = 64 << 20
 # a PCIe link's transfer rate a lane (GT/s) by generation; gens 1-2 encode
@@ -1584,6 +1693,8 @@ def ckpt_child(role, ckpt_dir):
         return _four_card_life(torch, ckpt_dir)
     if role == "scale":
         return _scale_life(torch, ckpt_dir)
+    if role == "collhang":
+        return _coll_hang_life(torch, ckpt_dir)
     args = _ckpt_args(4, ckpt_dir, 0)
     _, _, state, next_batch, _ = llama_pretrain.build(args)
     torch.cuda.synchronize()
@@ -1908,6 +2019,7 @@ def phase_elastic(workdir, nbytes):
                 print(f"  [elastic {life} life] {line}", flush=True)
         check(proc.returncode == 0,
               f"the elastic CLI exited {proc.returncode}, not 0")
+        check_no_actions(lines, "elastic leg")
         check(any("checkpoint saver started" in x for x in lines),
               "the agent's checkpoint saver did not start")
 
@@ -2167,19 +2279,21 @@ def data_child(role, path):
     master says exhausted; the ``relaunch`` worker is never killed and
     holds before its first and its last step for the script's
     ``RELAUNCH_GO`` files beside ``path``.
-    ``hang``: ``_hang_child``."""
+    ``hang``: ``_hang_child``; ``diag``: ``_diag_child``."""
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    check(role in ("shards", "relaunch", "hang"),
+    check(role in ("shards", "relaunch", "hang", "diag"),
           f"unknown data child {role!r}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if role == "hang":
         return _hang_child(path)
+    if role == "diag":
+        return _diag_child(path)
     from dlrover_tpu_torch.ops import attention
     from dlrover_tpu_torch.ops import fused_ce as fce
     from dlrover_tpu_torch.run import llama_pretrain
@@ -2313,6 +2427,118 @@ def _hang_child(path):
     return 0
 
 
+def max_sm_clock_hz():
+    """The card's highest SM clock, from nvidia-smi: a spin of ``c``
+    cycles lasts at least ``c`` over it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi: {out.stderr}")
+    return max(float(x) for x in out.stdout.split()) * 1e6
+
+
+def _diag_child(path):
+    """Phase 4e's diagnosis-leg worker, under the device timer:
+    ``run/llama_pretrain.py``'s loader and checkpoint flow on the token
+    file (a memory save every step, the one before the spin's step a
+    storage save, with the loader's sidecar; every step reported). Its first life (no marker beside the corpus yet) reads its
+    own timer's ``/metrics`` after each step of DIAG_SCRAPE_AFTER (with
+    the digest's samples so far) and, in step DIAG_SPIN_STEP, enqueues a
+    spin of DIAG_SPIN_S on the step's stream before the optimizer: the
+    step's loss and end event wait behind it, the process stays alive and
+    its host waits for the step in ``timed_step``. The second life
+    restores the last staged step and trains to DIAG_STEPS. Prints a
+    ``life`` record, each step, each report, the scrapes, a ``spin``
+    record (with the first life's kernel launches) and the second life's
+    ``end`` record (its restore and launches)."""
+    import torch
+
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.profiler import tpu_timer
+    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.train import bootstrap
+
+    workdir = os.path.dirname(path)
+    marker = os.path.join(workdir, "diag-spun")
+    first = not os.path.exists(marker)
+    _data_emit("life", first=first, pid=os.getpid(), start_t=time.time())
+    ctx = bootstrap.init()
+    ctx.step_report_interval = HANG_REPORT_INTERVAL_S
+    _record_reports(ctx.client, emit=True)
+    _reset_counts(attention, fce, [0])
+    port = int(os.environ["DLROVER_TPU_TIMER_PORT"])
+    seen = {"trainer": None, "samples": [], "n": 0}
+    real_step = llama_pretrain.timed_step
+
+    class SpinFirst:
+        """The trainer's optimizer, whose next step first enqueues the
+        spin (the optimizer is a frozen dataclass)."""
+
+        def __init__(self, trainer, spin):
+            self._trainer, self._real, self._spin = (
+                trainer, trainer.optimizer, spin)
+
+        def __getattr__(self, name):
+            return getattr(self._real, name)
+
+        def step(self, *args, **kwargs):
+            self._trainer.optimizer = self._real
+            self._spin()
+            return self._real.step(*args, **kwargs)
+
+    def spin_before_optimizer(trainer):
+        hz = max_sm_clock_hz()
+        cycles = int(DIAG_SPIN_S * hz)
+
+        def spin():
+            open(marker, "w").close()
+            _data_emit("spin", n=seen["n"], cycles=cycles, clock_hz=hz,
+                       t=time.time(), counts=_launch_counts(attention, fce))
+            torch.cuda._sleep(cycles)
+
+        trainer.optimizer = SpinFirst(trainer, spin)
+
+    def timed(trainer, state, batch):
+        if seen["trainer"] is None:
+            seen["trainer"] = trainer
+            add = trainer._digest.add
+
+            def sample(seconds):
+                seen["samples"].append(seconds)
+                add(seconds)
+
+            trainer._digest.add = sample
+        seen["n"] += 1
+        if first and seen["n"] == DIAG_SPIN_STEP:
+            spin_before_optimizer(trainer)
+        state, loss, seconds = real_step(trainer, state, batch)
+        _data_emit("step", n=seen["n"], loss=loss, seconds=seconds,
+                   end_t=time.time())
+        if first and seen["n"] in DIAG_SCRAPE_AFTER:
+            torch.cuda.synchronize()
+            trainer.step_digest  # folds the step just ended
+            time.sleep(0.05)  # the timer's poller ends it within 1 ms
+            _data_emit("scrape", n=seen["n"],
+                       metrics=tpu_timer.scrape_metrics(port),
+                       samples=list(seen["samples"]))
+        return state, loss, seconds
+
+    ck = os.path.join(workdir, "diag_ck")
+    with mock.patch.object(llama_pretrain, "timed_step", timed):
+        result = llama_pretrain.run(
+            _data_args(DIAG_STEPS, ["--data", path, "--data-dtype",
+                                    "uint32", "--ckpt-dir", ck,
+                                    "--save-every", str(DIAG_SPIN_STEP - 1)]),
+            log=lambda m: print(m, flush=True))
+    _data_emit("end", counts=_launch_counts(attention, fce),
+               losses=result["losses"], start_step=result["start_step"],
+               restore=result["restore"],
+               tokens_per_step=result["tokens_per_step"],
+               params=result["params"])
+    return 0
+
+
 def _data_life(job, restart):
     """The lines the shard leg's worker printed in life ``restart``: its
     ``shards``, ``leases`` and ``end`` record, read from its log under the
@@ -2431,6 +2657,7 @@ def phase_data(torch, attention, fce, chunked_calls, main_result):
                       flush=True)
         check(proc.returncode == 0,
               f"the shard leg's CLI exited {proc.returncode}, not 0")
+        check_no_actions(lines, "shard leg")
         exit_line = [x for x in lines if "local master exiting:" in x]
         check(exit_line and "local master exiting: succeeded" in
               exit_line[-1], f"the master's exit: {exit_line}")
@@ -2638,19 +2865,31 @@ def planner_doc_poller(state_dir, job):
 
 
 def master_child(spec):
-    """The scale-out leg's master, started by this script (the master CLI
-    takes no ``min_node_num``): ``spec`` is a JSON object with ``port``,
-    ``node_num`` and ``min_node_num``; the planner is armed and every
-    other setting is the local master's default. Runs the master to the
-    job's end; its log is the caller's."""
+    """A master this script starts itself (the master CLI takes neither
+    ``min_node_num`` nor the diagnosis settings): ``spec`` is a JSON
+    object with ``port``, ``node_num`` and ``min_node_num``, and
+    optionally ``planner`` (default armed, the scale-out leg's),
+    ``config`` (master config values) and
+    ``dump_records`` (print every hang dump the diagnosis manager holds at
+    the end, one ``DIAG_RECORDS`` line); every other setting is the local
+    master's default. Runs the master to the job's end; its log is the
+    caller's."""
     from dlrover_tpu_torch.master.local_master import LocalJobMaster
 
     spec = json.loads(spec)
     master = LocalJobMaster(
         port=spec["port"], node_num=spec["node_num"],
-        min_node_num=spec["min_node_num"], planner=True)
+        min_node_num=spec["min_node_num"], planner=spec.get("planner", True))
+    master.container.config.update(spec.get("config", {}))
     master.prepare()
-    return master.run()
+    rc = master.run()
+    if spec.get("dump_records"):
+        dumps = master.diagnosis_manager.data_manager.get_data("hang_dump")
+        print("DIAG_RECORDS " + json.dumps([
+            {"node_id": r.node_id, "timestamp": r.timestamp,
+             "reason": r.reason, "stacks": r.stacks, "pending": r.pending}
+            for r in dumps]), flush=True)
+    return rc
 
 
 def _master_cmd(spec):
@@ -2659,6 +2898,101 @@ def _master_cmd(spec):
 
 
 DECLARED = re.compile(r"collective hang declared: .* silent members (.*); ")
+ENQUEUED = re.compile(r"diagnosis: enqueued (\w+) for node (-?\d+): (.*)$")
+RESTART_ALL = re.compile(r"diagnosis: training hang -> restart all workers")
+PENDING = re.compile(r"\(pending: ([^)]*)\)")
+LOG_STAMP = re.compile(r"^\[(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3})\]")
+
+
+def enqueued_actions(lines):
+    """Every action a master's diagnosis enqueued, in order, as
+    ``(action_cls, node_id, action_content)``."""
+    return [(m.group(1), int(m.group(2)), m.group(3))
+            for m in map(ENQUEUED.search, lines) if m]
+
+
+def check_no_actions(lines, leg):
+    """The chain runs in every leg: fails if the master enqueued an action
+    the leg did not cause (a restart read off a log tail, say)."""
+    actions = enqueued_actions(lines)
+    check(not actions, f"the master enqueued actions the {leg} did not "
+          f"cause: {actions}")
+
+
+def log_epoch(line):
+    """The epoch seconds of a port log line's ``[date time,ms]`` stamp
+    (local time, as the logger writes it)."""
+    m = LOG_STAMP.search(line)
+    check(m, f"no log stamp on {line!r}")
+    return time.mktime(time.strptime(m.group(1), "%Y-%m-%d %H:%M:%S")) + \
+        int(m.group(2)) / 1000.0
+
+
+def check_action_sequence(actions, nodes):
+    """A diagnosed hang's actions, as ``enqueued_actions`` reads them: one
+    ``CollectHangDump`` for every node of ``nodes``, then one
+    ``RestartWorker`` each with one reason, ``training_hang @ <stuck_at>``
+    (and the slowest node, when the timers gave an MFU), and nothing else.
+    Returns the ``stuck_at``."""
+    n = len(nodes)
+    check(len(actions) == 2 * n, f"the master enqueued {len(actions)} "
+          f"actions, not a dump and a restart for each of nodes {nodes}: "
+          f"{actions}")
+    dumps, restarts = actions[:n], actions[n:]
+    check(all(a[0] == "CollectHangDump" and a[2] == "training_hang"
+              for a in dumps) and sorted(a[1] for a in dumps) == sorted(
+                  nodes), f"the first actions are not one hang dump a "
+          f"node: {dumps}")
+    check(all(a[0] == "RestartWorker" for a in restarts)
+          and sorted(a[1] for a in restarts) == sorted(nodes),
+          f"the dumps are not followed by one restart a node: {restarts}")
+    reasons = sorted({a[2] for a in restarts})
+    check(len(reasons) == 1, f"the restarts differ in reason: {reasons}")
+    m = re.match(r"training_hang @ (.+?)( \[slowest node -?\d+\])?$",
+                 reasons[0])
+    check(m, f"the restart's reason names no stuck_at: {reasons[0]!r}")
+    return m.group(1)
+
+
+def check_stuck_at(stuck_at, hot_path, want_leaf, want_through):
+    """The master's ``stuck_at`` matches the regex ``want_leaf`` and is
+    the leaf of ``hot_path`` (the dumped stacks' heaviest path, root
+    first), which passes through a frame matching ``want_through``."""
+    check(re.match(want_leaf, stuck_at),
+          f"stuck_at {stuck_at!r} is not the wait {want_leaf!r}")
+    check(hot_path and hot_path[-1] == stuck_at,
+          f"stuck_at {stuck_at!r} is not the dumped stacks' leaf: "
+          f"{hot_path}")
+    check(any(re.match(want_through, f) for f in hot_path),
+          f"the dumped stacks' path {hot_path} passes through no "
+          f"{want_through!r}")
+
+
+def check_timer_against_digest(before, after, samples, flops_per_step):
+    """The device timer's ``train_step`` between two scrapes of its
+    ``/metrics`` (``scrape_metrics`` dicts) against the digest's samples of
+    the same steps: as many executions as samples, at least 8; the mean
+    latency within DIAG_TIMER_TOL of the samples' mean; the MFU gauge of
+    the later scrape within DIAG_MFU_TOL of ``flops_per_step`` over that
+    mean over the bf16 peak. Returns (timer mean s, digest mean s, gauge,
+    the script's MFU)."""
+    a = before["programs"]["train_step"]
+    b = after["programs"]["train_step"]
+    n = int(b["execute_total"] - a["execute_total"])
+    check(n == len(samples) and n >= 8, f"the timer ended {n} train_step "
+          f"executions between its scrapes, the digest took "
+          f"{len(samples)} samples (at least 8 needed)")
+    timer_s = (b["execute_us_sum"] - a["execute_us_sum"]) / n / 1e6
+    digest_s = sum(samples) / n
+    check(abs(timer_s - digest_s) <= DIAG_TIMER_TOL * digest_s,
+          f"the timer's train_step {timer_s:.6f} s is not within "
+          f"{DIAG_TIMER_TOL:.0%} of the digest's {digest_s:.6f} s")
+    mfu = flops_per_step / digest_s / PEAK_BF16_FLOPS
+    gauge = float(after.get("mfu", 0.0))
+    check(abs(gauge - mfu) <= DIAG_MFU_TOL * mfu,
+          f"the timer's MFU gauge {gauge:.4f} is not within "
+          f"{DIAG_MFU_TOL:.0%} of the script's {mfu:.4f}")
+    return timer_s, digest_s, gauge, mfu
 
 
 def check_hang(first, second, declared, reading):
@@ -2709,14 +3043,16 @@ def check_hang(first, second, declared, reading):
     return hang_s, brackets[0]
 
 
-def _hang_lives(job):
-    """The hang leg's two worker lives: both wrote the one log (a re-formed
-    round restarts the worker under the same restart count), split at
-    each ``life`` record."""
+def _hang_lives(job, leg="hang", rank=0):
+    """The two lives of the hang leg's worker (or of ``leg``'s worker
+    ``rank``): both wrote the one log (a re-formed round restarts the
+    worker under the same restart count), split at each ``life``
+    record."""
     from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
 
-    path = os.path.join(agent_log_dir(job, 0), "worker-0-restart0.log")
-    check(os.path.exists(path), f"no log of the hang leg's worker: {path}")
+    path = os.path.join(agent_log_dir(job, 0),
+                        f"worker-{rank}-restart0.log")
+    check(os.path.exists(path), f"no log of the {leg} leg's worker: {path}")
     lives = []
     with open(path, errors="replace") as f:
         for line in f:
@@ -2736,7 +3072,7 @@ def _hang_lives(job):
                 life[rec["kind"]] = rec
     check(len(lives) == 2 and lives[0]["life"]["first"]
           and not lives[1]["life"]["first"],
-          f"the hang leg's worker lived {len(lives)} lives: "
+          f"the {leg} leg's worker lived {len(lives)} lives: "
           f"{[x['life'] for x in lives]}")
     return lives
 
@@ -2764,8 +3100,9 @@ def _run_cli(cmd, env, label, timeout, poller=None):
     return proc, lines
 
 
-def _relaunch_leg(workdir, path, tokens):
-    """Phase 4e's master-relaunch leg (module docstring)."""
+def _relaunch_leg(workdir, path, tokens, before_go=lambda: None):
+    """Phase 4e's master-relaunch leg (module docstring); ``before_go``
+    returns once the worker may leave its hold before the first step."""
     import numpy as np
 
     from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
@@ -2840,6 +3177,7 @@ def _relaunch_leg(workdir, path, tokens):
             open(os.path.join(go_dir, RELAUNCH_GO[what != "first"]),
                  "w").close()
 
+        before_go()
         decided(0, "first")
         while True:
             text = open(wlog).read() if os.path.exists(wlog) else ""
@@ -2870,6 +3208,7 @@ def _relaunch_leg(workdir, path, tokens):
         check(not any("planner sweep failed" in x
                       for x in m1_lines + m2_lines),
               "a master's planner sweep raised")
+        check_no_actions(m1_lines + m2_lines, "relaunch leg")
         life = _data_life(job, 0)
         for rec in life["records"]:
             print(f"  [relaunch worker] {json.dumps(rec)}", flush=True)
@@ -2968,6 +3307,7 @@ def _hang_leg(path):
                       flush=True)
         check(proc.returncode == 0,
               f"the hang leg's CLI exited {proc.returncode}, not 0")
+        check_no_actions(lines, "hang leg")
         exit_line = [x for x in lines if "local master exiting:" in x]
         check(exit_line and "local master exiting: succeeded" in
               exit_line[-1], f"the master's exit: {exit_line}")
@@ -3013,6 +3353,307 @@ def _hang_leg(path):
     print(f"  hang leg: {time.perf_counter() - t_leg:.1f}s", flush=True)
 
 
+def free_port_block(n):
+    """The first of ``n`` consecutive free loopback ports."""
+    from dlrover_tpu_torch.utils.net import find_free_port
+
+    for _ in range(50):
+        base = find_free_port()
+        try:
+            with contextlib.ExitStack() as stack:
+                for port in range(base, base + n):
+                    sock = stack.enter_context(socket.socket())
+                    sock.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+    raise SmokeFailure(f"no {n} consecutive free ports")
+
+
+def start_master_child(spec, env, log, label):
+    """Start ``master_child(spec)`` with its log in ``log``; returns the
+    process once it serves."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(log, "w") as out:
+        proc = subprocess.Popen(_master_cmd(spec), cwd=repo, env=env,
+                                stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    deadline = time.time() + 60
+    while f"serving on port {spec['port']}" not in open(log).read():
+        check(proc.poll() is None and time.time() < deadline,
+              f"the {label} master did not serve: {open(log).read()[-2000:]}")
+        time.sleep(0.05)
+    return proc
+
+
+def diag_master_spec(port, node_num):
+    """The diagnosis legs' master: the planner off, the chain every
+    DIAG_MASTER_INTERVAL_S with the silence cut to DIAG_SILENCE_S, its
+    hang dumps printed at the end."""
+    return {"port": port, "node_num": node_num, "min_node_num": node_num,
+            "planner": False,
+            "config": {"seconds_hang_threshold": DIAG_SILENCE_S,
+                       "seconds_diagnosis_interval": DIAG_MASTER_INTERVAL_S},
+            "dump_records": True}
+
+
+def diag_env(base):
+    """The agent's and the workers' environment in the diagnosis legs:
+    the agent's interval and the timer's hang timeout cut."""
+    return dict(base, DLROVER_TPU_DIAG_INTERVAL=str(DIAG_AGENT_INTERVAL_S),
+                DLROVER_TPU_TIMER_HANG_SECS=str(DIAG_TIMER_HANG_S))
+
+
+def hang_dump_records(mlines):
+    """The hang dumps the master held at its end (``DIAG_RECORDS``)."""
+    rec = [x for x in mlines if x.startswith("DIAG_RECORDS ")]
+    check(rec, "the master printed no hang-dump records")
+    return json.loads(rec[-1].split(" ", 1)[1])
+
+
+def dumped_hot_path(records, pids):
+    """The heaviest path of the main-thread stacks of ``pids`` over every
+    hang dump the master held (what its resolver summarised)."""
+    from dlrover_tpu_torch.profiler.analysis import StackTrie
+
+    trie = StackTrie()
+    for rec in records:
+        for pid, text in rec["stacks"].items():
+            if int(pid) in pids:
+                trie.add_dump(text, main_only=True)
+    return trie.hot_path()
+
+
+def diag_phases(mlines, lines, spin_t, stall_label):
+    """Seconds between the steps of a diagnosed hang, from the master's
+    log stamps and the agent's lines: the stall to the agent reading the
+    timer's flag, to the master confirming it, to the agent getting the
+    dump request, to the dump shipped, to the master's restart, to the
+    agent getting it, to the workers stopped (the breakpoint persist
+    first), to the new workers' start. Returns (stamps, phases)."""
+    confirmed = [log_epoch(x) for x in mlines if "hang confirmed" in x]
+    restart = [log_epoch(x) for x in mlines
+               if "enqueued RestartWorker" in x]
+    check(confirmed and restart, "the master logged no confirmed hang or "
+          "no restart")
+    t = {
+        stall_label: spin_t,
+        "agent_read_the_flag": _agent_stamp(
+            lines, "the device timer flagged a hang", r"at ([0-9.]+);"),
+        "master_confirmed": confirmed[0],
+        "agent_got_dump_request": _agent_stamp(
+            lines, "master requested a hang dump", r"seen at ([0-9.]+)"),
+        "dump_shipped": _agent_stamp(
+            lines, "shipped master-requested hang dump", r"at ([0-9.]+)$"),
+        "master_restart_all": restart[0],
+        "agent_got_restart": _agent_stamp(
+            lines, "master requested a restart", r"seen at ([0-9.]+)"),
+        "workers_stopped": _agent_stamp(lines, "workers stopped at",
+                                        r"stopped at ([0-9.]+)"),
+    }
+    starts = [float(m.group(1)) for m in (
+        re.search(r" at ([0-9.]+) log=", x) for x in lines
+        if "started worker" in x) if m]
+    t["new_workers_started"] = max(starts)
+    names = list(t)
+    phases = {f"{a}_to_{b}_s": t[b] - t[a] for a, b in zip(names,
+                                                            names[1:])}
+    return t, phases
+
+
+def _diag_leg(workdir, path):
+    """Phase 4e's diagnosis leg (module docstring): a device hang
+    detected by the timer, dumped, named and recovered."""
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+    from dlrover_tpu_torch.common.ipc import default_socket_path
+    from dlrover_tpu_torch.profiler import tpu_timer
+    from dlrover_tpu_torch.utils.net import find_free_port
+
+    t_leg = time.perf_counter()
+    job = f"chip_smoke_diag_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = find_free_port()
+    tport = free_port_block(1)
+    base = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                + os.environ.get("PYTHONPATH", ""), DLROVER_TPU_JOB_NAME=job)
+    mlog = os.path.join(workdir, "diag-master.log")
+    master = None
+    try:
+        master = start_master_child(diag_master_spec(port, 1), dict(
+            base, DLROVER_TPU_HANG_WATCHDOG_WINDOW_S=str(
+                DIAG_WATCHDOG_WINDOW_S)), mlog, "diagnosis")
+        # the device snapshot's copy of the state would not fit beside
+        # the relaunch leg's held worker: each save pauses for its copy
+        env = dict(diag_env(base), DLROVER_TPU_DEVICE_SNAPSHOT="0")
+        cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
+               f"--master_addr=127.0.0.1:{port}", "--nnodes=1",
+               "--nproc_per_node=1", "--max_restarts=1", "--tpu-timer",
+               f"--tpu-timer-port={tport}", f"--job_name={job}",
+               os.path.abspath(__file__), "--", "--data-child", "diag",
+               path]
+        print(f"  [diag] master on port {port} (chain every "
+              f"{DIAG_MASTER_INTERVAL_S} s, silence {DIAG_SILENCE_S} s, "
+              f"watchdog window {DIAG_WATCHDOG_WINDOW_S} s); agent interval "
+              f"{DIAG_AGENT_INTERVAL_S} s, timer hang {DIAG_TIMER_HANG_S} s;"
+              f" {' '.join(cmd[1:])}", flush=True)
+        out = {}
+
+        def run_cli():
+            out["proc"], out["lines"] = _run_cli(cmd, env, "diag",
+                                                 DIAG_TIMEOUT_S)
+
+        cli = threading.Thread(target=run_cli, daemon=True)
+        cli.start()
+        wlog = os.path.join(agent_log_dir(job, 0), "worker-0-restart0.log")
+        deadline = time.time() + DIAG_TIMEOUT_S
+        pending = None
+        while cli.is_alive() and time.time() < deadline:
+            text = open(wlog).read() if os.path.exists(wlog) else ""
+            spin = [json.loads(x.split(" ", 1)[1]) for x in
+                    text.splitlines() if x.startswith("DATA_CHILD_JSON ")
+                    and '"kind": "spin"' in x]
+            if spin and time.time() > spin[0]["t"] + DIAG_TIMER_HANG_S + 2:
+                pending = json.loads(tpu_timer._http_get(tport, "/pending"))
+                break
+            time.sleep(0.2)
+        print(f"  [diag] /pending during the hang: {json.dumps(pending)}",
+              flush=True)
+        cli.join(timeout=DIAG_TIMEOUT_S)
+        check(not cli.is_alive(), "the diagnosis leg's CLI did not end")
+        master.wait(timeout=120)
+        with open(mlog) as f:
+            mlines = [x.rstrip() for x in f]
+        for line in mlines:
+            if not line.startswith("DIAG_RECORDS "):
+                print(f"  [diag master] {line}", flush=True)
+        lines = out["lines"]
+        first, second = _hang_lives(job, "diagnosis")
+        for label, life in (("first", first), ("second", second)):
+            for rec in life["records"]:
+                if rec["kind"] != "scrape":
+                    print(f"  [diag {label} life] {json.dumps(rec)}",
+                          flush=True)
+        check(out["proc"].returncode == 0 and master.returncode == 0,
+              f"the diagnosis leg's CLI exited {out['proc'].returncode}, "
+              f"its master {master.returncode}")
+        check(any("local master exiting: succeeded" in x for x in mlines),
+              "the diagnosis leg's master did not log the job succeeded")
+        spin = next(r for r in first["records"] if r["kind"] == "spin")
+        check(pending is not None and pending["hang"] and [
+            p["name"] for p in pending["pending"]] == ["train_step"],
+            f"/pending during the hang: {pending}")
+        result = check_diagnosis(first, second, mlines, lines, spin)
+        stamps, phases = diag_phases(mlines, lines, spin["t"],
+                                     "spin_enqueued")
+        check(stamps["agent_got_restart"] < spin["t"] + DIAG_SPIN_S,
+              "the restart came after the spin's end")
+        step1_t = second["steps"][0]["end_t"]
+        phases["new_workers_started_to_step_end_s"] = (
+            step1_t - stamps["new_workers_started"])
+        print(f"  [diag] every action the master enqueued: "
+              f"{json.dumps(enqueued_actions(mlines))}", flush=True)
+        print(f"  [diag] {result['summary']}; the worker stopped "
+              f"{stamps['workers_stopped'] - stamps['agent_got_restart']:.3f}"
+              f" s after the agent got the restart ({result['ended']}); "
+              f"the stall to the resumed step's end "
+              f"{step1_t - spin['t']:.3f} s; by phase {json.dumps(phases)}",
+              flush=True)
+    finally:
+        if master is not None and master.poll() is None:
+            master.kill()
+            master.wait()
+        unlink_segment(job)
+        shutil.rmtree(os.path.join(workdir, "diag_ck"), ignore_errors=True)
+        with contextlib.suppress(OSError):
+            os.unlink(os.path.join(workdir, "diag-spun"))
+        shutil.rmtree(os.path.dirname(agent_log_dir(job, 0)),
+                      ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
+    print(f"  diagnosis leg: {time.perf_counter() - t_leg:.1f}s", flush=True)
+
+
+def check_diagnosis(first, second, mlines, lines, spin):
+    """The diagnosis leg's checks: one hang confirmed; the master's actions
+    a dump request and then one restart (``check_action_sequence``), whose
+    ``stuck_at`` is the worker's wait for its step in ``timed_step``, the
+    leaf of the dumped stacks' path through the training loop; a hang
+    dump holding the first life's stack; the restart's pending programs
+    ``train_step``; one restart: the second life restored the last staged
+    step and trained every step after it, at the first life's step time
+    (no spin outlived the first life); every kernel launched in both
+    lives; the timer against the digest (``check_timer_against_digest``).
+    Returns the readings."""
+    confirmed = [x for x in mlines if "hang confirmed" in x]
+    check(len(confirmed) == 1, f"{len(confirmed)} hangs confirmed: "
+          f"{confirmed}")
+    stuck_at = check_action_sequence(enqueued_actions(mlines), [0])
+    records = hang_dump_records(mlines)
+    pid = first["life"]["pid"]
+    check(any(str(pid) in r["stacks"] and "timed_step" in r["stacks"][
+        str(pid)] for r in records), f"no hang dump holds the first "
+          f"life's stack (pid {pid}): {records}")
+    hot = dumped_hot_path(records, {pid})
+    check_stuck_at(stuck_at, hot, r"timed_step \(llama_pretrain\.py:\d+\)$",
+                   r"run \(llama_pretrain\.py:\d+\)$")
+    restart = [x for x in mlines if RESTART_ALL.search(x)]
+    pending = [PENDING.search(x) for x in restart]
+    check(len(restart) == 1 and pending[0] and pending[0].group(1)
+          == "train_step", f"the restart's pending programs: {restart}")
+    starts = [x for x in lines if "started worker" in x]
+    check(len(starts) == 2, f"the agent started {len(starts)} workers")
+    end = second["end"]
+    check(end is not None and end["restore"] is not None,
+          f"the second life restored nothing: {end}")
+    check(end["restore"]["step"] == DIAG_SPIN_STEP - 1
+          and end["start_step"] == DIAG_SPIN_STEP - 1
+          and len(second["steps"]) == DIAG_STEPS - DIAG_SPIN_STEP + 1,
+          f"the second life restored step {end['restore']['step']} and "
+          f"trained {len(second['steps'])} steps")
+    for label, counts in (("first", spin["counts"]),
+                          ("second", end["counts"])):
+        for name, n in counts.items():
+            check(n > 0, f"kernel {name} never launched in the {label} "
+                  "life of the diagnosis leg")
+    before = [r["seconds"] for r in first["steps"][2:]]
+    after = [r["seconds"] for r in second["steps"][1:]]
+    ratio = statistics.median(after) / statistics.median(before)
+    check(ratio <= 1 + DIAG_RESUMED_STEP_TOL, f"the resumed life's step "
+          f"{statistics.median(after):.4f} s against "
+          f"{statistics.median(before):.4f} s before the spin: a spin "
+          "outlived its process?")
+    scrapes = [r for r in first["records"] if r["kind"] == "scrape"]
+    check(len(scrapes) == 2, f"the first life read its timer "
+          f"{len(scrapes)} times")
+    n0 = len(scrapes[0]["samples"])
+    samples = scrapes[1]["samples"][n0:]
+    flops = 6.0 * end["params"] * end["tokens_per_step"]
+    timer_s, digest_s, gauge, mfu = check_timer_against_digest(
+        scrapes[0]["metrics"], scrapes[1]["metrics"], samples, flops)
+    b = scrapes[1]["metrics"]["programs"]["train_step"]
+    stopped = _agent_stamp(lines, "workers stopped at",
+                           r"stopped at ([0-9.]+)")
+    seen = _agent_stamp(lines, "master requested a restart",
+                        r"seen at ([0-9.]+)")
+    persist = _agent_stamp(lines, "breakpoint persist", r"in ([0-9.]+)s")
+    ended = ("SIGTERM ended it" if stopped - seen - persist < 10.0
+             else "the SIGKILL after the 10 s grace ended it")
+    summary = (
+        f"one hang confirmed; stuck_at {stuck_at!r} (the dumped path "
+        f"{hot}); pending {pending[0].group(1)!r}; restored step "
+        f"{end['restore']['step']} by tier {end['restore']['tier']} in "
+        f"{end['restore']['seconds']:.3f} s and trained steps "
+        f"{DIAG_SPIN_STEP}-{DIAG_STEPS}, median step {statistics.median(after):.4f} s "
+        f"against {statistics.median(before):.4f} s before the spin; "
+        f"before the hang the timer counted {int(b['execute_total'])} "
+        f"train_step executions, {len(samples)} between its scrapes at "
+        f"{timer_s:.6f} s against the digest's {digest_s:.6f} s "
+        f"({(timer_s - digest_s) / digest_s:+.3%}); its MFU gauge "
+        f"{gauge:.4f} against the script's {mfu:.4f} "
+        f"({(gauge - mfu) / mfu:+.2%}); breakpoint persist {persist:.3f} s")
+    return {"summary": summary, "ended": ended, "stuck_at": stuck_at}
+
+
 def phase_control(torch):
     """Phase 4e, the control plane's recovery (module docstring)."""
     t0 = time.perf_counter()
@@ -3021,8 +3662,34 @@ def phase_control(torch):
         path = os.path.join(workdir, "corpus.bin")
         tokens = write_corpus(path)
         torch.cuda.empty_cache()
-        _relaunch_leg(workdir, path, tokens)
-        _hang_leg(path)
+        # the diagnosis and the hang legs run, one after the other, while
+        # the relaunch leg's worker holds before its first step (the
+        # auto-scaler's warmup), beside a worker that holds only its state:
+        # a trained one keeps more of the card's memory cached than a
+        # second trainer leaves free
+        legs = {}
+
+        def overlapped():
+            try:
+                _diag_leg(workdir, path)
+                _hang_leg(path)
+            except BaseException as e:  # re-raised by the relaunch leg
+                legs["error"] = e
+
+        thread = threading.Thread(target=overlapped, daemon=True)
+        thread.start()
+
+        def legs_done():
+            thread.join(timeout=DIAG_TIMEOUT_S + CONTROL_TIMEOUT_S)
+            check(not thread.is_alive(), "the diagnosis and hang legs did "
+                  "not end")
+            if "error" in legs:
+                raise legs["error"]
+
+        try:
+            _relaunch_leg(workdir, path, tokens, before_go=legs_done)
+        finally:
+            thread.join(timeout=DIAG_TIMEOUT_S + CONTROL_TIMEOUT_S)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     seconds = time.perf_counter() - t0
@@ -3160,11 +3827,15 @@ def _four_card_life(torch, ckpt_dir):
     state, a barrier, then steps 3-4 unsaved; rank FOUR_CARD_KILL_RANK then
     SIGKILLs itself and the others wait for the agent. Second life:
     restores step 2 and the loader, the CRC32s, steps 3-4 with a memory
-    save after each. Each life prints one JSON result."""
+    save after each. Under the device timer the first life reads its
+    gradient all-reduces in steps FOUR_CARD_REDUCE_STEPS and every program
+    after step 4. Each life prints one JSON result."""
     import torch.distributed as dist
 
+    from dlrover_tpu_torch.common.tree import flatten
     from dlrover_tpu_torch.ops import attention
     from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.profiler import tpu_timer
     from dlrover_tpu_torch.run import llama_pretrain
     from dlrover_tpu_torch.train import bootstrap
 
@@ -3194,32 +3865,65 @@ def _four_card_life(torch, ckpt_dir):
         result["crc"] = state_crcs(torch, state)
         result["crc_s"] = time.time() - result["restored_t"]
     steps = []
-    for step in range(start, args.steps):
-        t0 = time.perf_counter()
-        batch = next(batches)
-        wait = time.perf_counter() - t0
-        loader_pos = positions.popleft()
-        state, loss, seconds = llama_pretrain.timed_step(trainer, state,
-                                                         batch)
-        begin, end = trainer.reduce_events
-        steps.append({"step": step + 1, "loss": loss, "seconds": seconds,
-                      "reduce_ms": begin.elapsed_time(end),
-                      "end_t": time.time()})
-        print(f"rank {rank} step {step + 1} loss {loss:.6f} "
-              f"({seconds:.3f}s, all-reduce {steps[-1]['reduce_ms']:.2f} "
-              f"ms)", flush=True)
-        ctx.add_input_wait(wait)
-        ctx.report_step(step + 1, force=True, digest=trainer.step_digest)
-        if first and step >= 2:
-            continue  # steps 3-4 continue from step 2 unsaved
-        ckpt.save(step + 1, state)
-        if first and step + 1 == 2:
-            llama_pretrain.write_sidecar(
-                llama_pretrain.sidecar_path(ckpt_dir, rank), 2, loader_pos)
-            ckpt.wait_staging()
-            result["stage"] = ckpt.stage_log[-1]
-            result["crc"] = state_crcs(torch, state)
-            dist.barrier()  # every rank has step 2 staged
+    timer_port = os.environ.get("DLROVER_TPU_TIMER_PORT")
+    grads = len(flatten(state["params"]))
+    result["grad_all_reduces"] = grads
+    result["reduce_windows"] = []
+    calls = {"n": 0, "step": 0}
+    real_all_reduce = dist.all_reduce
+
+    def all_reduce(tensor, *a, **kw):
+        # a step's all-reduces: one token count a microbatch, one a
+        # gradient leaf, the loss (trainer.py)
+        calls["n"] += 1
+        window = (first and timer_port
+                  and calls["step"] in FOUR_CARD_REDUCE_STEPS)
+        if window and calls["n"] == trainer.accum_steps + grads + 1:
+            result["reduce_windows"][-1]["after"] = settled_all_reduces(
+                torch, int(timer_port))
+        out = real_all_reduce(tensor, *a, **kw)
+        if window and calls["n"] == trainer.accum_steps:
+            result["reduce_windows"].append({
+                "step": calls["step"],
+                "before": settled_all_reduces(torch, int(timer_port))})
+        return out
+
+    with mock.patch.object(dist, "all_reduce", all_reduce):
+        for step in range(start, args.steps):
+            t0 = time.perf_counter()
+            batch = next(batches)
+            wait = time.perf_counter() - t0
+            loader_pos = positions.popleft()
+            calls["n"], calls["step"] = 0, step + 1
+            state, loss, seconds = llama_pretrain.timed_step(trainer, state,
+                                                             batch)
+            if first and timer_port and step + 1 == 4:
+                # every program the hook timed in the first life
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+                result["timer"] = tpu_timer.scrape_metrics(int(timer_port))
+            begin, end = trainer.reduce_events
+            steps.append({"step": step + 1, "loss": loss,
+                          "seconds": seconds,
+                          "reduce_ms": begin.elapsed_time(end),
+                          "end_t": time.time()})
+            print(f"rank {rank} step {step + 1} loss {loss:.6f} "
+                  f"({seconds:.3f}s, all-reduce "
+                  f"{steps[-1]['reduce_ms']:.2f} ms)", flush=True)
+            ctx.add_input_wait(wait)
+            ctx.report_step(step + 1, force=True,
+                            digest=trainer.step_digest)
+            if first and step >= 2:
+                continue  # steps 3-4 continue from step 2 unsaved
+            ckpt.save(step + 1, state)
+            if first and step + 1 == 2:
+                llama_pretrain.write_sidecar(
+                    llama_pretrain.sidecar_path(ckpt_dir, rank), 2,
+                    loader_pos)
+                ckpt.wait_staging()
+                result["stage"] = ckpt.stage_log[-1]
+                result["crc"] = state_crcs(torch, state)
+                dist.barrier()  # every rank has step 2 staged
     result["steps"] = steps
     result["counts"] = _launch_counts(attention, fce)
     if first:
@@ -3232,6 +3936,102 @@ def _four_card_life(torch, ckpt_dir):
         return 1
     ckpt.close()
     print("CKPT_CHILD_JSON " + json.dumps(result), flush=True)
+    return 0
+
+
+def settled_all_reduces(torch, port):
+    """This rank's ``nccl:AllReduce`` totals from its device timer once
+    the card has drained and the hook's poller has ended every collective
+    (its ``/pending`` lists no ``nccl:*`` program): ``count`` executions,
+    ``us_sum`` their device µs."""
+    from dlrover_tpu_torch.profiler import tpu_timer
+
+    torch.cuda.synchronize()
+    deadline = time.time() + 10
+    while True:
+        pending = json.loads(tpu_timer._http_get(port, "/pending"))["pending"]
+        if not any(p["name"].startswith("nccl:") for p in pending):
+            break
+        check(time.time() < deadline, f"collectives still pending after "
+              f"the card drained: {pending}")
+        time.sleep(0.005)
+    p = tpu_timer.scrape_metrics(port)["programs"]["nccl:AllReduce"]
+    return {"count": p["execute_total"], "us_sum": p["execute_us_sum"]}
+
+
+def _coll_hang_life(torch, ckpt_dir):
+    """One rank of the four-card collective hang, under the device timer:
+    the kill leg's configuration (``run/llama_pretrain.py``'s build,
+    checkpoint and data flow at dp4), a save (the step before the stop's a
+    storage save) and a step report every step, to COLL_HANG_STEPS. In its first life (no marker beside
+    the checkpoint directory yet) rank COLL_HANG_RANK SIGSTOPs itself in
+    step COLL_HANG_STOP_STEP, just before its last all-reduce of the step
+    (the loss's), once its last save's stage is done: the other ranks'
+    grads are reduced, their loss's
+    all-reduce waits in NCCL for the stopped rank, and their hosts wait for
+    the step's loss in ``timed_step``. Prints a ``life`` record, each step
+    and a ``stop`` or ``end`` record as ``DATA_CHILD_JSON`` lines."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.common.tree import flatten
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.train import bootstrap
+
+    marker = os.path.join(os.path.dirname(ckpt_dir), "coll-stopped")
+    first = not os.path.exists(marker)
+    _data_emit("life", first=first, pid=os.getpid(), start_t=time.time())
+    _reset_counts(attention, fce, [0])
+    ctx = bootstrap.init()
+    ctx.step_report_interval = HANG_REPORT_INTERVAL_S
+    rank = bootstrap.process_index()
+    args = _four_card_args(ckpt_dir)
+    args.steps = COLL_HANG_STEPS
+    # the second life persists nothing: the job's end would wait for it
+    args.save_every = COLL_HANG_STOP_STEP - 1 if first else 0
+    device = f"cuda:{ctx.local_rank}"
+    cfg, trainer, state, _, tokens = llama_pretrain.build(args, device)
+    torch.cuda.synchronize()
+    ckpt, start, restore = llama_pretrain.open_checkpoint(args, state, None)
+    batches, positions, _ = llama_pretrain.open_data(
+        args, cfg, trainer, args.seq, device,
+        None if restore is None else start)
+    per_step = trainer.accum_steps + len(flatten(state["params"])) + 1
+    calls = {"n": 0, "step": 0}
+    real_all_reduce = dist.all_reduce
+
+    def all_reduce(tensor, *a, **kw):
+        calls["n"] += 1
+        if (first and rank == COLL_HANG_RANK and calls["n"] == per_step
+                and calls["step"] == COLL_HANG_STOP_STEP):
+            # the last save's background stage holds the node's shm lock:
+            # a rank stopped inside it would stall every other rank's
+            # stage and the breakpoint persist
+            ckpt.wait_staging()
+            open(marker, "w").close()
+            _data_emit("stop", rank=rank, step=calls["step"],
+                       counts=_launch_counts(attention, fce),
+                       stop_t=time.time())
+            os.kill(os.getpid(), signal.SIGSTOP)
+        return real_all_reduce(tensor, *a, **kw)
+
+    _data_emit("restored", rank=rank, restore=restore, start=start)
+    with mock.patch.object(dist, "all_reduce", all_reduce):
+        for step in range(start, args.steps):
+            batch = next(batches)
+            positions.popleft()
+            calls["n"], calls["step"] = 0, step + 1
+            state, loss, seconds = llama_pretrain.timed_step(trainer, state,
+                                                             batch)
+            _data_emit("step", rank=rank, step=step + 1, loss=loss,
+                       seconds=seconds, end_t=time.time())
+            ctx.report_step(step + 1, force=True,
+                            digest=trainer.step_digest)
+            ckpt.save(step + 1, state)
+    ckpt.close()
+    _data_emit("end", rank=rank, counts=_launch_counts(attention, fce),
+               tokens_per_step=tokens)
     return 0
 
 
@@ -3531,16 +4331,7 @@ def _scale_out_leg(torch):
         tokens = write_corpus(os.path.join(workdir, "corpus.bin"),
                               records=SCALE_RECORDS)
         mlog = os.path.join(workdir, "master.log")
-        with open(mlog, "w") as out:
-            master = subprocess.Popen(
-                _master_cmd(spec), cwd=repo, env=menv, stdout=out,
-                stderr=subprocess.STDOUT, start_new_session=True)
-        deadline = time.time() + 60
-        while f"serving on port {port}" not in open(mlog).read():
-            check(master.poll() is None and time.time() < deadline,
-                  f"the scale-out master did not serve: "
-                  f"{open(mlog).read()[-2000:]}")
-            time.sleep(0.05)
+        master = start_master_child(spec, menv, mlog, "scale-out")
         print(f"  [scale] master on port {port}: node_num 2, min_node_num "
               f"1, planner every {SCALE_PLANNER_INTERVAL_S} s, hysteresis "
               f"{SCALE_HYSTERESIS}, memory gate {SCALE_HBM_GB} GB",
@@ -3591,6 +4382,7 @@ def _scale_out_leg(torch):
             mlines = [x.rstrip() for x in f]
         for line in mlines:
             print(f"  [scale master] {line}", flush=True)
+        check_no_actions(mlines, "scale-out leg")
         for node in (0, 1):
             check(clis[node][0].returncode == 0,
                   f"node {node}'s CLI exited {clis[node][0].returncode}")
@@ -3753,6 +4545,204 @@ def _print_scale_out(firsts, seconds, doc, mlines, lines0, join_t, seen_t,
           flush=True)
 
 
+def check_nccl_programs(life):
+    """The kill leg's first life under the device timer: every rank timed
+    ``nccl:*`` programs by step 4, and its gradient all-reduces in each
+    step of FOUR_CARD_REDUCE_STEPS hold to the trainer's
+    ``reduce_events`` (``check_reduce_window``). Returns one reading a
+    rank."""
+    out = []
+    for r in life:
+        programs = r.get("timer", {}).get("programs", {})
+        nccl = {name: {"count": int(p["execute_total"]),
+                       "bytes": p.get("program_bytes", 0.0),
+                       "us_sum": p["execute_us_sum"]}
+                for name, p in programs.items() if name.startswith("nccl:")}
+        check("nccl:AllReduce" in nccl, f"rank {r['rank']} timed no "
+              f"nccl:AllReduce: {sorted(programs)}")
+        windows = {w["step"]: w for w in r["reduce_windows"]}
+        check(sorted(windows) == list(FOUR_CARD_REDUCE_STEPS)
+              and all("after" in w for w in windows.values()),
+              f"rank {r['rank']} read its gradient all-reduces in steps "
+              f"{sorted(windows)}")
+        spans = {st["step"]: st["reduce_ms"] for st in r["steps"]}
+        out.append({"rank": r["rank"], "programs": nccl, "windows": [
+            (step,) + check_reduce_window(windows[step],
+                                          r["grad_all_reduces"],
+                                          spans[step])
+            for step in FOUR_CARD_REDUCE_STEPS]})
+    return out
+
+
+def check_reduce_window(window, grads, span_ms):
+    """One step's gradient all-reduces as the device timer saw them
+    between its reads before and after them (``window``, each read
+    ``settled_all_reduces``), against the span the trainer's
+    ``reduce_events`` bracket around them: exactly ``grads`` executions,
+    their device time within FOUR_CARD_REDUCE_BOUNDS of the span. Returns
+    (executions, the timer's ms, the span's ms)."""
+    a, b = window["before"], window["after"]
+    n = int(b["count"] - a["count"])
+    check(n == grads, f"the timer ended {n} all-reduces between its reads "
+          f"in step {window['step']}, the trainer made {grads}")
+    ms = (b["us_sum"] - a["us_sum"]) / 1e3
+    lo, hi = FOUR_CARD_REDUCE_BOUNDS
+    check(span_ms > 0 and lo * span_ms <= ms <= hi * span_ms,
+          f"the timer's {ms:.3f} ms of gradient all-reduces in step "
+          f"{window['step']} is not within [{lo}, {hi}] x the trainer's "
+          f"reduce_events {span_ms:.3f} ms")
+    return n, ms, span_ms
+
+
+def print_nccl_programs(life):
+    for x in check_nccl_programs(life):
+        windows = "; ".join(
+            f"step {step}: {n} gradient all-reduces, {ms:.3f} ms against "
+            f"reduce_events {span:.3f} ms ({ms / span:.4f})"
+            for step, n, ms, span in x["windows"])
+        print(f"  [four timer] rank {x['rank']}: {json.dumps(x['programs'])};"
+              f" {windows}", flush=True)
+
+
+def _coll_hang_leg(torch):
+    """The four-card collective hang (module docstring): rank 3 stopped in
+    NCCL dp4, the others' timers flag the pending all-reduce, the chain
+    dumps, names the wait, restarts all four ranks, and they resume."""
+    from dlrover_tpu_torch.agent.elastic_agent import agent_log_dir
+    from dlrover_tpu_torch.common.ipc import default_socket_path
+    from dlrover_tpu_torch.utils.net import find_free_port
+
+    t_leg = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_coll_")
+    job = f"chip_smoke_coll_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    ckpt_dir = os.path.join(workdir, "ck")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = find_free_port()
+    base = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                + os.environ.get("PYTHONPATH", ""), DLROVER_TPU_JOB_NAME=job)
+    mlog = os.path.join(workdir, "master.log")
+    master = None
+    try:
+        write_corpus(os.path.join(workdir, "corpus.bin"),
+                     records=FOUR_CARD_RECORDS)
+        master = start_master_child(diag_master_spec(port, 1), dict(
+            base, DLROVER_TPU_HANG_WATCHDOG_WINDOW_S=str(
+                DIAG_WATCHDOG_WINDOW_S)), mlog, "collective-hang")
+        env = dict(diag_env(base), DLROVER_TPU_DIST_INIT_TIMEOUT=str(
+            COLL_DIST_TIMEOUT_S))
+        cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
+               f"--master_addr=127.0.0.1:{port}", "--nnodes=1",
+               f"--nproc_per_node={FOUR_CARD_WORLD}", "--max_restarts=1",
+               "--tpu-timer",
+               f"--tpu-timer-port={free_port_block(FOUR_CARD_WORLD)}",
+               f"--job_name={job}", os.path.abspath(__file__), "--",
+               "--ckpt-child", "collhang", ckpt_dir]
+        print(f"  [coll] master on port {port} (chain every "
+              f"{DIAG_MASTER_INTERVAL_S} s, silence {DIAG_SILENCE_S} s, "
+              f"watchdog window {DIAG_WATCHDOG_WINDOW_S} s); agent interval "
+              f"{DIAG_AGENT_INTERVAL_S} s, timer hang {DIAG_TIMER_HANG_S} s,"
+              f" process-group timeout {COLL_DIST_TIMEOUT_S} s; "
+              f"{' '.join(cmd[1:])}", flush=True)
+        proc, lines = _run_cli(cmd, env, "coll", FOUR_CARD_TIMEOUT_S)
+        master.wait(timeout=120)
+        with open(mlog) as f:
+            mlines = [x.rstrip() for x in f]
+        for line in mlines:
+            if not line.startswith("DIAG_RECORDS "):
+                print(f"  [coll master] {line}", flush=True)
+        lives = [_hang_lives(job, "collective-hang", rank)
+                 for rank in range(FOUR_CARD_WORLD)]
+        for rank, (one, two) in enumerate(lives):
+            for label, life in (("first", one), ("second", two)):
+                for rec in life["records"]:
+                    print(f"  [coll rank {rank} {label} life] "
+                          f"{json.dumps(rec)}", flush=True)
+        check(proc.returncode == 0 and master.returncode == 0,
+              f"the collective-hang CLI exited {proc.returncode}, its "
+              f"master {master.returncode}")
+        result = check_coll_hang(lives, mlines, lines)
+        stop = lives[COLL_HANG_RANK][0]["stop"]
+        stamps, phases = diag_phases(mlines, lines, stop["stop_t"],
+                                     "rank_stopped")
+        step_t = max(two["steps"][0]["end_t"] for _, two in lives)
+        phases["new_workers_started_to_step_end_s"] = (
+            step_t - stamps["new_workers_started"])
+        print(f"  [coll] every action the master enqueued: "
+              f"{json.dumps(enqueued_actions(mlines))}", flush=True)
+        print(f"  [coll] {result}; the stop to the slowest rank's resumed "
+              f"step end {step_t - stop['stop_t']:.3f} s; by phase "
+              f"{json.dumps(phases)}", flush=True)
+    finally:
+        if master is not None and master.poll() is None:
+            master.kill()
+            master.wait()
+        for pid in range(FOUR_CARD_WORLD):
+            unlink_segment(job, pid)
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(agent_log_dir(job, 0)),
+                      ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
+    print(f"  collective-hang leg: {time.perf_counter() - t_leg:.1f}s",
+          flush=True)
+
+
+def check_coll_hang(lives, mlines, lines):
+    """The collective hang's checks: one hang confirmed; a dump request and
+    then one restart (``check_action_sequence``) whose ``stuck_at`` is the
+    running ranks' wait for their step in ``timed_step`` and whose pending
+    programs hold ``nccl:AllReduce`` (the collective the stopped rank never
+    joined); a hang dump holding the running ranks' stacks; the agent
+    started eight workers; every rank's second life restored one step, the
+    same on every rank, and trained every step after it, the ranks' losses
+    equal; every kernel launched on every rank in the second life."""
+    confirmed = [x for x in mlines if "hang confirmed" in x]
+    check(len(confirmed) == 1, f"{len(confirmed)} hangs confirmed")
+    stuck_at = check_action_sequence(enqueued_actions(mlines), [0])
+    records = hang_dump_records(mlines)
+    running = {one["life"]["pid"] for rank, (one, _) in enumerate(lives)
+               if rank != COLL_HANG_RANK}
+    for pid in running:
+        check(any(str(pid) in r["stacks"] and "timed_step" in r["stacks"][
+            str(pid)] for r in records), f"no hang dump holds the stack of "
+              f"running rank pid {pid}")
+    hot = dumped_hot_path(records, running)
+    check_stuck_at(stuck_at, hot, r"timed_step \(llama_pretrain\.py:\d+\)$",
+                   r"_coll_hang_life \(chip_smoke\.py:\d+\)$")
+    restart = [x for x in mlines if RESTART_ALL.search(x)]
+    pending = [PENDING.search(x) for x in restart]
+    check(len(restart) == 1 and pending[0] and "nccl:AllReduce" in
+          pending[0].group(1).split(","), f"the restart's pending "
+          f"programs: {restart}")
+    starts = [x for x in lines if "started worker" in x]
+    check(len(starts) == 2 * FOUR_CARD_WORLD,
+          f"the agent started {len(starts)} workers")
+    stop = lives[COLL_HANG_RANK][0]["stop"]
+    check(stop is not None and stop["step"] == COLL_HANG_STOP_STEP,
+          f"rank {COLL_HANG_RANK}'s stop: {stop}")
+    restored = {two["restored"]["restore"]["step"]
+                for _, two in lives if two["restored"]["restore"]}
+    check(len(restored) == 1 and all(
+        two["restored"]["restore"] for _, two in lives),
+        f"the ranks restored steps {restored}")
+    step = restored.pop()
+    losses = [[st["loss"] for st in two["steps"]] for _, two in lives]
+    check(all(len(x) == COLL_HANG_STEPS - step for x in losses)
+          and all(x == losses[0] for x in losses),
+          f"the resumed ranks' losses from step {step + 1}: {losses}")
+    for rank, (_, two) in enumerate(lives):
+        check(two["end"] is not None, f"rank {rank}'s second life did not "
+              "end")
+        for name, n in two["end"]["counts"].items():
+            check(n > 0, f"kernel {name} never launched on rank {rank} "
+                  "after the restart")
+    tiers = [two["restored"]["restore"]["tier"] for _, two in lives]
+    return (f"one hang confirmed; stuck_at {stuck_at!r} (the dumped path "
+            f"{hot}); pending {pending[0].group(1)!r}; every rank "
+            f"restored step {step} (tiers {tiers}) and trained steps "
+            f"{step + 1}-{COLL_HANG_STEPS}, the ranks' losses equal")
+
+
 def main_four_card():
     """The four-card leg (module docstring)."""
     import torch
@@ -3809,6 +4799,8 @@ def main_four_card():
         cmd = [sys.executable, "-m", "dlrover_tpu_torch.run.elastic_run",
                "--standalone", "--nnodes=1",
                f"--nproc_per_node={FOUR_CARD_WORLD}", "--max_restarts=1",
+               "--tpu-timer",
+               f"--tpu-timer-port={free_port_block(FOUR_CARD_WORLD)}",
                f"--job_name={job}", os.path.abspath(__file__), "--",
                "--ckpt-child", "four", ckpt_dir]
         print(f"  [four] {' '.join(cmd[1:])}", flush=True)
@@ -3826,6 +4818,7 @@ def main_four_card():
         first, second = lives
         check(proc.returncode == 0,
               f"the four-card CLI exited {proc.returncode}, not 0")
+        check_no_actions(lines, "four-card kill leg")
         exit_line = [x for x in lines if "local master exiting:" in x]
         check(exit_line and "local master exiting: succeeded" in
               exit_line[-1], f"the master's exit: {exit_line}")
@@ -3882,6 +4875,7 @@ def main_four_card():
               f"{lead['restore']['seconds']:.3f}s", flush=True)
         print(f"  [four] the master at its exit: "
               f"{json.dumps(master_reading(lines))}", flush=True)
+        print_nccl_programs(first)
     finally:
         for pid in range(FOUR_CARD_WORLD):
             unlink_segment(job, pid)
@@ -3890,6 +4884,9 @@ def main_four_card():
                       ignore_errors=True)
         shutil.rmtree(os.path.dirname(os.path.dirname(
             default_socket_path(job, 0))), ignore_errors=True)
+    print("== the four-card leg: a collective hang, diagnosed and recovered",
+          flush=True)
+    _coll_hang_leg(torch)
     print("== the four-card leg: a planner-directed scale-out, dp2 -> dp4",
           flush=True)
     _scale_out_leg(torch)

@@ -2,15 +2,19 @@
 dlrover_tpu/agent/config.py (``ElasticLaunchConfig``).
 
 ``accelerator`` is ``cuda`` (the default: workers form an NCCL world on
-their local rank's card) or ``cpu`` (gloo, the test mode). The JAX
-config's profiler, comm-metrics, compile-cache and replica knobs wait for
-their modules (ROADMAP.md).
+their local rank's card) or ``cpu`` (gloo, the test mode). ``tpu_timer``
+loads the device timer into the workers (profiler/tpu_timer.py), each
+local rank serving its metrics on ``tpu_timer_port + local_rank``. The
+JAX config's comm-metrics, compile-cache and replica knobs wait for their
+modules (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import List
+
+from dlrover_tpu_torch.common.constants import TpuTimerConsts
 
 ACCELERATORS = ("cuda", "cpu")
 
@@ -27,6 +31,8 @@ class ElasticLaunchConfig:
     max_restarts: int = 3
     monitor_interval: float = 2.0
     accelerator: str = "cuda"  # "cuda" | "cpu" (cpu = gloo test mode)
+    tpu_timer: bool = False  # load the device timer into the workers
+    tpu_timer_port: int = TpuTimerConsts.DEFAULT_PORT
 
     entrypoint: str = ""
     entrypoint_args: List[str] = field(default_factory=list)

@@ -14,8 +14,19 @@ parallel-config tuner (agent/paral_config_tuner.py), which writes the
 master's pushed config to a file whose path the workers get in
 ``DLROVER_TPU_PARAL_CONFIG_PATH``.
 
-The JAX agent's device timer, comm metrics, metric endpoints, diagnosis
-observe loop and replica peer sync wait for their modules (ROADMAP.md).
+Its diagnosis agent (agent/diagnosis_agent.py) ships the workers' log
+tails to the master every ``DLROVER_TPU_DIAG_INTERVAL`` seconds. With
+``tpu_timer`` the workers run under the device timer
+(profiler/tpu_timer.py: ``LD_PRELOAD`` of ``csrc/cuda_hook.cc``, local
+rank r serving on ``tpu_timer_port + r``); the diagnosis agent ships its
+scrape too and, on a hang it flags or the master's ``CollectHangDump``,
+the workers' stacks and pending programs (profiler/hang_dump.py; each
+worker's SIGUSR2 dumps land under ``<log dir>/hang``). A timer that fails
+to build or to load stops the agent: the JAX agent logs it and runs on
+untimed (ROADMAP.md's known differences).
+
+The JAX agent's comm metrics, metric endpoints and replica peer sync wait
+for their modules (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,9 +44,9 @@ from typing import Dict, List, Optional
 
 from dlrover_tpu_torch.agent.config import ElasticLaunchConfig
 from dlrover_tpu_torch.agent.diagnosis_agent import (
+    DiagnosisAgent,
     WorkerAction,
     WorkerFailure,
-    diagnose_training_failure,
 )
 from dlrover_tpu_torch.agent.master_client import MasterClient
 from dlrover_tpu_torch.agent.rendezvous import (
@@ -43,6 +54,7 @@ from dlrover_tpu_torch.agent.rendezvous import (
     MasterRendezvousHandler,
     RendezvousTimeoutError,
 )
+from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.common.constants import (
     DefaultValues,
     NodeEnv,
@@ -98,6 +110,49 @@ class ElasticAgent:
         self._rdzv_handler: Optional[MasterRendezvousHandler] = None
         self._ckpt_saver = None
         self._paral_tuner = None
+        self._diagnosis = DiagnosisAgent(
+            client=self._client, node_id=config.node_id,
+            interval_secs=max(float(flags.DIAG_INTERVAL.get()), 1.0),
+        )
+        self._diagnosis.set_log_source(self._last_worker_log_tail)
+        self._tpu_timer_env: Dict[str, str] = {}
+        self._hang_dumper = None
+        if config.tpu_timer:
+            self._setup_tpu_timer()
+
+    def _setup_tpu_timer(self):
+        """Build the device timer, check that it loads, and scrape each
+        local rank's metrics (port base + local rank) into diagnosis.
+        Raises ``RuntimeError`` when the build or the load check fails:
+        a job asked to run timed never runs untimed."""
+        from dlrover_tpu_torch.profiler.hang_dump import HangDumper
+        from dlrover_tpu_torch.profiler.tpu_timer import (
+            TpuTimerMetricsSource,
+            interposer_env,
+            verify_interposer,
+        )
+
+        try:
+            self._tpu_timer_env = interposer_env(
+                port=self._config.tpu_timer_port)
+        except subprocess.CalledProcessError as e:
+            out = e.output.decode(errors="replace") if isinstance(
+                e.output, bytes) else str(e.output or "")
+            raise RuntimeError(
+                f"tpu_timer native build failed:\n{out[-2000:]}") from e
+        verify_interposer(self._tpu_timer_env["LD_PRELOAD"],
+                          self._config.accelerator)
+        ports = [self._config.tpu_timer_port + i
+                 for i in range(self._config.nproc_per_node)]
+        self._diagnosis.set_metrics_source(TpuTimerMetricsSource(ports))
+        self._hang_dumper = HangDumper(
+            stack_dir=os.path.join(self._log_dir, "hang"),
+            metrics_ports=ports,
+        )
+        self._diagnosis.set_hang_dumper(self._hang_dumper)
+        logger.info("node %s: tpu_timer on ports %s (%s)",
+                    self._config.node_id, ports,
+                    self._tpu_timer_env["LD_PRELOAD"])
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -106,6 +161,7 @@ class ElasticAgent:
         self._start_ckpt_saver()
         self._start_heartbeats()
         self._install_signal_handlers()
+        self._diagnosis.start()
         self._start_paral_config_tuner()
         try:
             return self._invoke_run()
@@ -113,6 +169,7 @@ class ElasticAgent:
             self._stop_evt.set()
             if self._status_reporter is not None:
                 self._status_reporter.stop()
+            self._diagnosis.stop()
             if self._paral_tuner is not None:
                 self._paral_tuner.stop()
             self._stop_workers()
@@ -198,7 +255,7 @@ class ElasticAgent:
                 err, self._restart_count, TrainingExceptionLevel.ERROR,
                 exit_code,
             )
-            action = diagnose_training_failure(
+            action = self._diagnosis.diagnose_training_failure(
                 WorkerFailure(
                     node_id=self._config.node_id,
                     restart_count=self._restart_count,
@@ -276,11 +333,19 @@ class ElasticAgent:
                 "DLROVER_TPU_ACCELERATOR": self._config.accelerator,
                 "DLROVER_TPU_LOCAL_RANK": str(local_rank),
                 "DLROVER_TPU_NUM_SLICES": str(world.n_slices),
-                # where the workers' stack dumps go (the dumper waits for
-                # the profiler slice; the path is the JAX agent's)
+                # workers install a SIGUSR2 faulthandler writing here; the
+                # agent's HangDumper signals + collects on a hang
                 "DLROVER_TPU_STACK_DIR": os.path.join(self._log_dir, "hang"),
             }
         )
+        if self._tpu_timer_env:
+            preload = env.get("LD_PRELOAD")
+            env.update(self._tpu_timer_env)
+            if preload:  # the hook first, the caller's libraries kept
+                env["LD_PRELOAD"] += ":" + preload
+            # one metrics server per local rank
+            env["DLROVER_TPU_TIMER_PORT"] = str(
+                self._config.tpu_timer_port + local_rank)
         if self._paral_tuner is not None:
             from dlrover_tpu_torch.agent.paral_config_tuner import (
                 PARAL_CONFIG_PATH_ENV,
@@ -321,6 +386,9 @@ class ElasticAgent:
                 time.time(),
                 log_path,
             )
+        if self._hang_dumper is not None:
+            self._hang_dumper.set_workers(
+                [w.proc.pid for w in self._workers])
 
     def _stop_workers(self, grace: float = 10.0):
         """SIGTERM each worker's process group, SIGKILL it after
@@ -343,6 +411,17 @@ class ElasticAgent:
                     pass
                 w.proc.wait()
         self._workers = []
+
+    def _last_worker_log_tail(self, max_bytes: int = 4096) -> str:
+        """Concatenated log tails across all local workers (any process on
+        this host may carry the failure signature)."""
+        workers = list(self._workers)
+        if not workers:
+            return ""
+        per = max(512, max_bytes // len(workers))
+        return "\n".join(
+            t for t in (self._tail_log(w.log_path, per) for w in workers) if t
+        )
 
     def _tail_log(self, path: str, max_bytes: int = 4096) -> str:
         try:
@@ -401,11 +480,26 @@ class ElasticAgent:
     def _handle_action(self, action):
         cls = getattr(action, "action_cls", "")
         if cls == "RestartWorker":
+            logger.warning("node %s: master requested a restart (%s), "
+                           "seen at %.3f", self._config.node_id,
+                           action.action_content, time.time())
             self._restart_requested.set()
         elif cls == "RelaunchWorker":
             logger.warning("master requested node relaunch; stopping agent")
             self._relaunch_requested = True
             self._stop_evt.set()
+        elif cls == "CollectHangDump":
+            logger.warning("node %s: master requested a hang dump (%s), "
+                           "seen at %.3f", self._config.node_id,
+                           action.action_content, time.time())
+            # synchronized cross-node dump: off the heartbeat thread (the
+            # dump settles ~1.5s waiting for SIGUSR2 stacks to land)
+            threading.Thread(
+                target=self._diagnosis.collect_and_ship_dump,
+                kwargs={"reason": action.action_content or "master_request"},
+                name="collect-dump",
+                daemon=True,
+            ).start()
 
     def _install_signal_handlers(self):
         if threading.current_thread() is not threading.main_thread():

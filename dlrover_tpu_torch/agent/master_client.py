@@ -188,6 +188,21 @@ class MasterClient:
             on_overload="raise",
         )
 
+    def report_diagnosis_data(self, data_cls: str, content: str,
+                              node_rank: int = -1):
+        """One observation for the master's diagnosis manager: ``data_cls``
+        names its record class (diagnosis/data.py), ``content`` is its
+        JSON."""
+        return self._client.report(
+            msg.DiagnosisReportData(
+                data_cls=data_cls,
+                data_content=content,
+                node_id=self.node_id,
+                node_type=self.node_type,
+                node_rank=node_rank,
+            )
+        )
+
     # -- data sharding ------------------------------------------------------
 
     def report_dataset_shard_params(self, params: msg.DatasetShardParams):

@@ -116,3 +116,11 @@ class NodeEnv:
     NUM_PROCESSES = "DLROVER_TPU_NUM_PROCESSES"
     RESTART_COUNT = "DLROVER_TPU_RESTART_COUNT"
     MONITOR_ENABLED = "DLROVER_TPU_MONITOR_ENABLED"
+
+
+class TpuTimerConsts:
+    """The device timer (profiler/tpu_timer.py, profiler/csrc/): the JAX
+    package's metrics port and hang timeout."""
+
+    DEFAULT_PORT = 18890
+    DEFAULT_HANG_SECS = 300

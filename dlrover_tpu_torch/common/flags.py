@@ -245,3 +245,26 @@ PLANNER_DCN_GBPS = EnvFlag(
     "converting measured per-step dcn bytes into predicted step seconds "
     "at candidate worlds.",
 )
+
+# -- diagnosis and the device timer (diagnosis/, profiler/tpu_timer.py)
+
+DIAG_INTERVAL = EnvFlag(
+    "DLROVER_TPU_DIAG_INTERVAL", 60.0,
+    "Seconds between agent diagnosis collections.",
+)
+PEAK_TFLOPS = EnvFlag(
+    "DLROVER_TPU_PEAK_TFLOPS", 0.0,
+    "Override for the accelerator's peak TFLOPs in MFU accounting "
+    "(0 = use the built-in per-chip table).",
+)
+TIMER_HANG_SECS = EnvFlag(
+    "DLROVER_TPU_TIMER_HANG_SECS", 300,
+    "Seconds a device execution may stay pending before the device "
+    "timer flags a hang (read by the timer in each worker; the agent "
+    "passes it on).",
+)
+STACK_DIR = EnvFlag(
+    "DLROVER_TPU_STACK_DIR", "",
+    "Directory a worker's SIGUSR2 stack dumps go to (the agent sets it; "
+    "train/bootstrap.py installs the handler when it is set).",
+)

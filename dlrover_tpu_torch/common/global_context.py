@@ -3,7 +3,7 @@ dlrover_tpu/common/global_context.py (``MasterConfigContext``).
 
 Every field is runtime-mutable with type coercion, so an operator can
 retune a live master (timeouts, the rendezvous last-call window, the
-auto-scaler's warmup and cadence) without a
+auto-scaler's warmup and cadence, the hang check's silence) without a
 restart. Consumers read attributes each time they need a value, no
 caching, which is what makes runtime mutation take effect.
 """
@@ -29,7 +29,7 @@ class MasterConfigContext:
         self._lock = threading.Lock()
         # Every field here has a live consumer that re-reads it per use;
         # the JAX package's other fields wait for theirs (the dist job
-        # manager, the hang check).
+        # manager).
         # -- autoscaling (job_auto_scaler) -----------------------------------
         self.auto_worker_enabled = True
         self.seconds_to_autoscale_worker = 90.0  # warmup before 1st cycle
@@ -38,6 +38,10 @@ class MasterConfigContext:
         # -- rendezvous (rendezvous.manager, re-read per completion check) ---
         # last-call window past min_nodes before the round closes
         self.rdzv_waiting_timeout = 60.0
+        # -- hang detection (diagnosis CheckTrainingHangOperator) ------------
+        self.seconds_hang_threshold = 300.0  # step-report silence to confirm
+        # -- the diagnosis manager's observe loop (re-read each cycle) -------
+        self.seconds_diagnosis_interval = 60.0
 
     # ------------------------------------------------------------------
     def update(self, values: Dict[str, Any]) -> Dict[str, Any]:

@@ -34,9 +34,16 @@ master SIGKILLed and started again on the same port with the same state
 directory (``python -m dlrover_tpu_torch.master.main --port P``) honours
 the surviving workers' leases and fences, carries the global step and the
 goodput ledger on, and bills the gap as downtime backdated to the old
-master's last snapshot. The JAX master also wires the metric collector and
-the diagnosis manager; the servicer and job manager skip each one that is
-absent, and each waits in ROADMAP.md.
+master's last snapshot.
+
+The diagnosis manager (master/diagnosis/manager.py): the servicer routes
+the agents' ``DiagnosisReportData`` and the straggler records to it, and
+``prepare`` starts its observe loop (every ``seconds_diagnosis_interval``
+of the master config, 60 s by default as in the JAX master): a hang the device timers flag and the step
+reports confirm gets a synchronized hang dump and then a restart of every
+worker, a failure signature in a shipped log tail a restart or a relaunch.
+The JAX master also wires the metric collector; the servicer and job
+manager skip it, and it waits in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.common.constants import JobExitReason, RendezvousName
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.master import metrics as master_metrics
+from dlrover_tpu_torch.master.diagnosis.manager import DiagnosisManager
 from dlrover_tpu_torch.master.job_container import JobContainer
 from dlrover_tpu_torch.master.monitor.error_monitor import ErrorMonitor
 from dlrover_tpu_torch.master.monitor.hang_watchdog import HangWatchdog
@@ -128,6 +136,11 @@ class LocalJobMaster:
             )
         self.kv_store = KVStoreService()
         self.sync_service = SyncService(ctx)
+        self.diagnosis_manager = DiagnosisManager(
+            speed_monitor=self.speed_monitor,
+            job_context=ctx,
+            config=self.container.config,
+        )
         # the goodput planner: observe -> decide -> act over the speed
         # monitor's measured ledgers (module docstring)
         self.planner = None
@@ -168,6 +181,7 @@ class LocalJobMaster:
             kv_store=self.kv_store,
             sync_service=self.sync_service,
             planner=self.planner,
+            diagnosis_manager=self.diagnosis_manager,
             job_context=ctx,
         )
         self._server = RpcServer(self.servicer, port=port)
@@ -219,6 +233,7 @@ class LocalJobMaster:
             self._server, self.speed_monitor, planner=self.planner)
         self.task_manager.start()
         self.job_manager.start()
+        self.diagnosis_manager.start_observing()
         if flags.HANG_WATCHDOG.get():
             self.hang_watchdog.start()
         logger.info("local master serving on port %s", self.port)
@@ -270,6 +285,7 @@ class LocalJobMaster:
         # after the task manager's last flush
         self._server.stop(grace=1)
         self.hang_watchdog.stop()
+        self.diagnosis_manager.stop()
         self.task_manager.stop()
         self.job_manager.stop()
         if self._metrics_server is not None:

@@ -1,8 +1,8 @@
 """The master's control-plane API: one ``get`` + one ``report`` dispatch.
 The port's own copy of dlrover_tpu/master/servicer.py: every handler, with
 the same ``None`` guards, so a master wired with only what the port has
-(no diagnosis manager, metric collector or planner yet) answers every
-request the JAX master answers, with the same reply. One addition: a
+(no metric collector yet) answers every request the JAX master answers,
+with the same reply. One addition: a
 ``CheckpointStepReport``'s step is kept in the job context
 (``JobContext.ckpt_steps``) for the master's exit line; its blocking
 seconds go to the speed monitor, as in the JAX master, which keeps no step.

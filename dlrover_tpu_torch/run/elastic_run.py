@@ -13,9 +13,12 @@ which rendezvouses and supervises the worker processes::
 The agent runs ``[python, <script>] + <args>``: a script of this package
 run by its path needs the repo on ``PYTHONPATH``, as for the JAX launcher.
 The workers run on the card (``--accelerator cuda``, the default) or, in
-the test mode, on the CPU (``--accelerator cpu``). The JAX launcher's
-network check, profiler, comm-metrics, compile-cache and replica options
-wait for their modules (ROADMAP.md).
+the test mode, on the CPU (``--accelerator cpu``). ``--tpu-timer`` runs
+them under the device timer (profiler/tpu_timer.py; local rank r serves
+its metrics on ``--tpu-timer-port`` + r); a timer that fails to build or
+load ends the launcher with exit code 1. The JAX launcher's network check,
+comm-metrics, compile-cache and replica options wait for their modules
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from dlrover_tpu_torch.agent.config import ACCELERATORS, ElasticLaunchConfig
 from dlrover_tpu_torch.agent.elastic_agent import ElasticAgent
 from dlrover_tpu_torch.agent.master_client import MasterClient
 from dlrover_tpu_torch.common import flags
+from dlrover_tpu_torch.common.constants import TpuTimerConsts
 from dlrover_tpu_torch.common.log import logger
 
 #: seconds the launcher waits for a spawned master to report its port
@@ -63,6 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_restarts", type=int, default=3)
     p.add_argument("--accelerator", default="cuda", choices=ACCELERATORS)
     p.add_argument("--monitor_interval", type=float, default=2.0)
+    p.add_argument("--tpu-timer", action="store_true", dest="tpu_timer",
+                   help="time the workers' NCCL collectives and steps on "
+                        "the card (the device timer)")
+    p.add_argument("--tpu-timer-port", type=int,
+                   default=TpuTimerConsts.DEFAULT_PORT, dest="tpu_timer_port")
     p.add_argument("training_script", help="path to the training script")
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     return p
@@ -123,6 +132,8 @@ def config_from_args(args) -> ElasticLaunchConfig:
         max_restarts=args.max_restarts,
         accelerator=args.accelerator,
         monitor_interval=args.monitor_interval,
+        tpu_timer=args.tpu_timer,
+        tpu_timer_port=args.tpu_timer_port,
         entrypoint=args.training_script,
         entrypoint_args=_strip_leading_separator(args.training_script_args),
     )
@@ -162,7 +173,12 @@ def run(args) -> int:
             logger.error("master %s not reachable", args.master_addr)
             rc = 3
             return rc
-        agent = ElasticAgent(config, client)
+        try:
+            agent = ElasticAgent(config, client)
+        except RuntimeError as e:
+            logger.error("agent setup failed: %s", e)
+            rc = 1
+            return rc
         rc = agent.run()
         return rc
     finally:

@@ -19,9 +19,11 @@ difference: the JAX worker reads that wait from its trace ring's
 measured waits (``add_input_wait``: ``run/llama_pretrain.py``'s wait for
 each batch on the prefetch). ``poll_speculation_hint`` reads the goodput
 planner's intended next world from the membership poll and arms the
-trainer with it (brain/planner.py). The JAX bootstrap's stack dumper,
-tracer, stack sampler and compile cache wait for the profiler slice
-(ROADMAP.md).
+trainer with it (brain/planner.py). With ``DLROVER_TPU_STACK_DIR`` set
+(the agent sets it) ``init`` registers the SIGUSR2 all-thread stack dumper
+the agent's hang dumper triggers (profiler/hang_dump.py). The JAX
+bootstrap's tracer, stack sampler and compile cache wait for the profiler
+slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -180,6 +182,18 @@ def init() -> WorkerContext:
     if _context is not None:
         return _context
     env = WorkerEnv.from_env()
+    # hang diagnosis: register the SIGUSR2 all-thread stack dumper the
+    # agent's HangDumper triggers (profiler/hang_dump.py)
+    stack_dir = flags.STACK_DIR.get()
+    if stack_dir:
+        try:
+            from dlrover_tpu_torch.profiler.hang_dump import (
+                install_stack_dump_handler,
+            )
+
+            install_stack_dump_handler(stack_dir)
+        except Exception:
+            logger.exception("stack-dump handler install failed; continuing")
     if env.num_processes > 1 and env.coordinator_addr:
         import torch
         import torch.distributed as dist

@@ -65,6 +65,15 @@ speculation hint (``set_speculation_hint`` records the target world and
 logs it; the warm compiler that would build it ahead waits for ROADMAP
 item 8).
 
+The device timer: in a worker that preloaded the timer's hook
+(``elastic_run --tpu-timer``, profiler/tpu_timer.py), a step on the card is
+also timed as the program ``train_step``, the counterpart of the JAX
+``train_step`` program the TPU timer sees: the hook records its own CUDA
+events right after the step's start event and right before its end event,
+on the same stream, with a cost of 6·params·tokens flops (token-id
+batches; the definition of MFU in PERF.md), which feeds the timer's live
+MFU gauge. The step's own events and the digest are unchanged.
+
 Meshes beyond dp (fsdp, tp, zero-1), hierarchical collectives, warm
 compile, remesh and the lint hooks are not ported yet.
 """
@@ -82,6 +91,7 @@ from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.tree import Tree, flatten
 from dlrover_tpu_torch.common.world import WorldDescriptor
 from dlrover_tpu_torch.observability.digest import StepTimeDigest
+from dlrover_tpu_torch.profiler import tpu_timer
 from dlrover_tpu_torch.train import bootstrap
 from dlrover_tpu_torch.train.optim import make_optimizer
 
@@ -156,6 +166,8 @@ class ElasticTrainer:
         self._step_events: List[Tuple[Any, Any, bool]] = []
         #: steps this process has run (the JAX trainer's host step)
         self._host_step = 0
+        #: the device timer's C API when the process preloaded its hook
+        self._step_timer = tpu_timer.step_timer()
 
     @property
     def step_digest(self) -> StepTimeDigest:
@@ -172,7 +184,15 @@ class ElasticTrainer:
             if sample:
                 self._digest.add(start.elapsed_time(end) / 1e3)
 
-    def _end_step(self, t0: float, device_start, stream):
+    def _step_flops(self, tensors: List[torch.Tensor], batch: Batch) -> float:
+        """6·params·tokens of this rank's step when ``batch`` holds token
+        ids; 0 otherwise (the timer then keeps no MFU for the step)."""
+        leaf = batch_leaves(batch)[0]
+        if leaf.is_floating_point():
+            return 0.0
+        return 6.0 * sum(t.numel() for t in tensors) * leaf.numel()
+
+    def _end_step(self, t0: float, device_start, stream, timer_token=0):
         """Account for the step just queued on ``stream`` (module
         docstring)."""
         self._host_step += 1
@@ -181,6 +201,8 @@ class ElasticTrainer:
             if sample:
                 self._digest.add(time.monotonic() - t0)
             return
+        if timer_token:
+            self._step_timer.end(timer_token, stream.cuda_stream)
         end = torch.cuda.Event(enable_timing=True)
         end.record(stream)
         if self._step_events:
@@ -263,11 +285,28 @@ class ElasticTrainer:
         leaves = flatten(state["params"])
         tensors = [p for _, p in leaves]
         # the params' device is where the step runs, whatever the batch's
-        device_start, stream = None, None
+        device_start, stream, timer_token = None, None, 0
         if tensors and tensors[0].is_cuda:
             stream = torch.cuda.current_stream(tensors[0].device)
             device_start = torch.cuda.Event(enable_timing=True)
             device_start.record(stream)
+            if self._step_timer is not None:
+                timer_token = self._step_timer.begin(
+                    "train_step", stream.cuda_stream,
+                    self._step_flops(tensors, batch))
+        try:
+            return self._step_body(state, batch, leaves, tensors, t0,
+                                   device_start, stream, timer_token)
+        except BaseException:
+            if timer_token:
+                # an execution left open would read as a hang
+                self._step_timer.end(timer_token, stream.cuda_stream)
+            raise
+
+    def _step_body(self, state, batch, leaves, tensors, t0, device_start,
+                   stream, timer_token):
+        """``step`` past its start events: the microbatches, the dp
+        reduce, clipping and adamw."""
         accum = self.accum_steps
         dp = self.dp
         micro = self.tc.micro_batch_size
@@ -326,7 +365,7 @@ class ElasticTrainer:
         )
         state["step"] += 1
         loss = loss_sum * (1.0 / accum)
-        self._end_step(t0, device_start, stream)
+        self._end_step(t0, device_start, stream, timer_token)
         return state, loss
 
     # -- runtime config and the planner's hint ------------------------------

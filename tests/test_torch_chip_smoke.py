@@ -1209,3 +1209,223 @@ def test_piece_crcs_cover_each_pieces_rows():
     from dlrover_tpu_torch.checkpoint.shm_handler import as_bytes
 
     assert got[sname] == zlib.crc32(as_bytes(step_leaf.value).numpy())
+
+
+# -- the diagnosis legs: the action sequence, stuck_at, timer vs digest ------
+
+STUCK = "timed_step (llama_pretrain.py:156)"
+
+
+def _actions(nodes=(0,), stuck=STUCK, slowest="0"):
+    tail = f" [slowest node {slowest}]" if slowest is not None else ""
+    return ([("CollectHangDump", n, "training_hang") for n in nodes]
+            + [("RestartWorker", n, f"training_hang @ {stuck}{tail}")
+               for n in nodes])
+
+
+def test_enqueued_actions_read_the_masters_log():
+    """The port's master logs each action it enqueues; the script reads
+    them back in order, from the manager's own log lines."""
+    from dlrover_tpu_torch.common.constants import NodeStatus, NodeType
+    from dlrover_tpu_torch.common import messages as msg
+    from dlrover_tpu_torch.common.log import logger
+    from dlrover_tpu_torch.common.node import Node
+    from dlrover_tpu_torch.master.diagnosis.manager import DiagnosisManager
+    from dlrover_tpu_torch.master.node.job_context import JobContext
+
+    ctx = JobContext()
+    for i in (0, 1):
+        ctx.update_node(Node(NodeType.WORKER, i, status=NodeStatus.RUNNING))
+    mgr = DiagnosisManager(interval_secs=3600, job_context=ctx)
+    stack = ('Current thread 0x1 (most recent call first):\n'
+             '  File "/x/llama_pretrain.py", line 156 in timed_step\n'
+             '  File "/x/llama_pretrain.py", line 320 in run\n')
+    lines = []
+
+    class Sink:
+        def write(self, text):
+            lines.extend(text.splitlines())
+
+        def flush(self):
+            pass
+
+    import logging
+    handler = logging.StreamHandler(Sink())
+    handler.setFormatter(logging.Formatter(
+        "[%(asctime)s] [%(levelname)s] %(message)s"))
+    logger.addHandler(handler)
+    try:
+        for i in (0, 1):
+            mgr.collect_diagnosis_data(msg.DiagnosisReportData(
+                data_cls="TpuMetricsRecord", node_id=i,
+                data_content='{"hang": true, "mfu": %s}' % (0.2 + i / 10)))
+        mgr.diagnose_once()
+        for i in (0, 1):
+            mgr.collect_diagnosis_data(msg.DiagnosisReportData(
+                data_cls="HangDumpRecord", node_id=i, data_content=(
+                    '{"reason": "master_request", "pending": {}, "stacks": '
+                    '{"%d": %s}}' % (100 + i, __import__("json").dumps(
+                        stack)))))
+        mgr.diagnose_once()
+    finally:
+        logger.removeHandler(handler)
+    actions = chip_smoke.enqueued_actions(lines)
+    assert chip_smoke.check_action_sequence(actions, [0, 1]) == STUCK
+    assert all(chip_smoke.log_epoch(x) > 0 for x in lines
+               if "enqueued" in x)
+    assert sum(bool(chip_smoke.RESTART_ALL.search(x)) for x in lines) == 1
+    with pytest.raises(chip_smoke.SmokeFailure, match="did not cause"):
+        chip_smoke.check_no_actions(lines, "test leg")
+    chip_smoke.check_no_actions([x for x in lines if "enqueued" not in x],
+                                "test leg")
+
+
+def test_action_sequence_check_passes():
+    assert chip_smoke.check_action_sequence(_actions(), [0]) == STUCK
+    assert chip_smoke.check_action_sequence(
+        _actions((0, 1), slowest=None), [0, 1]) == STUCK
+
+
+@pytest.mark.parametrize("actions,nodes,match", [
+    (_actions()[:1], [0], "not a dump and a restart"),
+    (_actions() + [("RestartWorker", 0, "hardware")], [0],
+     "not a dump and a"),
+    (list(reversed(_actions())), [0], "not one hang dump a node"),
+    ([("CollectHangDump", 1, "training_hang")] + _actions()[1:], [0],
+     "not one hang dump a node"),
+    (_actions()[:1] + [("RelaunchWorker", 0, "hardware")], [0],
+     "not followed by one restart"),
+    (_actions((0, 1))[:2] + [("RestartWorker", 0, "training_hang @ a (b:1)"),
+                            ("RestartWorker", 1, "training_hang @ c (d:2)")],
+     [0, 1], "differ in reason"),
+    (_actions()[:1] + [("RestartWorker", 0, "training_hang")], [0],
+     "names no stuck_at"),
+])
+def test_action_sequence_check_fails_on_each_fault(actions, nodes, match):
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_action_sequence(actions, nodes)
+
+
+HOT = ["<module> (chip_smoke.py:5000)", "data_child (chip_smoke.py:2300)",
+       "_diag_child (chip_smoke.py:2400)", "run (llama_pretrain.py:320)",
+       "timed (chip_smoke.py:2380)", STUCK]
+LEAF = r"timed_step \(llama_pretrain\.py:\d+\)$"
+THROUGH = r"run \(llama_pretrain\.py:\d+\)$"
+
+
+def test_stuck_at_check_passes():
+    chip_smoke.check_stuck_at(STUCK, HOT, LEAF, THROUGH)
+
+
+@pytest.mark.parametrize("stuck,hot,match", [
+    ("step (optim.py:95)", HOT[:-1] + ["step (optim.py:95)"], "is not the "
+     "wait"),
+    (STUCK, HOT[:-1], "is not the dumped stacks' leaf"),
+    (STUCK, [], "is not the dumped stacks' leaf"),
+    (STUCK, [HOT[0], STUCK], "passes through no"),
+])
+def test_stuck_at_check_fails_on_each_fault(stuck, hot, match):
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_stuck_at(stuck, hot, LEAF, THROUGH)
+
+
+def _scrape(total, us_sum, mfu):
+    return {"mfu": mfu, "programs": {"train_step": {
+        "execute_total": total, "execute_us_sum": us_sum}}}
+
+
+FLOPS = 6.0 * 1_923_125_248 * 4096
+
+
+def _timer_case(n=9, step_s=0.2330, timer_s=0.2331, mfu=None):
+    samples = [step_s] * n
+    mfu = FLOPS / step_s / chip_smoke.PEAK_BF16_FLOPS if mfu is None else mfu
+    before = _scrape(2, 17_800_000, 0.1)
+    after = _scrape(2 + n, 17_800_000 + n * timer_s * 1e6, mfu)
+    return before, after, samples
+
+
+def test_timer_against_digest_check_passes():
+    before, after, samples = _timer_case()
+    timer_s, digest_s, gauge, mfu = chip_smoke.check_timer_against_digest(
+        before, after, samples, FLOPS)
+    assert timer_s == pytest.approx(0.2331)
+    assert digest_s == pytest.approx(0.2330)
+    assert gauge == pytest.approx(mfu)
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(n=7), "at least 8 needed"),
+    (dict(timer_s=0.2330 * 1.06), "is not within 5%"),
+    (dict(timer_s=0.2330 * 0.94), "is not within 5%"),
+    (dict(mfu=0.5), "MFU gauge"),
+    (dict(mfu=0.0), "MFU gauge"),
+])
+def test_timer_against_digest_check_fails_on_each_fault(case, match):
+    before, after, samples = _timer_case(**case)
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_timer_against_digest(before, after, samples, FLOPS)
+
+
+def test_timer_against_digest_counts_must_agree():
+    before, after, samples = _timer_case()
+    with pytest.raises(chip_smoke.SmokeFailure, match="digest took 8"):
+        chip_smoke.check_timer_against_digest(before, after, samples[1:],
+                                              FLOPS)
+
+
+def _reduce_window(step, before, after):
+    return {"step": step, "before": {"count": before[0], "us_sum": before[1]},
+            "after": {"count": after[0], "us_sum": after[1]}}
+
+
+def _kill_life(grads=12, ms=(32.1, 32.4), span=(32.6, 32.9), count=None):
+    """One rank of the kill leg's first life as its JSON carries it."""
+    windows, base = [], (20, 900_000.0)
+    for step, t in zip(chip_smoke.FOUR_CARD_REDUCE_STEPS, ms):
+        n = grads if count is None else count
+        windows.append(_reduce_window(step, base, (base[0] + n,
+                                            base[1] + t * 1e3)))
+        base = (base[0] + n + 3, base[1] + t * 1e3 + 500.0)
+    return {"rank": 0, "grad_all_reduces": grads, "reduce_windows": windows,
+            "steps": [{"step": s, "reduce_ms": m} for s, m in
+                      zip(chip_smoke.FOUR_CARD_REDUCE_STEPS, span)],
+            "timer": {"programs": {"nccl:AllReduce": {
+                "execute_total": 61.0, "execute_us_sum": 1.9e6,
+                "program_bytes": 4.0}}}}
+
+
+def test_reduce_window_check_passes():
+    [x] = chip_smoke.check_nccl_programs([_kill_life()])
+    assert x["programs"]["nccl:AllReduce"]["count"] == 61
+    assert [w[:2] for w in x["windows"]] == [(3, 12), (4, 12)]
+    assert x["windows"][0][2] == pytest.approx(32.1)
+    assert x["windows"][0][3] == pytest.approx(32.6)
+
+
+@pytest.mark.parametrize("case,match", [
+    # a host wait from each call to its poll: the kernels queued ahead
+    (dict(ms=(32.6 * 1.02, 32.4)), r"not within \[0.5, 1.01\]"),
+    (dict(ms=(32.1, 32.9 * 6)), r"not within \[0.5, 1.01\]"),
+    (dict(ms=(32.6 * 0.49, 32.4)), r"not within \[0.5, 1.01\]"),
+    (dict(count=13), "ended 13 all-reduces"),
+    (dict(count=11), "ended 11 all-reduces"),
+])
+def test_reduce_window_check_fails_on_each_fault(case, match):
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_nccl_programs([_kill_life(**case)])
+
+
+def test_nccl_programs_check_needs_the_timer_and_both_windows():
+    life = _kill_life()
+    life["timer"] = {"programs": {"train_step": {}}}
+    with pytest.raises(chip_smoke.SmokeFailure, match="no nccl:AllReduce"):
+        chip_smoke.check_nccl_programs([life])
+    life = _kill_life()
+    del life["reduce_windows"][1]["after"]
+    with pytest.raises(chip_smoke.SmokeFailure, match="in steps"):
+        chip_smoke.check_nccl_programs([life])
+    life = _kill_life()
+    life["reduce_windows"].pop()
+    with pytest.raises(chip_smoke.SmokeFailure, match=r"in steps \[3\]"):
+        chip_smoke.check_nccl_programs([life])

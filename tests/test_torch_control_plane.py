@@ -61,9 +61,9 @@ from dlrover_tpu.master.shard.dataset_manager import (
 from dlrover_tpu.master.shard.task_manager import TaskManager as JaxTaskManager
 from dlrover_tpu_torch.agent.config import ElasticLaunchConfig
 from dlrover_tpu_torch.agent.diagnosis_agent import (
+    DiagnosisAgent,
     WorkerAction,
     WorkerFailure,
-    diagnose_training_failure,
 )
 from dlrover_tpu_torch.agent.elastic_agent import ElasticAgent, agent_log_dir
 from dlrover_tpu_torch.agent.master_client import MasterClient
@@ -350,7 +350,7 @@ def test_classification_matches_jax(text):
         want = JaxDiagnosis().diagnose_training_failure(JaxFailure(
             node_id=0, restart_count=restarts, max_restarts=budget,
             log_tail=text))
-        got = diagnose_training_failure(WorkerFailure(
+        got = DiagnosisAgent().diagnose_training_failure(WorkerFailure(
             node_id=0, restart_count=restarts, max_restarts=budget,
             log_tail=text))
         assert got == want
@@ -368,7 +368,7 @@ def test_every_jax_pattern_has_a_sample():
 @pytest.mark.parametrize("text,kind", CUDA_SAMPLES)
 def test_cuda_failures_get_their_class(text, kind):
     assert classify_log(text) == kind
-    action = diagnose_training_failure(WorkerFailure(
+    action = DiagnosisAgent().diagnose_training_failure(WorkerFailure(
         node_id=0, restart_count=0, max_restarts=1, log_tail=text))
     assert action == (WorkerAction.RELAUNCH_WORKER if kind == "hardware"
                       else WorkerAction.RESTART_WORKER)
