@@ -329,15 +329,55 @@ auto-scaler opens it when the grown round forms, backdated to the last
 dp2 step report) with the ``resize_cost_s`` later decisions read.
 Global tokens/s is every token of a life's steps after its first over the
 wall from the first step's end to the last step's end, saves and reports
-included; the median step wall is printed beside it. The last line is the
+included; the median step wall is printed beside it.
+
+Then the zero-1 leg (``ZERO1_*``, ``_zero1_leg``): under the node's
+``AsyncCheckpointSaver``, which the script hosts as an agent would, four
+ranks of ``chip_smoke.py --zero1-child dp4 DIR``, their process group
+formed by ``train/bootstrap.py`` from the environment the script sets
+(NCCL, one card each), train the kill leg's configuration and corpus,
+with no lr warmup (every step updates at the schedule's rate),
+``ZERO1_STEPS`` steps through ``run/llama_pretrain.py``'s build and data
+flow replicated, then from the same init with ``--zero1`` (the worker's
+``DeviceMesh``, dp-sharded adam moments, reduce-scattered gradients,
+all-gathered params), which saves its last step to storage; two ranks of
+``--zero1-child dp2 DIR`` then restore it under zero-1 at dp2 and train
+one step. ``check_zero1``: the modes ``off`` and ``scatter``; each run's
+losses equal across the ranks, its whole params' CRC32 after the last
+step equal across the ranks (a missing all-gather leaves other quarters
+stale) and every kernel launched on every rank; the zero-1 losses within
+``ZERO1_LOSS_RTOL`` of the replicated ones; each rank's change of its
+whole params from init to step 1 and to the last step, at
+``ZERO1_SAMPLE_PER_LEAF`` fixed indices a leaf spread over every quarter
+(``param_sample``), against the replicated run's (``compare_delta``):
+the same init, at least ``ZERO1_DELTA_MOVED_MIN`` of the sampled params
+moved by the replicated run, and in each quarter at most
+``ZERO1_DELTA_MISS_MAX`` (step 1) or ``ZERO1_DELTA_LAST_MISS_MAX`` (the
+last step) of them whose two changes differ by more than
+``ZERO1_DELTA_ATOL`` times the leaf's largest change; the
+moments 8 bytes a param replicated and exactly a quarter of that under
+zero-1; the peak allocation lower by ``ZERO1_PEAK_SAVING_MIN``; each
+rank's step-1 moments at ``ZERO1_SAMPLE_PER_LEAF`` fixed indices a leaf of
+its zero-1 region (``moment_sample``, at least ``ZERO1_SAMPLE_MIN``) within
+``ZERO1_MOMENT_RTOL`` plus ``ZERO1_MOMENT_ATOL`` times the leaf's largest
+magnitude of the replicated run's (``compare_sample``); the restored step
+on both dp2 ranks, the CRC32 of each dp4 quarter of every param and
+moment leaf they hold equal to the dp4 rank's (``quarter_crcs``), and
+their one step's losses finite and equal. Prints, a rank and a step, the
+moments' bytes, ``max_memory_allocated``, the step wall and the device ms
+of the gradient collectives, ``optimizer_update`` and the param
+all-gathers, in both modes; the restore's tier and seconds; and the
+goodput planner's same-world prediction for ``dp4+zero1`` beside the
+measured zero-1 step (``planner_zero1_step``). The last line is the
 contract's, with the cards' count.
 
 Exits with code 2 and prints no result when CUDA is not available.
 ``--ckpt-child ROLE DIR`` runs one of phase 4c's children or the
 four-card leg's workers (``four``, ``scale``), ``--data-child ROLE FILE``
 phase 4d's worker (``shards``) or one of phase 4e's (``relaunch``,
-``hang``), and ``--master-child SPEC`` the scale-out leg's master; none
-is run by hand.
+``hang``), ``--master-child SPEC`` the scale-out leg's master, and
+``--zero1-child ROLE DIR`` a rank of the zero-1 leg (``dp4``, ``dp2``);
+none is run by hand.
 """
 
 import contextlib
@@ -622,6 +662,49 @@ COLL_HANG_STEPS = 8
 COLL_HANG_STOP_STEP = 4
 COLL_HANG_RANK = 3
 COLL_DIST_TIMEOUT_S = 900
+# the four-card zero-1 leg: the kill leg's configuration and corpus (the
+# main path's widths, global batch 8, seed 0) trained ZERO1_STEPS steps at
+# dp4 replicated and then from the same init under zero-1 in the same four
+# processes, the zero-1 state saved to storage after its last step, then
+# restored at ZERO1_RESTORE_WORLD ranks under zero-1, which train one step.
+# Zero-1 against replicated: the losses within ZERO1_LOSS_RTOL (the same
+# gradients up to the order of the collectives' and the norm's f32 sums;
+# the kernels' atomics-free sums are the same bits; 1.9e-5 apart at step 4
+# on four H100s, where the random-token corpus moves the loss by 0.0105
+# over three full-lr steps), each rank's step-1
+# moments at ZERO1_SAMPLE_PER_LEAF fixed indices a leaf of its zero-1
+# region (at least ZERO1_SAMPLE_MIN in all) within ZERO1_MOMENT_RTOL plus
+# ZERO1_MOMENT_ATOL times the leaf's largest magnitude (mu and nu are one
+# multiply-add from the gradient at step 1; a region on the wrong rank or
+# dim is unrelated values), the moments exactly 1/dp of the replicated
+# bytes, and the peak allocation lower by at least ZERO1_PEAK_SAVING_MIN
+# (the moments alone save 3/4 of 8 bytes a param, 11.5e9). The leg trains
+# with no lr warmup, so that every step moves the params. Each rank's
+# whole params' change from init, sampled over every quarter after step 1
+# and after the last step, against the replicated run's, element by
+# element within ZERO1_DELTA_ATOL times the leaf's largest change: after
+# step 1 both runs have updated from the same gradients, so at most
+# ZERO1_DELTA_MISS_MAX of a quarter's sampled elements may miss; by the
+# last step the bf16 forward has turned last-bit differences of the params
+# into small differences of the gradients, and adam, which moves an
+# element by about the lr whatever its gradient's size, steps an element
+# whose gradient is near zero either way (2.7 % of them missed on four
+# H100s), so at most ZERO1_DELTA_LAST_MISS_MAX may miss. A skipped update
+# misses every moved element (at least ZERO1_DELTA_MOVED_MIN of them), a
+# stale or misplaced quarter every moved element of that quarter
+ZERO1_STEPS = 4
+ZERO1_RESTORE_WORLD = 2
+ZERO1_LOSS_RTOL = 1e-4
+ZERO1_DELTA_ATOL = 1e-2
+ZERO1_DELTA_MISS_MAX = 1e-3
+ZERO1_DELTA_LAST_MISS_MAX = 0.1
+ZERO1_DELTA_MOVED_MIN = 0.5
+ZERO1_MOMENT_RTOL = 1e-3
+ZERO1_MOMENT_ATOL = 1e-3
+ZERO1_SAMPLE_PER_LEAF = 1 << 17
+ZERO1_SAMPLE_MIN = 10 ** 6
+ZERO1_PEAK_SAVING_MIN = 10e9
+ZERO1_TIMEOUT_S = 900
 # manifests, commit votes and the tracker beside a persisted step's leaves
 CKPT_DISK_SLACK = 64 << 20
 # a PCIe link's transfer rate a lane (GT/s) by generation; gens 1-2 encode
@@ -1536,16 +1619,17 @@ def metrics_env(env):
     return dict(env, DLROVER_TPU_MASTER_METRICS_PORT=str(port)), port
 
 
-def state_crcs(torch, state):
-    """The CRC32 of every leaf of a train state under its JAX name, the
-    device tensors copied to the host in CRC_CHUNK pieces through a pinned
-    buffer of each worker's."""
-    from dlrover_tpu_torch.checkpoint.shm_handler import as_bytes, flatten_state
+def tensor_crcs(torch, named):
+    """``crc_table`` of tensors (or arrays): a device tensor's bytes are
+    copied to the host in CRC_CHUNK pieces through a pinned buffer of
+    each worker's."""
+    from dlrover_tpu_torch.checkpoint.shm_handler import as_bytes
 
     local = threading.local()
 
     def crc(value):
-        flat = as_bytes(value)
+        with torch.no_grad():
+            flat = as_bytes(value)
         if not flat.is_cuda:
             return zlib.crc32(memoryview(flat.numpy()))
         if not hasattr(local, "buf"):
@@ -1558,8 +1642,15 @@ def state_crcs(torch, state):
             out = zlib.crc32(memoryview(local.buf[:n].numpy()), out)
         return out
 
-    return crc_table({leaf.name: leaf.value
-                      for leaf in flatten_state(state)}, crc)
+    return crc_table(named, crc)
+
+
+def state_crcs(torch, state):
+    """The CRC32 of every leaf of a train state under its JAX name."""
+    from dlrover_tpu_torch.checkpoint.shm_handler import flatten_state
+
+    return tensor_crcs(torch, {leaf.name: leaf.value
+                               for leaf in flatten_state(state)})
 
 
 def segment_crcs(job):
@@ -4743,6 +4834,582 @@ def check_coll_hang(lives, mlines, lines):
             f"{step + 1}-{COLL_HANG_STEPS}, the ranks' losses equal")
 
 
+# -- the four-card zero-1 leg ---------------------------------------------------
+
+
+def _zero1_args(workdir, zero1_on, steps=ZERO1_STEPS):
+    """``run/llama_pretrain.py``'s options for the zero-1 leg: the kill
+    leg's widths, batch and corpus, no lr warmup; ``--zero1`` and the
+    checkpoint directory when ``zero1_on`` (every ZERO1_STEPS-th save
+    persisted)."""
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    extra = (["--zero1", "--ckpt-dir", os.path.join(workdir, "ck"),
+              "--save-every", str(ZERO1_STEPS)] if zero1_on else [])
+    return llama_pretrain.parse_args([
+        "--model", "8b", "--layers", "4", "--seq", str(DATA_SEQ),
+        "--micro-batch", "1", "--global-batch", str(FOUR_CARD_GLOBAL_BATCH),
+        "--steps", str(steps), "--warmup-steps", "0", "--device", "cuda",
+        "--seed", "0", "--data", os.path.join(workdir, "corpus.bin"),
+        "--data-dtype", "uint32", *extra])
+
+
+def zero1_region(tensor, path_dim, rank, world):
+    """This rank's zero-1 region of a whole leaf at dp ``world`` (the
+    partition rule's dim), as a view; the leaf itself when it does not
+    shard."""
+    if path_dim is None:
+        return tensor
+    k = tensor.shape[path_dim] // world
+    return tensor.narrow(path_dim, rank * k, k)
+
+
+def moment_sample(torch, state, world):
+    """Each moment leaf's values at fixed indices of this rank's zero-1
+    region at dp ``world`` (a DTensor's local shard under zero-1, else the
+    region of the whole leaf), ``{name: (values, the whole leaf's largest
+    magnitude or None)}``; the indices evenly spaced, at most
+    ZERO1_SAMPLE_PER_LEAF a leaf."""
+    from dlrover_tpu_torch.common.tree import flatten
+    from dlrover_tpu_torch.train import bootstrap, zero1
+
+    rank = bootstrap.process_index()
+    out = {}
+    for key in ("mu", "nu"):
+        for path, m in flatten(state["opt"][key]):
+            if hasattr(m, "to_local"):
+                local, peak = m.to_local(), None
+            else:
+                dim = zero1.scatter_dim((), tuple(m.shape), {"dp": world})
+                local = zero1_region(m, dim, rank, world)
+                peak = float(m.abs().max())
+            flat = local.reshape(-1)
+            n = min(flat.numel(), ZERO1_SAMPLE_PER_LEAF)
+            # integer spacing: a float linspace over 1e8 elements rounds
+            # past the last index
+            idx = (torch.arange(n, dtype=torch.int64, device=flat.device)
+                   * (flat.numel() - 1)) // max(n - 1, 1)
+            out[f"{key}/{path}"] = (flat[idx].float().cpu().numpy(), peak)
+    return out
+
+
+def compare_sample(ref, got, rtol=ZERO1_MOMENT_RTOL,
+                   atol_frac=ZERO1_MOMENT_ATOL):
+    """The zero-1 run's moment sample ``got`` against the replicated run's
+    ``ref`` (``moment_sample``'s), leaf by leaf: ``{"elements", "leaves",
+    "worst"}``, ``worst`` the largest ``|got - ref| / (atol + rtol |ref|)``
+    with ``atol`` = ``atol_frac`` times the leaf's largest magnitude (at
+    most 1 passes)."""
+    import numpy as np
+
+    check(sorted(got) == sorted(ref),
+          f"sampled leaves differ: {sorted(set(ref) ^ set(got))[:3]}")
+    worst, elements = 0.0, 0
+    for name, (want, peak) in ref.items():
+        have = got[name][0]
+        check(have.shape == want.shape,
+              f"{name}: sample of {have.shape}, not {want.shape}")
+        tol = atol_frac * peak + rtol * np.abs(want)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ratio = np.where(tol > 0, np.abs(have - want) / tol,
+                             np.where(have == want, 0.0, np.inf))
+        worst = max(worst, float(ratio.max(initial=0.0)))
+        elements += int(want.size)
+    return {"elements": elements, "leaves": len(ref), "worst": worst}
+
+
+def param_sample(torch, params, world):
+    """Each param leaf's values at fixed indices of the whole leaf, spread
+    over all its zero-1 quarters at dp ``world``: ``{name: (values as
+    float64, the quarter of each index, -1 for a leaf that does not
+    shard)}``; the indices evenly spaced, at most ZERO1_SAMPLE_PER_LEAF a
+    leaf."""
+    import numpy as np
+
+    from dlrover_tpu_torch.common.tree import flatten
+    from dlrover_tpu_torch.train import zero1
+
+    out = {}
+    for path, p in flatten(params):
+        flat = p.detach().reshape(-1)
+        n = min(flat.numel(), ZERO1_SAMPLE_PER_LEAF)
+        idx = (torch.arange(n, dtype=torch.int64, device=flat.device)
+               * (flat.numel() - 1)) // max(n - 1, 1)
+        values = flat[idx].double().cpu().numpy()
+        dim = zero1.scatter_dim((), tuple(p.shape), {"dp": world})
+        if dim is None:
+            quarters = np.full(n, -1)
+        else:
+            stride = math.prod(p.shape[dim + 1:])
+            quarters = ((idx.cpu().numpy() // stride) % p.shape[dim]
+                        // (p.shape[dim] // world))
+        out[f"params/{path}"] = (values, quarters)
+    return out
+
+
+def compare_delta(ref_init, ref_final, init, final,
+                  atol_frac=ZERO1_DELTA_ATOL):
+    """The zero-1 run's change of the sampled params from ``init`` to
+    ``final`` against the replicated run's from ``ref_init`` to
+    ``ref_final`` (``param_sample``'s), leaf by leaf: ``{"elements",
+    "moved", "init_differs", "worst", "quarters": {quarter or "all":
+    {"elements", "misses"}}}``. An element misses where the two changes
+    differ by more than ``atol_frac`` times its leaf's largest replicated
+    change, and moved where the replicated change is larger than that;
+    ``worst`` is the largest difference over that tolerance."""
+    import numpy as np
+
+    names = sorted(ref_init)
+    check(names == sorted(ref_final) == sorted(init) == sorted(final),
+          f"sampled param leaves differ: {names[:3]}")
+    out = {"elements": 0, "moved": 0, "init_differs": 0, "worst": 0.0,
+           "quarters": {}}
+    for name in names:
+        r0, quarters = ref_init[name]
+        g0 = init[name][0]
+        check(g0.shape == r0.shape, f"{name}: sample of {g0.shape}, not "
+              f"{r0.shape}")
+        want, got = ref_final[name][0] - r0, final[name][0] - g0
+        atol = atol_frac * float(np.abs(want).max(initial=0.0))
+        err = np.abs(got - want)
+        miss = err > atol
+        out["elements"] += int(want.size)
+        out["moved"] += int((np.abs(want) > atol).sum())
+        out["init_differs"] += int((g0 != r0).sum())
+        if atol > 0:
+            out["worst"] = max(out["worst"], float(err.max()) / atol)
+        for q in np.unique(quarters):
+            sel = quarters == q
+            e = out["quarters"].setdefault("all" if q < 0 else str(int(q)),
+                                           {"elements": 0, "misses": 0})
+            e["elements"] += int(sel.sum())
+            e["misses"] += int(miss[sel].sum())
+    return out
+
+
+def param_crcs(torch, params):
+    """The CRC32 of every whole param leaf, ``{name: crc}``."""
+    from dlrover_tpu_torch.common.tree import flatten
+
+    return tensor_crcs(torch, {f"params/{p}": t.detach()
+                               for p, t in flatten(params)})
+
+
+def quarter_crcs(torch, state, quarters, world=FOUR_CARD_WORLD):
+    """The CRC32 of each of the given quarters (zero-1 regions at dp
+    ``world``) of every leaf of a train state, params and moments,
+    ``{quarter: {name: crc}}``. A DTensor leaf's quarter must lie in this
+    rank's local shard."""
+    from dlrover_tpu_torch.checkpoint import ownership
+    from dlrover_tpu_torch.common.tree import flatten
+    from dlrover_tpu_torch.train import bootstrap, zero1
+
+    rank = bootstrap.process_index()
+    named = {f"params/{p}": t for p, t in flatten(state["params"])}
+    for key in ("mu", "nu"):
+        named.update({f"{key}/{p}": t for p, t in flatten(state["opt"][key])})
+    parts = {}
+    for q in quarters:
+        for name, t in named.items():
+            shape, regions = ownership.leaf_layout(t)
+            dim = zero1.scatter_dim((), shape, {"dp": world})
+            k = shape[dim] // world if dim is not None else 0
+            if regions is None:
+                parts[(str(q), name)] = zero1_region(t, dim, q, world)
+                continue
+            mine = [r for r, ranks in regions.items() if rank in ranks][0]
+            start = q * k - mine[dim][0] if dim is not None else -1
+            check(0 <= start and start + k <= mine[dim][1] - mine[dim][0],
+                  f"{name}: quarter {q} is not in rank {rank}'s shard "
+                  f"{mine}")
+            parts[(str(q), name)] = t.to_local().narrow(dim, start, k)
+    out = {str(q): {} for q in quarters}
+    for (q, name), crc in tensor_crcs(torch, parts).items():
+        out[q][name] = crc
+    return out
+
+
+def _event_ms(events):
+    return None if events is None else events[0].elapsed_time(events[1])
+
+
+def _zero1_run(torch, workdir, device, zero1_on, ref=None):
+    """One run of the dp4 child: build, ZERO1_STEPS steps, the moments'
+    bytes and peak allocation, each step's loss, wall and device ms of the
+    gradient collectives, the update and the param gather; the step-1
+    moment sample and the whole params' sample at init, after step 1 and
+    after the last step (returned whole from the replicated run as
+    ``ref``, compared with it for the zero-1 run); the CRC32 of the whole
+    params after the last
+    step; the zero-1 run then saves its state to storage and CRCs this
+    rank's quarter."""
+    import gc
+
+    from dlrover_tpu_torch.common.tree import flatten
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.train import bootstrap
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    args = _zero1_args(workdir, zero1_on)
+    cfg, trainer, state, _, _ = llama_pretrain.build(args, device)
+    mode = "scatter" if zero1_on else "off"
+    check(trainer.zero1_mode == mode,
+          f"the trainer's zero-1 mode {trainer.zero1_mode}, not {mode}")
+    ckpt = None
+    if zero1_on:
+        ckpt, _, restore = llama_pretrain.open_checkpoint(args, state, None)
+        check(restore is None, f"the zero-1 run restored {restore}")
+    batches, _, _ = llama_pretrain.open_data(args, cfg, trainer, args.seq,
+                                             device, None)
+    moments = [t for key in ("mu", "nu")
+               for _, t in flatten(state["opt"][key])]
+    run = {"mode": trainer.zero1_mode, "moment_bytes": sum(
+        (t.to_local() if hasattr(t, "to_local") else t).nbytes
+        for t in moments), "steps": []}
+    world = bootstrap.process_count()
+    init = param_sample(torch, state["params"], world)
+    _reset_counts(attention, fce, [0])
+    sample = None
+    for step in range(1, ZERO1_STEPS + 1):
+        state, loss, seconds = llama_pretrain.timed_step(trainer, state,
+                                                         next(batches))
+        run["steps"].append({
+            "step": step, "loss": loss, "seconds": seconds,
+            "reduce_ms": _event_ms(trainer.reduce_events),
+            "update_ms": _event_ms(trainer.update_events),
+            "gather_ms": (_event_ms(trainer.gather_events) if zero1_on
+                          else None)})
+        print(f"rank {bootstrap.process_index()} {mode} step {step} loss "
+              f"{loss:.6f} ({seconds:.3f}s)", flush=True)
+        if step == 1:
+            sample = moment_sample(torch, state, world)
+            first = param_sample(torch, state["params"], world)
+    run["counts"] = _launch_counts(attention, fce)
+    run["max_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    final = param_sample(torch, state["params"], world)
+    run["param_crc"] = param_crcs(torch, state["params"])
+    if ref is not None:
+        run["sample"] = compare_sample(ref["moments"], sample)
+        run["delta"] = compare_delta(ref["init"], ref["first"], init, first)
+        run["delta_last"] = compare_delta(ref["init"], ref["final"], init,
+                                          final)
+    if zero1_on:
+        ckpt.save(ZERO1_STEPS, state)
+        ckpt.close()
+        run["stage"] = ckpt.stage_log[-1]
+        run["crc"] = quarter_crcs(torch, state,
+                                  [bootstrap.process_index()])
+    del state, trainer, batches, moments
+    return run, {"moments": sample, "init": init, "first": first,
+                 "final": final}
+
+
+def zero1_child(role, workdir):
+    """One rank of the zero-1 leg (``_zero1_leg``), its process group
+    formed by ``train/bootstrap.py`` from the environment the leg sets.
+    ``dp4``: the replicated and the zero-1 runs. ``dp2``: restores the dp4
+    zero-1 checkpoint under zero-1, CRCs the dp4 quarters its shard holds
+    and trains one step. Prints one JSON result."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.train import bootstrap
+
+    ctx = bootstrap.init()
+    rank, world = bootstrap.process_index(), bootstrap.process_count()
+    device = f"cuda:{ctx.local_rank}"
+    result = {"rank": rank, "world": world}
+    if role == "dp4":
+        result["replicated"], ref = _zero1_run(torch, workdir, device, False)
+        result["zero1"], _ = _zero1_run(torch, workdir, device, True, ref)
+    else:
+        args = _zero1_args(workdir, True, steps=ZERO1_STEPS + 1)
+        cfg, trainer, state, _, _ = llama_pretrain.build(args, device)
+        check(trainer.zero1_mode == "scatter",
+              f"the dp{world} trainer's zero-1 mode {trainer.zero1_mode}")
+        ckpt, start, restore = llama_pretrain.open_checkpoint(args, state,
+                                                              None)
+        result["restore"] = restore
+        check(start == ZERO1_STEPS, f"rank {rank} restored step {start}")
+        per = FOUR_CARD_WORLD // world
+        result["crc"] = quarter_crcs(
+            torch, state, range(rank * per, (rank + 1) * per))
+        batches, _, _ = llama_pretrain.open_data(args, cfg, trainer,
+                                                 args.seq, device, None)
+        _reset_counts(attention, fce, [0])
+        state, loss, seconds = llama_pretrain.timed_step(trainer, state,
+                                                         next(batches))
+        result["step"] = {"loss": loss, "seconds": seconds}
+        result["counts"] = _launch_counts(attention, fce)
+        ckpt.close()
+    dist.barrier()
+    print("ZERO1_CHILD_JSON " + json.dumps(result), flush=True)
+    return 0
+
+
+def _zero1_ranks(role, world, workdir, job):
+    """Start ``world`` ranks of ``chip_smoke.py --zero1-child role
+    workdir`` on cards 0..world-1, the process group's address in their
+    environment, echo their output and return their results in rank
+    order; every rank is killed past ZERO1_TIMEOUT_S, and a rank that fails
+    fails the leg."""
+    from dlrover_tpu_torch.common.constants import NodeEnv
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = free_port_block(1)
+    env = {k: v for k, v in os.environ.items()
+           if k != NodeEnv.MASTER_ADDR}
+    env.update({NodeEnv.JOB_NAME: job, NodeEnv.NODE_ID: "0",
+                NodeEnv.NUM_PROCESSES: str(world),
+                NodeEnv.COORDINATOR_ADDR: f"127.0.0.1:{port}",
+                "DLROVER_TPU_ACCELERATOR": "cuda",
+                # the group's collective timeout: a rank's persist and CRCs
+                # may run ahead of another's barrier
+                "DLROVER_TPU_DIST_INIT_TIMEOUT": str(ZERO1_TIMEOUT_S),
+                "PYTHONPATH": repo + os.pathsep
+                + os.environ.get("PYTHONPATH", "")})
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--zero1-child", role,
+         workdir], cwd=repo, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT,
+        env=dict(env, **{NodeEnv.PROCESS_ID: str(r),
+                         "DLROVER_TPU_LOCAL_RANK": str(r)}))
+        for r in range(world)]
+    results = [None] * world
+
+    def read(r):
+        for line in iter(procs[r].stdout.readline, ""):
+            if line.startswith("ZERO1_CHILD_JSON "):
+                results[r] = json.loads(line.split(" ", 1)[1])
+                continue
+            print(f"  [zero1 {role} rank {r}] {line.rstrip()}", flush=True)
+
+    readers = [threading.Thread(target=read, args=(r,), daemon=True)
+               for r in range(world)]
+    for t in readers:
+        t.start()
+    deadline = time.time() + ZERO1_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            check(not failed and time.time() < deadline,
+                  f"zero-1 {role}: ranks {failed} failed" if failed else
+                  f"zero-1 {role}: not done after {ZERO1_TIMEOUT_S} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+        for t in readers:
+            t.join(timeout=30)
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * world, f"zero-1 {role}: exit codes {codes}")
+    check(all(r is not None for r in results),
+          f"zero-1 {role}: a rank printed no result")
+    return results
+
+
+def check_zero1(dp4, dp2, n_params):
+    """The zero-1 leg's checks (module docstring) over the dp4 ranks'
+    results and the restored ranks' (each indexed by rank)."""
+    world = len(dp4)
+    check([r["rank"] for r in dp4] == list(range(world)),
+          f"the dp4 ranks: {[r['rank'] for r in dp4]}")
+    for mode in ("replicated", "zero1"):
+        losses = [[st["loss"] for st in r[mode]["steps"]] for r in dp4]
+        check(all(x == losses[0] for x in losses)
+              and len(losses[0]) == ZERO1_STEPS,
+              f"the ranks' {mode} losses differ: {losses}")
+        for r in dp4[1:]:
+            compare_crcs(dp4[0][mode]["param_crc"], r[mode]["param_crc"],
+                         f"rank {r['rank']}'s {mode} params against rank 0's")
+        for r in dp4:
+            for name, n in r[mode]["counts"].items():
+                check(n > 0, f"kernel {name} never launched on rank "
+                      f"{r['rank']} in the {mode} run")
+    for r in dp4:
+        rep, z1 = r["replicated"], r["zero1"]
+        check(rep["mode"] == "off" and z1["mode"] == "scatter",
+              f"rank {r['rank']}: modes {rep['mode']}, {z1['mode']}")
+        for a, b in zip(rep["steps"], z1["steps"]):
+            check(abs(b["loss"] - a["loss"])
+                  <= ZERO1_LOSS_RTOL * abs(a["loss"]),
+                  f"step {a['step']}: zero-1 loss {b['loss']} vs "
+                  f"replicated {a['loss']}")
+        check(rep["moment_bytes"] == 8 * n_params,
+              f"rank {r['rank']}: replicated moments {rep['moment_bytes']} "
+              f"bytes, not 8 a param ({8 * n_params})")
+        check(z1["moment_bytes"] * world == rep["moment_bytes"],
+              f"rank {r['rank']}: zero-1 moments {z1['moment_bytes']} bytes,"
+              f" not 1/{world} of {rep['moment_bytes']}")
+        saved = rep["max_memory_bytes"] - z1["max_memory_bytes"]
+        check(saved >= ZERO1_PEAK_SAVING_MIN,
+              f"rank {r['rank']}: zero-1 peak {z1['max_memory_bytes']} only "
+              f"{saved} bytes under replicated {rep['max_memory_bytes']}")
+        s = z1["sample"]
+        check(s["elements"] >= ZERO1_SAMPLE_MIN and s["worst"] <= 1.0,
+              f"rank {r['rank']}: step-1 moments sample {s}")
+        for key, step, bound in (
+                ("delta", 1, ZERO1_DELTA_MISS_MAX),
+                ("delta_last", ZERO1_STEPS, ZERO1_DELTA_LAST_MISS_MAX)):
+            d = z1[key]
+            at = f"rank {r['rank']}, step {step}"
+            check(d["init_differs"] == 0,
+                  f"{at}: {d['init_differs']} sampled params differ at "
+                  f"init between the runs")
+            check(d["elements"] >= ZERO1_SAMPLE_MIN
+                  and d["moved"] >= ZERO1_DELTA_MOVED_MIN * d["elements"],
+                  f"{at}: the replicated run moved {d['moved']} of "
+                  f"{d['elements']} sampled params")
+            check(sorted(q for q in d["quarters"] if q != "all")
+                  == [str(q) for q in range(world)],
+                  f"{at}: params sampled in quarters "
+                  f"{sorted(d['quarters'])}")
+            for q, e in sorted(d["quarters"].items()):
+                check(e["misses"] <= bound * e["elements"],
+                      f"{at}, quarter {q}: the zero-1 change from init "
+                      f"misses the replicated one in {e['misses']} of "
+                      f"{e['elements']} sampled params")
+        check(len(z1["crc"][str(r["rank"])]) > 0,
+              f"rank {r['rank']}: no CRC32 of its quarter")
+    check([r["rank"] for r in dp2] == list(range(len(dp2))),
+          f"the restored ranks: {[r['rank'] for r in dp2]}")
+    for r in dp2:
+        check(r["restore"]["step"] == ZERO1_STEPS,
+              f"restored rank {r['rank']}: step {r['restore']['step']}")
+        for q, crcs in r["crc"].items():
+            compare_crcs(dp4[int(q)]["zero1"]["crc"][q], crcs,
+                         f"restored rank {r['rank']}'s quarter {q}")
+        for name, n in r["counts"].items():
+            check(n > 0, f"kernel {name} never launched on restored rank "
+                  f"{r['rank']}")
+        check(math.isfinite(r["step"]["loss"]),
+              f"restored rank {r['rank']}: loss {r['step']['loss']}")
+    check(len({r["step"]["loss"] for r in dp2}) == 1,
+          f"the restored ranks' losses differ: "
+          f"{[r['step']['loss'] for r in dp2]}")
+    quarters = sorted(q for r in dp2 for q in r["crc"])
+    check(quarters == [str(q) for q in range(world)],
+          f"the restored ranks CRC'd quarters {quarters}")
+
+
+def planner_zero1_step(dp4):
+    """The goodput planner's same-world layout prediction for
+    ``dp4+zero1`` from the replicated run (its step p50, the median over
+    steps 2 on of the slowest rank's wall, and the gradient collectives'
+    share of it as the kernel breakdown's comm), beside the zero-1 run's
+    measured step p50: ``(predicted, replicated p50, zero-1 p50)``."""
+    from dlrover_tpu_torch.brain.planner import GoodputPlanner, PlannerInputs
+    from dlrover_tpu_torch.common.world import WorldDescriptor
+
+    def p50(mode, key):
+        return statistics.median(
+            max(r[mode]["steps"][i][key] for r in dp4)
+            for i in range(1, ZERO1_STEPS))
+
+    base = p50("replicated", "seconds")
+    comm = p50("replicated", "reduce_ms") / 1e3 / base
+    inputs = PlannerInputs(world=len(dp4), step_p50_s=base, layout_spec="dp4",
+                           kernel_breakdown={"comm.all-reduce": comm})
+    wd = WorldDescriptor.from_axis_sizes({"dp": len(dp4)}, zero1=True)
+    return (GoodputPlanner().predict_layout_step_time(wd, inputs), base,
+            p50("zero1", "seconds"))
+
+
+def print_zero1(dp4, dp2):
+    """The zero-1 leg's readings, rank by rank."""
+    for r in dp4:
+        rep, z1 = r["replicated"], r["zero1"]
+        print(f"  rank {r['rank']}: moments {rep['moment_bytes']} bytes "
+              f"replicated, {z1['moment_bytes']} zero-1; "
+              f"max_memory_allocated {rep['max_memory_bytes']} replicated, "
+              f"{z1['max_memory_bytes']} zero-1 (lower by "
+              f"{rep['max_memory_bytes'] - z1['max_memory_bytes']}); step-1 "
+              f"moments sample {json.dumps(z1['sample'])}; params' change "
+              f"from init to step 1 {json.dumps(z1['delta'])}, to step "
+              f"{ZERO1_STEPS} {json.dumps(z1['delta_last'])}; staged "
+              f"{z1['stage']['staged_bytes']} bytes", flush=True)
+        for mode, run in (("replicated", rep), ("zero-1", z1)):
+            for st in run["steps"]:
+                gather = ("" if st["gather_ms"] is None
+                          else f", param all-gather {st['gather_ms']:.3f} ms")
+                print(f"  rank {r['rank']} {mode} step {st['step']}: loss "
+                      f"{st['loss']:.6f}, step wall {st['seconds']:.4f} s, "
+                      f"optimizer_update {st['update_ms']:.3f} ms, gradient "
+                      f"collectives {st['reduce_ms']:.3f} ms{gather}",
+                      flush=True)
+    for r in dp2:
+        res = r["restore"]
+        print(f"  restored rank {r['rank']}: step {res['step']} by tier "
+              f"{res['tier']} (rungs {res['tiers_read']}) in "
+              f"{res['seconds']:.3f} s, {res['bytes']} bytes; the CRC32 of "
+              f"quarters {sorted(r['crc'])} read; step "
+              f"{ZERO1_STEPS + 1} loss {r['step']['loss']:.6f} in "
+              f"{r['step']['seconds']:.3f} s", flush=True)
+    predicted, rep, z1 = planner_zero1_step(dp4)
+    print(f"  the planner's dp4+zero1 step {predicted:.4f} s (its layout "
+          f"model from the replicated step p50 {rep:.4f} s) against the "
+          f"measured zero-1 step p50 {z1:.4f} s", flush=True)
+
+
+def _zero1_leg(torch):
+    """The four-card zero-1 leg (module docstring)."""
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.common.ipc import default_socket_path
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    n_params = llama.param_count(llama_pretrain.model_config("8b", 4))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_zero1_")
+    job = f"chip_smoke_zero1_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    t0 = time.perf_counter()
+    # the node's saver, as the agent hosts it: it persists the four ranks'
+    # segments of the saved step together
+    host = AsyncCheckpointSaver(job_name=job, node_id=0,
+                                local_process_ids=list(range(
+                                    FOUR_CARD_WORLD)))
+    host.start()
+    try:
+        write_corpus(os.path.join(workdir, "corpus.bin"),
+                     records=FOUR_CARD_RECORDS)
+        dp4 = _zero1_ranks("dp4", FOUR_CARD_WORLD, workdir, job)
+        _wait_persisted(host, ZERO1_STEPS)
+        committed = host.persister.committed_step(os.path.join(workdir, "ck"))
+        check(committed == ZERO1_STEPS, f"committed step {committed}")
+        host.stop()
+        host = None
+        t_dp2 = time.perf_counter()
+        dp2 = _zero1_ranks("dp2", ZERO1_RESTORE_WORLD, workdir, job)
+        print_zero1(dp4, dp2)
+        check_zero1(dp4, dp2, n_params)
+        print(f"  zero-1 leg: dp4 runs and the persist {t_dp2 - t0:.1f} s, "
+              f"dp2 restore and step {time.perf_counter() - t_dp2:.1f} s; "
+              f"every check passed", flush=True)
+    finally:
+        if host is not None:
+            host.stop()
+        for pid in range(FOUR_CARD_WORLD):
+            unlink_segment(job, pid)
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
+
+
 def main_four_card():
     """The four-card leg (module docstring)."""
     import torch
@@ -4890,6 +5557,9 @@ def main_four_card():
     print("== the four-card leg: a planner-directed scale-out, dp2 -> dp4",
           flush=True)
     _scale_out_leg(torch)
+    print("== the four-card leg: zero-1 against replicated at dp4, restored "
+          "at dp2", flush=True)
+    _zero1_leg(torch)
     print(f"== done in {time.perf_counter() - t_start:.1f}s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5046,6 +5716,8 @@ if __name__ == "__main__":
             sys.exit(data_child(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--master-child"]:
             sys.exit(master_child(sys.argv[2]))
+        if sys.argv[1:2] == ["--zero1-child"]:
+            sys.exit(zero1_child(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--four-card"]:
             sys.exit(main_four_card())
         sys.exit(main())

@@ -34,6 +34,15 @@ replicated state, and its saver persists that share; a restore reads the
 union: this process's shm pieces, then the tiers on disk for the rest. A
 world of one stages everything.
 
+Sharded leaves. A DTensor leaf (zero-1's dp-sharded adam moments,
+train/zero1.py) stages its local shard under the shard's global ranges, its
+regions and owners from its mesh and placements (ownership.py). A restore
+by target fills a DTensor's local shard, and a plain tensor the whole leaf,
+from the union of the pieces that overlap it, whatever layout wrote them,
+as the JAX engine's union coverage does: a zero-1 state saved at one dp
+restores at another, or into a replicated target, and a replicated one
+into zero-1.
+
 Restore is the JAX package's tier ladder, each rung adding the pieces the
 rungs before it were missing: tier 0, shm (this process's segment); tier
 1, disk (this node's local tier); tier 2, object (the shared tier, every
@@ -170,6 +179,31 @@ def _bytes_of(data: bytes) -> torch.Tensor:
         # read-only: nothing writes to a piece's bytes
         warnings.simplefilter("ignore", UserWarning)
         return torch.frombuffer(data, dtype=torch.uint8)
+
+
+def _local_of(value):
+    """``(local data, global shape, its region, regions)`` of a leaf: a
+    DTensor's local shard under this process's region of it, with every
+    region's ranks (parallel/sharding.py); any other leaf whole, regions
+    None (replicated over the group)."""
+    shape, regions = ownership.leaf_layout(value)
+    if regions is None:
+        return value, shape, _full(shape), None
+    rank = bootstrap.process_index()
+    mine = [r for r, ranks in regions.items() if rank in ranks]
+    if not mine:
+        raise ValueError(f"rank {rank} holds no region of a DTensor leaf")
+    return value.to_local(), shape, mine[0], regions
+
+
+def _relative(ranges: Ranges, origin: Ranges) -> Tuple[slice, ...]:
+    """An index selecting ``ranges`` from a tensor that holds ``origin``."""
+    return tuple(slice(s - o, e - o) for (s, e), (o, _) in zip(ranges, origin))
+
+
+def _intersect(a: Ranges, b: Ranges) -> Optional[Ranges]:
+    out = tuple((max(s, t), min(e, u)) for (s, e), (t, u) in zip(a, b))
+    return None if any(s >= e for s, e in out) else out
 
 
 def region_covered(needed: Ranges, plist: List[Piece]) -> bool:
@@ -421,32 +455,32 @@ class CheckpointEngine:
     def _plan(self, state) -> Tuple[List[_Stage], List[str], Dict[str, Any]]:
         """The pieces this process stages, in flatten order (under dedup
         only the owned ones: ownership.py's partition), the full leaf
-        list, and the staged and skipped bytes. Python scalars are read
-        here, at save time."""
+        list, and the staged and skipped bytes. A DTensor leaf stages
+        from its local shard, under the shard's global ranges. Python
+        scalars are read here, at save time."""
         leaves = flatten_state(state)
         own = self._ownership_info()
         rr = ownership.RoundRobin() if own is not None else None
         stages: List[_Stage] = []
         skipped = 0
         for leaf in leaves:
-            value = leaf.value
-            shape = tuple(value.shape)
-            full = _full(shape)
+            local, shape, region, regions = _local_of(leaf.value)
             name = f"{leaf.name}#s0"
             if own is None:
-                stages.append(_Stage(name, value, shape, full))
+                stages.append(_Stage(name, local, shape, region))
                 continue
-            mine = [a for a in ownership.assign_leaf(shape, own[1], rr)
+            mine = [a for a in ownership.assign_leaf(shape, own[1], rr,
+                                                     regions)
                     if a.owner == own[0]]
-            if len(mine) == 1 and mine[0].ranges == full:
-                stages.append(_Stage(name, value, shape, full))
+            if len(mine) == 1 and mine[0].ranges == region:
+                stages.append(_Stage(name, local, shape, region))
                 continue
             owned = 0
             for j, a in enumerate(mine):
-                sub = value[ownership.ranges_to_index(a.ranges)]
+                sub = local[_relative(a.ranges, region)]
                 stages.append(_Stage(f"{name}.{j}", sub, shape, a.ranges))
                 owned += _nbytes(sub)
-            skipped += _nbytes(value) - owned
+            skipped += _nbytes(local) - owned
         stats = {
             "staged_bytes": sum(_nbytes(s.data) for s in stages),
             "skipped_replica_bytes": skipped,
@@ -1074,7 +1108,7 @@ class CheckpointEngine:
                         leaf.name, gshape, tuple(leaf.value.shape),
                     )
                     return None
-                if not region_covered(_full(gshape), plist):
+                if not region_covered(_local_of(leaf.value)[2], plist):
                     logger.info("staged pieces do not cover leaf %s; "
                                 "falling back to storage", leaf.name)
                     return None
@@ -1108,9 +1142,11 @@ class CheckpointEngine:
     def _place(self, plan: List[Tuple[Leaf, List[Piece]]],
                from_shm: bool) -> Dict[str, Any]:
         """Write checked pieces into the target in place: a tensor leaf
-        on its device (a whole-leaf piece of its dtype as one copy of
-        bytes, a DMA from the registered segment when ``from_shm``), a
-        Python scalar by replacing it in its container."""
+        on its device (a piece that is the whole region of its dtype as one
+        copy of bytes, a DMA from the registered segment when
+        ``from_shm``; else each piece's overlap with the region), a
+        DTensor into its local shard, a Python scalar by replacing it in
+        its container."""
         cuda = {leaf.value.device for leaf, _ in plan
                 if isinstance(leaf.value, torch.Tensor) and leaf.value.is_cuda}
         stats: Dict[str, Any] = {
@@ -1127,14 +1163,19 @@ class CheckpointEngine:
                     continue
                 if isinstance(value, np.ndarray):
                     value = torch.from_numpy(value)
-                for index, data, gshape, dt in plist:
-                    if (index == _full(gshape) and value.is_contiguous()
+                value, _, region, _ = _local_of(value)
+                for index, data, _, dt in plist:
+                    if (index == region and value.is_contiguous()
                             and torch_dtype(dt) == value.dtype):
                         as_bytes(value).copy_(data, non_blocking=True)
-                    else:
-                        extent = tuple(e - s for s, e in index)
-                        value[ownership.ranges_to_index(index)].copy_(
-                            decode(data.clone(), dt, extent))
+                        continue
+                    overlap = _intersect(index, region)
+                    if overlap is None:
+                        continue
+                    extent = tuple(e - s for s, e in index)
+                    piece = decode(data.clone(), dt, extent)
+                    value[_relative(overlap, region)].copy_(
+                        piece[_relative(overlap, index)])
         # the copies read the segment, which the next save overwrites
         for dev in cuda:
             torch.cuda.current_stream(dev).synchronize()

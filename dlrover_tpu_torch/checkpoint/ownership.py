@@ -20,13 +20,15 @@ Every rank walks the leaves in the same order and computes the same full
 assignment, with no communication, and keeps its own part of it.
 
 The JAX package keys a leaf's regions on its ``NamedSharding``. The port
-runs one process a card and holds no sharded leaf yet (DTensor layouts are
-a later slice), so a plan is keyed on ``world``, the size of a
-data-parallel group over which every leaf is replicated: the JAX
-package's ``assign_host_leaf``, and its ``assign_leaf`` for a leaf
-replicated on every rank. A rank is a number here, so the JAX package's
-device-to-rank maps (``virtual_proc_of``, ``real_proc_of``) have no
-counterpart.
+runs one process a card: a plain tensor (or a Python scalar) is replicated
+over ``world``, the size of the data-parallel group, as the JAX package's
+``assign_host_leaf`` and its ``assign_leaf`` for a leaf replicated on every
+rank; a DTensor (zero-1's dp-sharded adam moments, train/zero1.py) has the
+regions its mesh and placements give (``parallel.sharding.shard_regions``,
+the counterpart of ``devices_indices_map``), each held by the ranks at the
+mesh coordinates that hold it. A rank is a process's global rank, so the
+JAX package's device-to-rank maps (``virtual_proc_of``, ``real_proc_of``)
+have no counterpart.
 """
 
 from __future__ import annotations
@@ -134,10 +136,24 @@ def _assign_replicated(
 
 
 def assign_leaf(
-    shape: Tuple[int, ...], world: int, rr: RoundRobin
+    shape: Tuple[int, ...], world: int, rr: RoundRobin,
+    regions: Optional[Dict[Ranges, Tuple[int, ...]]] = None,
 ) -> List[PieceAssignment]:
-    """The pieces of a leaf replicated on every rank of a ``world``-rank
-    group, with their owners."""
+    """The pieces of a leaf with their owners: with ``regions`` (``{region:
+    ranks holding it}``, a DTensor's), each region in sorted order, one
+    held by a single rank owned by it (the counter does not advance), a
+    replicated one split as below; without, a leaf replicated on every
+    rank of a ``world``-rank group."""
+    if regions is not None:
+        out: List[PieceAssignment] = []
+        for region in sorted(regions):
+            reps = tuple(sorted(regions[region]))
+            if len(reps) == 1:
+                out.append(PieceAssignment(ranges=region, owner=reps[0],
+                                           replicas=reps, parent=region))
+            else:
+                out.extend(_assign_replicated(region, reps, rr))
+        return out
     reps = tuple(range(world))
     ranges = tuple((0, int(d)) for d in shape)
     if world == 1:
@@ -149,14 +165,30 @@ def assign_leaf(
     return _assign_replicated(ranges, reps, rr)
 
 
+def leaf_layout(leaf) -> Tuple[Tuple[int, ...],
+                                Optional[Dict[Ranges, Tuple[int, ...]]]]:
+    """A leaf's global shape and, for a DTensor, its regions with the
+    ranks holding each (None: replicated over the group). ``leaf``: a
+    tensor, a numpy array, or a shape."""
+    if hasattr(leaf, "device_mesh") and hasattr(leaf, "placements"):
+        from dlrover_tpu_torch.parallel.sharding import shard_regions
+
+        return tuple(int(d) for d in leaf.shape), shard_regions(leaf)
+    shape = getattr(leaf, "shape", leaf)
+    return tuple(int(d) for d in shape), None
+
+
 def plan_for_state(leaves, world: int) -> Dict[str, List[PieceAssignment]]:
-    """Full assignment keyed by leaf name, for ``(name, shape)`` pairs in
-    flatten order (``shm_handler.flatten_state`` gives them) replicated
-    over a ``world``-rank data-parallel group: what every rank's staging
-    pass computes."""
+    """Full assignment keyed by leaf name, for ``(name, leaf)`` pairs in
+    flatten order (``shm_handler.flatten_state`` gives them; a leaf is a
+    tensor, a DTensor or a shape) over a ``world``-rank data-parallel
+    group: what every rank's staging pass computes."""
     rr = RoundRobin()
-    return {name: assign_leaf(tuple(shape), world, rr)
-            for name, shape in leaves}
+    plan = {}
+    for name, leaf in leaves:
+        shape, regions = leaf_layout(leaf)
+        plan[name] = assign_leaf(shape, world, rr, regions)
+    return plan
 
 
 def owned_bytes(

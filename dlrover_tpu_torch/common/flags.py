@@ -59,6 +59,14 @@ FUSED_CE = EnvFlag(
     "Fused lm-head cross-entropy kernels (ops/fused_ce.py): 0 takes the "
     "chunked cross-entropy instead. Read at every loss call.",
 )
+ZERO1 = EnvFlag(
+    "DLROVER_TPU_ZERO1", "",
+    "ZeRO-1 weight-update sharding across the dp axis (train/zero1.py):"
+    " overrides the TrainConfig.zero1 knob in BOTH directions — 0 "
+    "forces the replicated update, any other non-empty value forces "
+    "zero-1 on; empty defers to the config. Read when the trainer "
+    "builds its state.",
+)
 
 # -- flash checkpoint (checkpoint/engine.py, checkpoint/saver.py)
 

@@ -30,3 +30,14 @@ def map_tree(fn: Callable[[Any], Any], tree: Tree) -> Tree:
         k: map_tree(fn, v) if isinstance(v, dict) else fn(v)
         for k, v in tree.items()
     }
+
+
+def map_tree_with_path(fn: Callable[[str, Any], Any], tree: Tree,
+                       prefix: str = "") -> Tree:
+    """``map_tree`` with each leaf's ``flatten`` path as ``fn``'s first
+    argument."""
+    return {
+        k: (map_tree_with_path(fn, v, f"{prefix}{k}/")
+            if isinstance(v, dict) else fn(f"{prefix}{k}", v))
+        for k, v in tree.items()
+    }

@@ -17,6 +17,7 @@ accelerator runtime.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Dict, Optional, Tuple
 
@@ -262,10 +263,13 @@ class WorldDescriptor:
         cls, mesh, n_slices: int = 1, zero1: bool = False,
         hier: bool = False, overlap: bool = False,
     ) -> "WorldDescriptor":
-        """From a mesh, duck-typed: anything with ``.shape`` mapping axis
-        names to sizes (a ``DeviceMesh``'s names and sizes as a dict)."""
+        """From a mesh: a ``DeviceMesh`` (its ``mesh_dim_names`` beside
+        its ``shape``, a tuple of ints), a ``MeshConfig``, or a mapping of
+        axis names to sizes."""
+        from dlrover_tpu_torch.parallel.mesh import axis_sizes
+
         return cls.from_axis_sizes(
-            dict(mesh.shape), n_slices=n_slices, zero1=zero1, hier=hier,
+            axis_sizes(mesh), n_slices=n_slices, zero1=zero1, hier=hier,
             overlap=overlap,
         )
 
@@ -276,12 +280,15 @@ class WorldDescriptor:
         axis) — the guard live-reshard transfer targets and AOT
         lowering run so the two can never disagree about the world they
         serve."""
-        if mesh.size != self.world_size:
+        from dlrover_tpu_torch.parallel.mesh import axis_sizes
+
+        shape = axis_sizes(mesh)
+        size = math.prod(shape.values())
+        if size != self.world_size:
             raise ValueError(
-                f"mesh has {mesh.size} devices, descriptor "
+                f"mesh has {size} devices, descriptor "
                 f"{self.spec} describes {self.world_size}"
             )
-        shape = dict(mesh.shape)
         for name, size in self.axes:
             if shape.get(name, 1) != size:
                 raise ValueError(

@@ -1,0 +1,37 @@
+"""Parallelism layer: device meshes and sharding rules (port of
+dlrover_tpu/parallel/).
+
+One ``DeviceMesh`` with the JAX package's dp/pp/fsdp/ep/sp/tp axes over
+the default process group, specs in the JAX canonical form, and DTensor
+placements built from them.
+"""
+
+from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXIS_ORDER,
+    BATCH_AXES,
+    DP,
+    EP,
+    FSDP,
+    PP,
+    SP,
+    TP,
+    MeshConfig,
+    axis_sizes,
+    build_mesh,
+    config_for,
+    mesh_for,
+    remesh,
+    validate_divisibility,
+)
+from dlrover_tpu_torch.parallel.sharding import (  # noqa: F401
+    batch_spec,
+    from_local,
+    named_placements,
+    pad_batch_to,
+    placements_for,
+    shard_pytree,
+    shard_regions,
+    spec_for_resize,
+    spec_of,
+    with_constraints,
+)

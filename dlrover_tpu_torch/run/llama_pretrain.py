@@ -43,7 +43,12 @@ each save's step through the checkpoint's master client. ``--device
 cuda`` then means the card of the worker's local rank. With more than one
 process (``--nproc_per_node``), the processes train one global batch
 data-parallel (``train/trainer.py``): each takes its rows, the gradients
-are all-reduced.
+are all-reduced. ``--zero1`` (or ``DLROVER_TPU_ZERO1``, which overrides it
+in both directions, as in the JAX example) shards the weight update over
+dp (train/zero1.py) on the worker's pure-dp mesh, which the trainer
+builds (``bootstrap.worker_mesh``): the gradients are reduce-scattered,
+adam's moments hold 1/dp each, the params are all-gathered. At dp 1 the
+update runs replicated (mode ``off``), and the run says so.
 Run bare, it trains alone.
 """
 
@@ -64,7 +69,7 @@ from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer
 from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import llama
-from dlrover_tpu_torch.train import bootstrap
+from dlrover_tpu_torch.train import bootstrap, zero1
 from dlrover_tpu_torch.train.data import (
     ElasticDataLoader,
     ElasticDistributedSampler,
@@ -86,6 +91,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--seq", type=int, default=0,
                    help="0 = min(2048, the preset's max_seq_len)")
     p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--warmup-steps", type=int,
+                   default=TrainConfig.warmup_steps,
+                   help="linear lr warmup steps (0 = none)")
     p.add_argument("--micro-batch", type=int, default=1)
     p.add_argument("--global-batch", type=int, default=0,
                    help="0 = one microbatch per step")
@@ -101,6 +109,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    "empty = synthetic tokens")
     p.add_argument("--data-dtype", default="uint16",
                    choices=["uint16", "uint32", "int32"])
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1 weight-update sharding across dp "
+                   "(train/zero1.py; DLROVER_TPU_ZERO1 overrides)")
     return p.parse_args(argv)
 
 
@@ -127,6 +138,8 @@ def build(args: argparse.Namespace, device=None, worker_ctx=None):
         global_batch_size=args.global_batch or args.micro_batch,
         micro_batch_size=args.micro_batch,
         total_steps=args.steps,
+        warmup_steps=args.warmup_steps,
+        zero1=args.zero1,
     )
     trainer = ElasticTrainer(lambda p, t: llama.loss_fn(p, t, cfg), tc,
                              lambda p, t: llama.loss_sums(p, t, cfg),
@@ -298,6 +311,8 @@ def run(args: argparse.Namespace, log=print) -> dict:
     if ctx is not None and device == "cuda":
         device = f"cuda:{ctx.local_rank}"
     cfg, trainer, state, next_batch, tokens = build(args, device, ctx)
+    if zero1.enabled(trainer.tc):
+        log(f"zero-1 mode {trainer.zero1_mode} at dp {trainer.dp}")
     seq = args.seq or min(2048, cfg.max_seq_len)
     if args.data:
         ckpt, start, restore = open_checkpoint(args, state, None, log)
@@ -360,6 +375,7 @@ def run(args: argparse.Namespace, log=print) -> dict:
         "restore": restore,
         "saves": saves,
         "loader_restored": loader_restored,
+        "zero1_mode": trainer.zero1_mode,
     }
 
 

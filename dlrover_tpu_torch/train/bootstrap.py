@@ -249,6 +249,19 @@ def process_index() -> int:
     return 0
 
 
+def worker_mesh(device_type: str = "cuda"):
+    """The worker's ``DeviceMesh``: pure dp over the default process group,
+    ``parallel.mesh_for`` of that world (``device_type`` "cuda", or "cpu"
+    for gloo); None in a world of one, which has no group."""
+    n = process_count()
+    if n == 1:
+        return None
+    from dlrover_tpu_torch.common.world import WorldDescriptor
+    from dlrover_tpu_torch.parallel.mesh import mesh_for
+
+    return mesh_for(WorldDescriptor.from_axis_sizes({"dp": n}), device_type)
+
+
 def collective_device():
     """The device the default group's collectives take their tensors on:
     the current card for NCCL, the CPU for gloo. A NCCL collective handed a

@@ -17,6 +17,11 @@ arithmetic in the same order, where torch's built-ins differ:
 The update runs leaf by leaf and in place: grads are consumed (their
 buffers are reused for the update) and params and moments change where
 they lie, so no second param-sized tree is ever allocated.
+
+Under zero-1 (train/zero1.py) the same arithmetic, in the same order, runs
+on this rank's shard of each leaf, the moments holding only that shard;
+the global norm is the dp sum of the shards' squared norms, each leaf with
+no divisible dim (whole on every rank) counted once.
 """
 
 from __future__ import annotations
@@ -28,7 +33,12 @@ from typing import Callable, Dict, List
 import torch
 from torch.profiler import record_function
 
-from dlrover_tpu_torch.common.tree import Tree, flatten, map_tree
+from dlrover_tpu_torch.common.tree import (
+    Tree,
+    flatten,
+    map_tree,
+    map_tree_with_path,
+)
 
 Schedule = Callable[[int], float]
 
@@ -79,26 +89,37 @@ class AdamW:
     weight_decay: float
     eps: float = 1e-8
 
-    def init(self, params: Tree) -> dict:
-        """Zero moments in the params' dtype, and the step count."""
-        return {"count": 0, "mu": map_tree(torch.zeros_like, params),
-                "nu": map_tree(torch.zeros_like, params)}
+    def init(self, params: Tree, zero1=None) -> dict:
+        """Zero moments in the params' dtype, and the step count. With a
+        zero-1 ``Layout`` (train/zero1.py) each moment holds only this
+        rank's dp shard (a DTensor), or, for a leaf with no divisible dim,
+        the whole leaf; the count stays a replicated scalar."""
+        if zero1 is None:
+            return {"count": 0, "mu": map_tree(torch.zeros_like, params),
+                    "nu": map_tree(torch.zeros_like, params)}
+        return {"count": 0,
+                "mu": map_tree_with_path(zero1.zeros, params),
+                "nu": map_tree_with_path(zero1.zeros, params)}
 
     @torch.no_grad()
     @record_function("optimizer_update")
     def step(self, params: Tree, grads: Dict[str, torch.Tensor], state: dict,
-             lr_scale: float = 1.0) -> None:
+             lr_scale: float = 1.0, zero1=None) -> None:
         """``params += lr_scale * update(grads)``. ``grads`` maps each
         leaf's path (as ``common.tree.flatten`` names it) to its gradient,
-        which this call overwrites. Runs in the ``optimizer_update``
-        profiler scope."""
+        which this call overwrites. With a zero-1 ``Layout`` a gradient is
+        this rank's shard (a fallback leaf's whole gradient), and only this
+        rank's shard of each param changes (the caller all-gathers them).
+        Runs in the ``optimizer_update`` profiler scope."""
         leaves = flatten(params)
         mus = dict(flatten(state["mu"]))
         nus = dict(flatten(state["nu"]))
         g_list: List[torch.Tensor] = [grads[path] for path, _ in leaves]
-        g_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in g_list])
-        )
+        if zero1 is None:
+            g_norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in g_list]))
+        else:
+            g_norm = _sharded_norm(leaves, g_list, zero1)
         keep = g_norm < self.max_norm
         # (t / g_norm) * max_norm, or t itself (t / 1 * 1) below the norm
         divisor = torch.where(keep, 1.0, g_norm)
@@ -108,7 +129,9 @@ class AdamW:
         bc1 = 1 - self.b1 ** (count + 1)
         bc2 = 1 - self.b2 ** (count + 1)
         for (path, p), g in zip(leaves, g_list):
-            mu, nu = mus[path], nus[path]
+            mu, nu = _local(mus[path]), _local(nus[path])
+            if zero1 is not None:
+                p = zero1.shard(path, p)
             g.div_(divisor.to(g.dtype)).mul_(factor.to(g.dtype))
             mu.mul_(self.b1).add_(g * (1 - self.b1))
             nu.mul_(self.b2).add_(g.square().mul_(1 - self.b2))
@@ -119,6 +142,31 @@ class AdamW:
                 update.mul_(lr_scale)
             p.add_(update)
         state["count"] = count + 1
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A moment's tensor to update in place: a DTensor's local shard (a
+    view of it), a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _sharded_norm(leaves, g_list: List[torch.Tensor], zero1
+                  ) -> torch.Tensor:
+    """The global gradient norm from this rank's shards: the shards'
+    squared norms summed over the dp group, plus each replicated-fallback
+    leaf's once (every rank holds the same whole gradient of it)."""
+    import torch.distributed as dist
+
+    sharded, whole = [], []
+    for (path, _), g in zip(leaves, g_list):
+        norm = torch.linalg.vector_norm(g.float())
+        (whole if zero1.dim(path) is None else sharded).append(norm)
+    zero = torch.zeros((), dtype=torch.float32, device=g_list[0].device)
+    sq = torch.stack(sharded).square().sum() if sharded else zero.clone()
+    dist.all_reduce(sq, group=zero1.group)
+    if whole:
+        sq = sq + torch.stack(whole).square().sum()
+    return sq.sqrt()
 
 
 def make_optimizer(tc) -> AdamW:

@@ -74,8 +74,27 @@ on the same stream, with a cost of 6·params·tokens flops (token-id
 batches; the definition of MFU in PERF.md), which feeds the timer's live
 MFU gauge. The step's own events and the digest are unchanged.
 
-Meshes beyond dp (fsdp, tp, zero-1), hierarchical collectives, warm
-compile, remesh and the lint hooks are not ported yet.
+ZeRO-1 (train/zero1.py): with ``TrainConfig.zero1`` or
+``DLROVER_TPU_ZERO1`` at dp above 1 on a pure-dp mesh (the ``mesh`` given,
+else ``bootstrap.worker_mesh`` on the params' device type), adam's moments
+hold only this rank's dp shard, each accumulated gradient leaf is
+reduce-scattered over the mesh's dp group into that shard (a leaf with no
+divisible dim is all-reduced whole), the optimizer updates this rank's
+shard of every param, and the params are all-gathered in place. The
+loss's valid-target count and the reported loss are all-reduced as in the
+replicated step. ``zero1_mode`` says which update runs (``"off"`` at dp
+1); a zero-1 request on a mesh with another axis above 1 raises
+(``zero1.mode_for``).
+
+On the card the step leaves CUDA events around its collectives and its
+update, read by callers that time them: ``reduce_events`` around the
+gradients' all-reduces or reduce-scatters, ``update_events`` around the
+optimizer update, ``gather_events`` around zero-1's param all-gathers
+(None where the step has no such part).
+
+Meshes beyond dp (fsdp, tp, the JAX ``"gspmd"`` zero-1 mode),
+hierarchical collectives, warm compile, remesh and the lint hooks are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -92,7 +111,7 @@ from dlrover_tpu_torch.common.tree import Tree, flatten
 from dlrover_tpu_torch.common.world import WorldDescriptor
 from dlrover_tpu_torch.observability.digest import StepTimeDigest
 from dlrover_tpu_torch.profiler import tpu_timer
-from dlrover_tpu_torch.train import bootstrap
+from dlrover_tpu_torch.train import bootstrap, zero1
 from dlrover_tpu_torch.train.optim import make_optimizer
 
 #: a tensor, or a tuple or list of batches
@@ -100,6 +119,21 @@ Batch = Any
 LossFn = Callable[[Tree, Batch], torch.Tensor]
 #: (sum of the per-target losses, count of valid targets) of a microbatch
 LossSumsFn = Callable[[Tree, Batch], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _record(cuda: bool, events=None):
+    """On the card, record a new (start, end) pair's start on the current
+    stream and return the pair, or record ``events``' end; None on the
+    CPU."""
+    if not cuda:
+        return None
+    if events is None:
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record()
+    else:
+        events[1].record()
+    return events
 
 
 def batch_leaves(batch: Batch) -> List[torch.Tensor]:
@@ -134,6 +168,9 @@ class TrainConfig:
     grad_clip: float = 1.0
     b1: float = 0.9
     b2: float = 0.95
+    # ZeRO-1 weight-update sharding across dp (train/zero1.py); the
+    # DLROVER_TPU_ZERO1 flag overrides it in both directions. No-op at dp 1.
+    zero1: bool = False
 
 
 class ElasticTrainer:
@@ -141,7 +178,7 @@ class ElasticTrainer:
 
     def __init__(self, loss_fn: LossFn, train_config: TrainConfig,
                  loss_sums_fn: Optional[LossSumsFn] = None,
-                 worker_ctx=None):
+                 worker_ctx=None, mesh=None):
         self.loss_fn = loss_fn
         self.loss_sums_fn = loss_sums_fn
         self.tc = train_config
@@ -155,9 +192,16 @@ class ElasticTrainer:
         #: (set_speculation_hint); None without a hint
         self.speculation_hint: Optional[WorldDescriptor] = None
         self.optimizer = make_optimizer(train_config)
-        #: the last step's CUDA events around the gradients' all-reduce
-        #: (dp above 1 on the card), for its device time; None otherwise
+        #: the last step's CUDA events (module docstring); None otherwise
         self.reduce_events: Optional[Tuple[Any, Any]] = None
+        self.update_events: Optional[Tuple[Any, Any]] = None
+        self.gather_events: Optional[Tuple[Any, Any]] = None
+        #: the DeviceMesh the step runs on (None: a world of one, or the
+        #: replicated dp step over the default process group)
+        self.mesh = mesh
+        #: "off" or "scatter" (train/zero1.py), set by ``init_state``
+        self.zero1_mode = "off"
+        self._zero1: Optional[zero1.Layout] = None
         #: each step's seconds but the first's (module docstring); read
         #: through ``step_digest``
         self._digest = StepTimeDigest()
@@ -246,11 +290,18 @@ class ElasticTrainer:
     def init_state(self, params: Tree) -> dict:
         """Train state around ``params``, whose leaves become the leaves
         that autograd differentiates (``requires_grad``)."""
-        for _, p in flatten(params):
+        named = flatten(params)
+        for _, p in named:
             p.requires_grad_(True)
+        if zero1.enabled(self.tc) and self.mesh is None and self.dp > 1:
+            # the worker's pure-dp mesh over the process group
+            self.mesh = bootstrap.worker_mesh(named[0][1].device.type)
+        self.zero1_mode = zero1.mode_for(self.mesh, self.tc)
+        self._zero1 = (zero1.Layout.build(self.mesh, named)
+                       if self.zero1_mode == "scatter" else None)
         return {
             "params": params,
-            "opt": self.optimizer.init(params),
+            "opt": self.optimizer.init(params, self._zero1),
             "step": 0,
             # runtime lr multiplier applied to the optimizer's updates
             "lr_scale": 1.0,
@@ -340,33 +391,49 @@ class ElasticTrainer:
                 for acc, t in zip(grads, g):
                     acc.add_(t)
             del g
+        cuda = grads[0].is_cuda
+        z1 = self._zero1
         if dp > 1:
             import torch.distributed as dist
 
             # one collective a leaf: a flat buffer would cost a copy of
             # the first microbatch's grads, which measured slower (PERF.md)
-            cuda = grads[0].is_cuda
-            if cuda:
-                self.reduce_events = (torch.cuda.Event(enable_timing=True),
-                                      torch.cuda.Event(enable_timing=True))
-                self.reduce_events[0].record()
-            for acc in grads:
-                dist.all_reduce(acc)
-            if cuda:
-                self.reduce_events[1].record()
+            self.reduce_events = _record(cuda)
+            for i, (path, _) in enumerate(leaves):
+                if z1 is None:
+                    dist.all_reduce(grads[i])
+                else:
+                    # the whole leaf is freed as its shard arrives
+                    grads[i] = z1.reduce_scatter(path, grads[i])
+            _record(cuda, self.reduce_events)
             dist.all_reduce(loss_sum)
         if accum > 1:
             scale = 1.0 / accum
             for acc in grads:
                 acc.mul_(scale)
+        self.update_events = _record(cuda)
         self.optimizer.step(
             state["params"], {path: g for (path, _), g in zip(leaves, grads)},
-            state["opt"], lr_scale=state["lr_scale"],
+            state["opt"], lr_scale=state["lr_scale"], zero1=z1,
         )
+        _record(cuda, self.update_events)
+        if z1 is not None:
+            del grads
+            self.gather_events = _record(cuda)
+            for path, p in leaves:
+                z1.all_gather_(path, p)
+            _record(cuda, self.gather_events)
         state["step"] += 1
         loss = loss_sum * (1.0 / accum)
         self._end_step(t0, device_start, stream, timer_token)
         return state, loss
+
+    def world_descriptor(self) -> WorldDescriptor:
+        """The world this trainer runs: pure dp over the process group,
+        ``+zero1`` when the zero-1 update runs (``zero1_mode``), so a
+        seated spec says what runs."""
+        return WorldDescriptor.from_axis_sizes(
+            {"dp": self.dp}, zero1=self.zero1_mode != "off")
 
     # -- runtime config and the planner's hint ------------------------------
 
@@ -385,7 +452,8 @@ class ElasticTrainer:
         if self.tc.global_batch_size % (self.tc.micro_batch_size * world):
             return None
         return WorldDescriptor.from_axis_sizes(
-            {"dp": world}, n_slices=slices, hier=slices > 1)
+            {"dp": world}, n_slices=slices, hier=slices > 1,
+            zero1=world > 1 and zero1.enabled(self.tc))
 
     def set_speculation_hint(self, hint, n_slices: Optional[int] = None):
         """Record the exact world the master's goodput planner intends to

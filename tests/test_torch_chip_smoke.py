@@ -1429,3 +1429,288 @@ def test_nccl_programs_check_needs_the_timer_and_both_windows():
     life["reduce_windows"].pop()
     with pytest.raises(chip_smoke.SmokeFailure, match=r"in steps \[3\]"):
         chip_smoke.check_nccl_programs([life])
+
+
+# -- the four-card zero-1 leg -------------------------------------------------------
+
+Z1_PARAMS = 1000
+# a params tree of the main path's kinds of leaf: sharded along dim 0,
+# along dim 1 (the stacked layers, whose leading 2 does not divide by 4),
+# and a fallback; eight leaves of ZERO1_SAMPLE_PER_LEAF elements, so that
+# a rank's sample of its whole params reaches ZERO1_SAMPLE_MIN
+Z1_SHAPES = {"embed": (512, 256), "lm_head": (256, 512), "final_norm": (6,),
+             **{f"layers/{w}": (2, 256, 256)
+                for w in ("wq", "wk", "wv", "wo", "w_up", "w_down")}}
+
+
+def _z1_tree(flat):
+    """``{"a/b": tensor}`` as the nested params tree."""
+    tree = {}
+    for path, t in flat.items():
+        *outer, leaf = path.split("/")
+        node = tree
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return tree
+
+
+def _z1_quarter(t, q, world=4):
+    """The mask of quarter ``q`` of a leaf's zero-1 dim at dp ``world``
+    (None for a leaf that does not shard)."""
+    import torch
+
+    from dlrover_tpu_torch.train import zero1
+
+    dim = zero1.scatter_dim((), tuple(t.shape), {"dp": world})
+    if dim is None:
+        return None
+    k = t.shape[dim] // world
+    mask = torch.zeros(t.shape, dtype=torch.bool)
+    mask.narrow(dim, q * k, k).fill_(True)
+    return mask
+
+
+def _z1_param_results(fault):
+    """Each dp4 rank's ``param_crc`` of both runs and the zero-1 run's
+    ``delta`` (init to step 1) and ``delta_last`` (init to the last step),
+    from the leg's own functions over tiny CPU params. The replicated run
+    steps each element by 3e-4 up or down, then by 1e-4 (adam's steps,
+    early on). A right zero-1 run takes the same steps to 1e-6, but at
+    step 1 two elements of each sharded leaf step the other way (a summed
+    gradient within rounding of zero) and later 3 % of them (a gradient
+    near zero after the bf16 forward). ``fault``: the zero-1 run never
+    updates (``skipped_update``); skips every all-gather, so that each
+    rank holds only its own quarter updated (``stale_gather``, and
+    ``stale_gather_same_crc`` with every rank's CRC32 made rank 0's), or
+    every one after step 1 (``stale_last``, CRC32s made equal); writes
+    each quarter's update into the next quarter (``misplaced``); starts
+    from another init (``init``); or the replicated run never moves
+    (``replicated_static``)."""
+    import torch
+
+    from dlrover_tpu_torch.train import zero1
+
+    g = torch.Generator().manual_seed(0)
+    p0 = {n: torch.randn(s, generator=g) * 0.02 for n, s in Z1_SHAPES.items()}
+    up1, up2 = ({n: torch.randn(s, generator=g).sign() * size
+                 for n, s in Z1_SHAPES.items()} for size in (3e-4, 1e-4))
+    static = fault == "replicated_static"
+    rep1 = {n: p0[n] - (0 if static else up1[n]) for n in p0}
+    rep2 = {n: rep1[n] - (0 if static else up2[n]) for n in p0}
+    z_up1, z_up2 = {}, {}
+    for n in p0:
+        dim = zero1.scatter_dim((), tuple(p0[n].shape), {"dp": 4})
+        u1, u2 = up1[n] * (1 + 1e-6), up2[n] * (1 + 1e-6)
+        if dim is not None:
+            flat = u1.view(-1)
+            flat[0], flat[-1] = -flat[0], -flat[-1]
+            flip = torch.rand(u2.shape, generator=g) < 0.03
+            u2 = torch.where(flip, -u2, u2)
+            if fault == "misplaced":
+                k = u1.shape[dim] // 4
+                u1, u2 = (torch.roll(u, k, dims=dim) for u in (u1, u2))
+        z_up1[n], z_up2[n] = u1, u2
+    z0 = {n: t.clone() for n, t in p0.items()}
+    if fault == "init":
+        z0["embed"].view(-1)[0] += 1e-3
+
+    def step(before, up, r, stale):
+        """A zero-1 step on rank ``r``: ``before`` minus ``up``, only in
+        the rank's own quarter when its gather is ``stale``."""
+        out = {}
+        for n, t in before.items():
+            new = t if fault in ("skipped_update", "replicated_static") \
+                else t - up[n]
+            mask = _z1_quarter(new, r)
+            if stale and mask is not None:
+                new = torch.where(mask, new, t)
+            out[n] = new
+        return out
+
+    sample = chip_smoke.param_sample
+    ref = [sample(torch, _z1_tree(t), 4) for t in (p0, rep1, rep2)]
+    z_init = sample(torch, _z1_tree(z0), 4)
+    rep_crc = chip_smoke.param_crcs(torch, _z1_tree(rep2))
+    out = []
+    for r in range(4):
+        stale = fault.startswith("stale_gather")
+        z1 = step(z0, z_up1, r, stale)
+        z2 = step(z1, z_up2, r, stale or fault == "stale_last")
+        out.append({"rep_crc": rep_crc,
+                    "z1_crc": chip_smoke.param_crcs(torch, _z1_tree(z2)),
+                    "delta": chip_smoke.compare_delta(
+                        ref[0], ref[1], z_init,
+                        sample(torch, _z1_tree(z1), 4)),
+                    "delta_last": chip_smoke.compare_delta(
+                        ref[0], ref[2], z_init,
+                        sample(torch, _z1_tree(z2), 4))})
+    if fault in ("stale_gather_same_crc", "stale_last"):
+        for r in out:
+            r["z1_crc"] = dict(out[0]["z1_crc"])
+    return out
+
+
+def _zero1_case(fault="none"):
+    """Results of the zero-1 leg's four dp4 ranks and two restored ranks,
+    made up apart from the params' CRC32 and change from init
+    (``_z1_param_results``), that pass every check unless ``fault`` is one
+    of ``_z1_param_results``'s."""
+    params = _z1_param_results(fault)
+    counts = {"flash_fwd": 16, "fused_ce_fwd": 2}
+    leaves = ("params/embed", "mu/embed", "nu/embed")
+
+    def crcs(q):
+        return {name: 100 * q + i for i, name in enumerate(leaves)}
+
+    def steps(losses, z1):
+        return [{"step": i + 1, "loss": x, "seconds": 0.27 - 0.07 * z1,
+                 "reduce_ms": 35.0 - 15 * z1, "update_ms": 110.0 - 82 * z1,
+                 "gather_ms": 17.0 if z1 else None}
+                for i, x in enumerate(losses)]
+
+    rep = (12.5, 12.25, 12.0, 11.5)
+    z1 = tuple(x * (1 + 2e-6) for x in rep)
+    dp4 = [{"rank": r, "world": 4,
+            "replicated": {"mode": "off", "moment_bytes": 8 * Z1_PARAMS,
+                           "max_memory_bytes": 40e9, "counts": dict(counts),
+                           "steps": steps(rep, False),
+                           "param_crc": params[r]["rep_crc"]},
+            "zero1": {"mode": "scatter", "moment_bytes": 2 * Z1_PARAMS,
+                      "max_memory_bytes": 28.5e9, "counts": dict(counts),
+                      "steps": steps(z1, True),
+                      "param_crc": params[r]["z1_crc"],
+                      "delta": params[r]["delta"],
+                      "delta_last": params[r]["delta_last"],
+                      "sample": {"elements": 1_441_792, "leaves": 24,
+                                 "worst": 0.004},
+                      "stage": {"staged_bytes": 5},
+                      "crc": {str(r): crcs(r)}}}
+           for r in range(4)]
+    dp2 = [{"rank": r, "world": 2,
+            "restore": {"step": 4, "tier": "disk", "tiers_read": ["shm",
+                                                                  "disk"],
+                        "seconds": 25.0, "bytes": 15},
+            "crc": {str(q): crcs(q) for q in (2 * r, 2 * r + 1)},
+            "step": {"loss": 11.25, "seconds": 0.3},
+            "counts": dict(counts)} for r in range(2)]
+    return dp4, dp2
+
+
+def test_zero1_checks_pass_and_the_planner_predicts():
+    dp4, dp2 = _zero1_case()
+    d, last = dp4[0]["zero1"]["delta"], dp4[0]["zero1"]["delta_last"]
+    # every quarter and the fallback sampled; the two elements of each
+    # sharded leaf that stepped the other way at step 1, and the 3 % later,
+    # are counted and tolerated
+    assert sorted(d["quarters"]) == ["0", "1", "2", "3", "all"]
+    assert d["elements"] >= chip_smoke.ZERO1_SAMPLE_MIN
+    assert sum(e["misses"] for e in d["quarters"].values()) == 16
+    assert d["moved"] == d["elements"] and d["init_differs"] == 0
+    for e in last["quarters"].values():
+        assert 0.02 * e["elements"] < e["misses"] < 0.04 * e["elements"] \
+            or e["misses"] == 0
+    chip_smoke.check_zero1(dp4, dp2, Z1_PARAMS)
+    predicted, rep, z1 = chip_smoke.planner_zero1_step(dp4)
+    # the layout model keeps compute and grows comm by 1.5 (all-reduce
+    # 2(d-1)/d, plus the zero-1 gather (d-1)/d)
+    assert rep == pytest.approx(0.27) and z1 == pytest.approx(0.20)
+    assert predicted == pytest.approx(0.27 + 0.035 * 0.5)
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("loss", "zero-1 loss"),
+    ("rank_loss", "replicated losses differ"),
+    ("mode", "modes"),
+    ("moments_whole", "not 1/4"),
+    ("moments_replicated", "not 8 a param"),
+    ("peak", "only .* bytes under"),
+    ("sample", "moments sample"),
+    ("sample_small", "moments sample"),
+    ("no_launch", "never launched on rank 1 in the zero1"),
+    ("restored_step", "restored rank 1: step"),
+    ("restore_crc", "restored rank 0's quarter 1"),
+    ("quarter_missing", "CRC'd quarters"),
+    ("restored_loss", "restored ranks' losses differ"),
+    ("restored_nan", "loss nan"),
+    ("restored_no_launch", "never launched on restored rank 0"),
+])
+def test_zero1_checks_fail_on_each_fault(fault, match):
+    dp4, dp2 = _zero1_case()
+    if fault == "loss":
+        for r in dp4:
+            r["zero1"]["steps"][2]["loss"] *= 1 + 2e-3
+    elif fault == "rank_loss":
+        dp4[3]["replicated"]["steps"][0]["loss"] += 1e-6
+    elif fault == "mode":
+        dp4[2]["zero1"]["mode"] = "off"
+    elif fault == "moments_whole":
+        dp4[0]["zero1"]["moment_bytes"] = 8 * Z1_PARAMS
+    elif fault == "moments_replicated":
+        dp4[1]["replicated"]["moment_bytes"] = 4 * Z1_PARAMS
+    elif fault == "peak":
+        dp4[2]["zero1"]["max_memory_bytes"] = 31e9
+    elif fault == "sample":
+        dp4[3]["zero1"]["sample"]["worst"] = 1.5
+    elif fault == "sample_small":
+        dp4[0]["zero1"]["sample"]["elements"] = 999_999
+    elif fault == "no_launch":
+        dp4[1]["zero1"]["counts"]["flash_fwd"] = 0
+    elif fault == "restored_step":
+        dp2[1]["restore"]["step"] = 2
+    elif fault == "restore_crc":
+        dp2[0]["crc"]["1"]["mu/embed"] += 1
+    elif fault == "quarter_missing":
+        del dp2[1]["crc"]["3"]
+    elif fault == "restored_loss":
+        dp2[1]["step"]["loss"] += 1e-6
+    elif fault == "restored_nan":
+        dp2[0]["step"]["loss"] = float("nan")
+    elif fault == "restored_no_launch":
+        dp2[0]["counts"]["fused_ce_fwd"] = 0
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_zero1(dp4, dp2, Z1_PARAMS)
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("skipped_update", "rank 0, step 1, quarter 0: the zero-1 change"),
+    ("stale_gather", "rank 1's zero1 params against rank 0's"),
+    ("stale_gather_same_crc", "rank 0, step 1, quarter 1: the zero-1"),
+    ("stale_last", "rank 0, step 4, quarter 1: the zero-1 change"),
+    ("misplaced", "rank 0, step 1, quarter 0: the zero-1 change"),
+    ("init", "rank 0, step 1: 1 sampled params differ at init"),
+    ("replicated_static", "rank 0, step 1: the replicated run moved 0 of"),
+])
+def test_zero1_checks_fail_on_a_wrong_update_or_gather(fault, match):
+    """The params' faults that the losses and the step-1 moments cannot
+    show: a zero-1 step that never updates the params, one whose
+    all-gather never ran (from the first step, or after it), one that
+    updates the wrong quarter, and a replicated run against which nothing
+    could be told apart."""
+    dp4, dp2 = _zero1_case(fault)
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_zero1(dp4, dp2, Z1_PARAMS)
+
+
+def test_moment_sample_comparison_finds_a_misplaced_shard():
+    """The step-1 sample: equal values pass; values within rtol plus
+    atol (a fraction of the leaf's largest magnitude) pass; another
+    region's values, or a shape or leaf missing, fail."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    mine, other = (rng.normal(size=1000).astype(np.float32) * 1e-3
+                   for _ in range(2))
+    ref = {"mu/embed": (mine, 5e-3), "nu/embed": (mine ** 2, 2.5e-5)}
+    same = {k: (v.copy(), None) for k, (v, _) in ref.items()}
+    got = chip_smoke.compare_sample(ref, same)
+    assert got == {"elements": 2000, "leaves": 2, "worst": 0.0}
+    near = {k: (v * (1 + 5e-4), None) for k, (v, _) in ref.items()}
+    assert 0 < chip_smoke.compare_sample(ref, near)["worst"] <= 1
+    moved = dict(same, **{"mu/embed": (other, None)})
+    assert chip_smoke.compare_sample(ref, moved)["worst"] > 1
+    with pytest.raises(chip_smoke.SmokeFailure, match="sample of"):
+        chip_smoke.compare_sample(ref, dict(same, **{
+            "nu/embed": (mine[:10], None)}))
+    with pytest.raises(chip_smoke.SmokeFailure, match="sampled leaves"):
+        chip_smoke.compare_sample(ref, {"mu/embed": same["mu/embed"]})
