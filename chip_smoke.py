@@ -107,7 +107,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    life's step reports carry the trainer's step-time digest: its median
    sample must lie within ``DIGEST_WALL_TOL`` (15 %) of the median step
    wall the script times for the same steps
-   (``check_digest_against_wall``). No periodic persist
+   (``check_digest_against_wall``). Before each of its steps the second
+   life waits for the previous save's background staging: its
+   device-to-host copy would otherwise share the step (the step's loss
+   reaching the host queues behind it), and the wall and the digest
+   would time the copy, not the step. No periodic persist
    runs in this leg: the disk holds one persisted step of the state on
    two tiers, and the breakpoint's is it. The time to recover is printed
    by phase: the kill to the agent's detection, the breakpoint persist,
@@ -368,16 +372,48 @@ moments' bytes, ``max_memory_allocated``, the step wall and the device ms
 of the gradient collectives, ``optimizer_update`` and the param
 all-gathers, in both modes; the restore's tier and seconds; and the
 goodput planner's same-world prediction for ``dp4+zero1`` beside the
-measured zero-1 step (``planner_zero1_step``). The last line is the
-contract's, with the cards' count.
+measured zero-1 step (``planner_zero1_step``).
+
+Then the fsdp leg (``FSDP_*``, ``_fsdp_leg``): the full 32-layer
+Llama-3-8B (seq 2048, micro-batch 1, the four-card global batch, seed 0,
+synthetic tokens, no lr warmup) through ``run/llama_pretrain.py --fsdp``,
+ranks of ``chip_smoke.py --fsdp-child ROLE DIR`` bootstrapped as in the
+zero-1 leg, under a saver the script hosts, with
+``DLROVER_TPU_CKPT_DEDUP=0`` (each rank stages all it holds) and nothing
+persisted. ``life1``: fsdp4 steps 1-3, a memory save after step 2 and the
+CRC32 of what each rank staged; rank 3 SIGKILLs itself once step 3's
+loss is printed, and the script ends the others, which wait in step 4's
+first gather. ``life2``: four new ranks restore step 2, each from its own
+segment, CRC32 what they restored and train steps 3-4 on the same
+batches. ``zero1``: dp2 x fsdp2 under ``--zero1`` (``"gspmd"``), steps
+1-2 from the same init. Each run samples its params at init and after
+step 1 at ``ZERO1_SAMPLE_PER_LEAF`` flat indices a leaf, each rank the
+indices in the region it holds (``fsdp_sample``), merged whole by the
+script (``merge_samples``). ``check_fsdp``: every run's losses equal
+across its ranks and every kernel launched on every rank; every
+``max_memory_allocated`` under ``FSDP_MEMORY_MAX`` and not under the
+init's peak; fsdp4 ranks hold a quarter of every matrix, of its moments
+and of its gradients; the restore by tier shm alone, every restored
+leaf's CRC32 equal to the staged one, the resumed step-3 loss within
+``FSDP_LOSS_TOL`` of life 1's; the zero-1 ranks in mode ``gspmd``, a
+quarter of every matrix's moments (the norms' half), ``lm_head``'s
+moments on the nested ``("fsdp", "dp")`` tiling in block ``fsdp * 2 +
+dp``, the step-1 loss within ``FSDP_LOSS_TOL`` of fsdp4's and the step-1
+change of the sampled params against fsdp4's as the zero-1 leg holds its
+step 1 (``compare_delta``). Prints each rank's param, gradient and moment
+bytes and peaks, each step's wall, tokens/s a card and MFU, the save's
+pause, each restore's tier and seconds, each rank's kernel launches and
+the leg's seconds, beside the card's name and power limit. The last line
+is the contract's, with the cards' count.
 
 Exits with code 2 and prints no result when CUDA is not available.
 ``--ckpt-child ROLE DIR`` runs one of phase 4c's children or the
 four-card leg's workers (``four``, ``scale``), ``--data-child ROLE FILE``
 phase 4d's worker (``shards``) or one of phase 4e's (``relaunch``,
 ``hang``), ``--master-child SPEC`` the scale-out leg's master, and
-``--zero1-child ROLE DIR`` a rank of the zero-1 leg (``dp4``, ``dp2``);
-none is run by hand.
+``--zero1-child ROLE DIR`` a rank of the zero-1 leg (``dp4``, ``dp2``),
+``--fsdp-child ROLE DIR`` one of the fsdp leg's (``life1``, ``life2``,
+``zero1``); none is run by hand.
 """
 
 import contextlib
@@ -705,6 +741,29 @@ ZERO1_SAMPLE_PER_LEAF = 1 << 17
 ZERO1_SAMPLE_MIN = 10 ** 6
 ZERO1_PEAK_SAVING_MIN = 10e9
 ZERO1_TIMEOUT_S = 900
+# the four-card fsdp leg (``_fsdp_leg``): the full 32-layer Llama-3-8B at
+# fsdp4, a memory save after step FSDP_SAVE_STEP, rank FSDP_KILL_RANK
+# SIGKILLed once step FSDP_KILL_AFTER's loss is logged, four new ranks
+# restoring from their own shm segments (DLROVER_TPU_CKPT_DEDUP=0: each
+# stages all it holds, so nothing is read from disk and nothing persisted)
+# and training to FSDP_STEPS; then dp2 x fsdp2 under zero-1 ("gspmd")
+# from the same init for FSDP_ZERO1_STEPS steps. Losses within
+# FSDP_LOSS_TOL (absolute); every rank's max_memory_allocated under
+# FSDP_MEMORY_MAX; the step-1 change of the sampled params held to the
+# fsdp4 run's as the zero-1 leg holds it (compare_delta, the ZERO1_DELTA_*
+# bounds of its step 1)
+FSDP_WORLD = 4
+FSDP_STEPS = 4
+FSDP_SAVE_STEP = 2
+FSDP_KILL_RANK = 3
+FSDP_KILL_AFTER = 3
+FSDP_ZERO1_DP = 2
+FSDP_ZERO1_STEPS = 2
+FSDP_LOSS_TOL = 1e-4
+FSDP_MEMORY_MAX = 80e9
+FSDP_TIMEOUT_S = 600
+# bf16 dense peak of an H100 SXM, for MFU (PERF.md section 2)
+PEAK_FLOPS = 989e12
 # manifests, commit votes and the tracker beside a persisted step's leaves
 CKPT_DISK_SLACK = 64 << 20
 # a PCIe link's transfer rate a lane (GT/s) by generation; gens 1-2 encode
@@ -1805,8 +1864,8 @@ def _elastic_life(torch, ckpt_dir):
     after each, then steps 3-4 unsaved (the uninterrupted continuation of
     the staged state), prints the CRC32 of every leaf it staged and
     SIGKILLs itself. Second life: restores (it must find step 2 in shm), prints the
-    restored leaves' CRC32, trains steps 3-4 with a memory save after each,
-    and exits 0. Each life prints its kernels' launch counts and the times
+    restored leaves' CRC32, trains steps 3-4 with a memory save after each
+    (each step timed once the save before it has staged), and exits 0. Each life prints its kernels' launch counts and the times
     the recovery is cut by."""
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.ops import attention
@@ -1859,6 +1918,9 @@ def _elastic_life(torch, ckpt_dir):
     crc_s = time.time() - t_restored
     losses, step_s, step_end_t = [], [], []
     for step in range(start, args.steps):
+        # the step's wall and digest sample time the step, not the last
+        # save's device-to-host copy (module docstring, phase 4c)
+        ckpt.wait_staging()
         state, loss, seconds = llama_pretrain.timed_step(
             trainer, state, next_batch())
         step_end_t.append(time.time())
@@ -5156,16 +5218,19 @@ def zero1_child(role, workdir):
         result["counts"] = _launch_counts(attention, fce)
         ckpt.close()
     dist.barrier()
-    print("ZERO1_CHILD_JSON " + json.dumps(result), flush=True)
+    print("CHILD_JSON " + json.dumps(result), flush=True)
     return 0
 
 
-def _zero1_ranks(role, world, workdir, job):
-    """Start ``world`` ranks of ``chip_smoke.py --zero1-child role
-    workdir`` on cards 0..world-1, the process group's address in their
-    environment, echo their output and return their results in rank
-    order; every rank is killed past ZERO1_TIMEOUT_S, and a rank that fails
-    fails the leg."""
+def _run_ranks(flag, label, role, world, workdir, job, timeout,
+               extra_env=None, killed=None):
+    """Start ``world`` ranks of ``chip_smoke.py FLAG role workdir`` on
+    cards 0..world-1, the process group's address in their environment
+    (and ``extra_env``), echo their output and return the result each
+    prints on its ``CHILD_JSON`` line, in rank order; every rank is killed
+    past ``timeout``. A rank that fails before its result fails the leg.
+    With ``killed``, that rank must SIGKILL itself after its result; once
+    it has and every result is in, the others are ended."""
     from dlrover_tpu_torch.common.constants import NodeEnv
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -5178,12 +5243,13 @@ def _zero1_ranks(role, world, workdir, job):
                 "DLROVER_TPU_ACCELERATOR": "cuda",
                 # the group's collective timeout: a rank's persist and CRCs
                 # may run ahead of another's barrier
-                "DLROVER_TPU_DIST_INIT_TIMEOUT": str(ZERO1_TIMEOUT_S),
+                "DLROVER_TPU_DIST_INIT_TIMEOUT": str(timeout),
                 "PYTHONPATH": repo + os.pathsep
                 + os.environ.get("PYTHONPATH", "")})
+    env.update(extra_env or {})
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--zero1-child", role,
-         workdir], cwd=repo, text=True, stdout=subprocess.PIPE,
+        [sys.executable, os.path.abspath(__file__), flag, role, workdir],
+        cwd=repo, text=True, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT,
         env=dict(env, **{NodeEnv.PROCESS_ID: str(r),
                          "DLROVER_TPU_LOCAL_RANK": str(r)}))
@@ -5192,23 +5258,29 @@ def _zero1_ranks(role, world, workdir, job):
 
     def read(r):
         for line in iter(procs[r].stdout.readline, ""):
-            if line.startswith("ZERO1_CHILD_JSON "):
+            if line.startswith("CHILD_JSON "):
                 results[r] = json.loads(line.split(" ", 1)[1])
                 continue
-            print(f"  [zero1 {role} rank {r}] {line.rstrip()}", flush=True)
+            print(f"  [{label} {role} rank {r}] {line.rstrip()}", flush=True)
 
     readers = [threading.Thread(target=read, args=(r,), daemon=True)
                for r in range(world)]
     for t in readers:
         t.start()
-    deadline = time.time() + ZERO1_TIMEOUT_S
+    deadline = time.time() + timeout
     try:
-        while any(p.poll() is None for p in procs):
-            failed = [r for r, p in enumerate(procs)
-                      if p.poll() not in (None, 0)]
+        while True:
+            codes = [p.poll() for p in procs]
+            if killed is None and None not in codes:
+                break
+            if (killed is not None and codes[killed] is not None
+                    and None not in results):
+                break
+            failed = [r for r, c in enumerate(codes) if c not in (None, 0)
+                      and (killed is None or results[r] is None)]
             check(not failed and time.time() < deadline,
-                  f"zero-1 {role}: ranks {failed} failed" if failed else
-                  f"zero-1 {role}: not done after {ZERO1_TIMEOUT_S} s")
+                  f"{label} {role}: ranks {failed} failed" if failed else
+                  f"{label} {role}: not done after {timeout} s")
             time.sleep(0.5)
     finally:
         for p in procs:
@@ -5218,10 +5290,21 @@ def _zero1_ranks(role, world, workdir, job):
         for t in readers:
             t.join(timeout=30)
     codes = [p.returncode for p in procs]
-    check(codes == [0] * world, f"zero-1 {role}: exit codes {codes}")
+    if killed is None:
+        check(codes == [0] * world, f"{label} {role}: exit codes {codes}")
+    else:
+        check(codes[killed] == -signal.SIGKILL,
+              f"{label} {role}: rank {killed} exited {codes[killed]}, not "
+              "by its SIGKILL")
     check(all(r is not None for r in results),
-          f"zero-1 {role}: a rank printed no result")
+          f"{label} {role}: a rank printed no result")
     return results
+
+
+def _zero1_ranks(role, world, workdir, job):
+    """``_run_ranks`` of the zero-1 leg's children."""
+    return _run_ranks("--zero1-child", "zero1", role, world, workdir, job,
+                      ZERO1_TIMEOUT_S)
 
 
 def check_zero1(dp4, dp2, n_params):
@@ -5410,6 +5493,465 @@ def _zero1_leg(torch):
             default_socket_path(job, 0))), ignore_errors=True)
 
 
+# -- the four-card fsdp leg -------------------------------------------------------
+
+
+def _fsdp_args(workdir, role):
+    """``run/llama_pretrain.py``'s options for the fsdp leg: the whole
+    32-layer Llama-3-8B, seq 2048, micro-batch 1, the four-card global
+    batch, no lr warmup, synthetic tokens from the seed (a resumed life
+    skips the batches of the restored steps, so it trains the same ones);
+    fsdp4 with a checkpoint directory that is never persisted (``life1``,
+    ``life2``), or dp2 x fsdp2 under ``--zero1`` (``zero1``)."""
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    argv = ["--model", "8b", "--layers", "0", "--seq", str(DATA_SEQ),
+            "--micro-batch", "1", "--global-batch",
+            str(FOUR_CARD_GLOBAL_BATCH), "--steps", str(FSDP_STEPS),
+            "--warmup-steps", "0", "--device", "cuda", "--seed", "0"]
+    if role == "zero1":
+        argv += ["--fsdp", str(FSDP_WORLD // FSDP_ZERO1_DP), "--zero1"]
+    else:
+        argv += ["--fsdp", str(FSDP_WORLD), "--ckpt-dir",
+                 os.path.join(workdir, "ck"), "--save-every", "0"]
+    return llama_pretrain.parse_args(argv)
+
+
+def _held(t):
+    """What this rank holds of a leaf: a DTensor's local shard, detached."""
+    return t.to_local().detach() if hasattr(t, "to_local") else t
+
+
+def leaf_bytes(tree):
+    """``{path: [global elements, elements this rank holds, element
+    size]}`` of a tree of tensors and DTensors."""
+    from dlrover_tpu_torch.common.tree import flatten
+
+    return {path: [int(t.numel()), int(_held(t).numel()),
+                   int(t.element_size())] for path, t in flatten(tree)}
+
+
+def local_state_crcs(torch, state):
+    """The CRC32 of what this rank holds of every leaf of a train state
+    (a DTensor's local shard, a Python scalar as a numpy scalar), under
+    its JAX name."""
+    import numpy as np
+
+    from dlrover_tpu_torch.checkpoint.shm_handler import flatten_state
+
+    with torch.no_grad():
+        named = {leaf.name: (_held(leaf.value)
+                             if isinstance(leaf.value, torch.Tensor)
+                             else np.array(leaf.value))
+                 for leaf in flatten_state(state)}
+    return tensor_crcs(torch, named)
+
+
+def fsdp_sample(torch, params):
+    """This rank's values of every param leaf at ZERO1_SAMPLE_PER_LEAF
+    evenly spaced flat indices of the whole leaf, where they fall in the
+    region it holds: ``{name: (sample positions, float64 values,
+    samples in all)}``."""
+    import numpy as np
+
+    from dlrover_tpu_torch.common.tree import flatten
+    from dlrover_tpu_torch.parallel.sharding import local_region, spec_of
+
+    out = {}
+    for path, p in flatten(params):
+        shape = tuple(int(d) for d in p.shape)
+        numel = math.prod(shape)
+        n = min(numel, ZERO1_SAMPLE_PER_LEAF)
+        idx = np.arange(n, dtype=np.int64) * (numel - 1) // max(n - 1, 1)
+        region = (local_region(p.device_mesh, spec_of(p), shape)
+                  if hasattr(p, "to_local") else tuple((0, d) for d in shape))
+        coords = np.unravel_index(idx, shape)
+        inside = np.ones(n, dtype=bool)
+        for c, (lo, hi) in zip(coords, region):
+            inside &= (c >= lo) & (c < hi)
+        pos = np.nonzero(inside)[0]
+        held = _held(p)
+        at = tuple(torch.from_numpy(c[pos] - lo).to(held.device)
+                   for c, (lo, _) in zip(coords, region))
+        out[f"params/{path}"] = (pos, held[at].double().cpu().numpy(), n)
+    return out
+
+
+def _sample_path(workdir, role, rank, kind):
+    return os.path.join(workdir, f"sample-{role}-{kind}-{rank}.npz")
+
+
+def save_sample(workdir, role, rank, kind, sample):
+    import numpy as np
+
+    arrays = {}
+    for name, (pos, values, n) in sample.items():
+        arrays[f"{name}|pos"] = pos
+        arrays[f"{name}|values"] = values
+        arrays[f"{name}|n"] = np.array(n)
+    np.savez(_sample_path(workdir, role, rank, kind), **arrays)
+
+
+def load_sample(workdir, role, rank, kind):
+    import numpy as np
+
+    with np.load(_sample_path(workdir, role, rank, kind)) as f:
+        names = sorted({k.rsplit("|", 1)[0] for k in f.files})
+        return {name: (f[f"{name}|pos"], f[f"{name}|values"],
+                       int(f[f"{name}|n"])) for name in names}
+
+
+def merge_samples(parts):
+    """The ranks' ``fsdp_sample``s of one run as whole-leaf samples in
+    ``param_sample``'s form, ``{name: (values, holder)}``: the holder is
+    the one rank holding a position, -1 where every rank holds it.
+    Every position must be held, and ranks holding the same position must
+    agree bitwise (a stale replica differs)."""
+    import numpy as np
+
+    out = {}
+    for name in parts[0]:
+        n = parts[0][name][2]
+        values = np.zeros(n)
+        holder = np.full(n, -1)
+        held = np.zeros(n, dtype=np.int64)
+        for r, part in enumerate(parts):
+            pos, val, _ = part[name]
+            seen = held[pos] > 0
+            bad = int((values[pos][seen] != val[seen]).sum())
+            check(bad == 0, f"{name}: rank {r} disagrees with another "
+                  f"holder in {bad} sampled params")
+            values[pos] = val
+            holder[pos] = r
+            held[pos] += 1
+        check(bool((held > 0).all()), f"{name}: {int((held == 0).sum())} "
+              f"sampled params held by no rank")
+        holder[held == len(parts)] = -1
+        out[name] = (values, holder)
+    return out
+
+
+def fsdp_child(role, workdir):
+    """One rank of the fsdp leg (``_fsdp_leg``), its process group formed
+    by ``train/bootstrap.py`` from the environment the leg sets. ``life1``:
+    fsdp4 steps 1 to FSDP_KILL_AFTER with a memory save after
+    FSDP_SAVE_STEP, the staged state's CRC32s, then rank FSDP_KILL_RANK
+    SIGKILLs itself and the others wait in step 4's first gather. ``life2``:
+    fsdp4 restored from this rank's shm segment, its CRC32s, steps to
+    FSDP_STEPS. ``zero1``: dp2 x fsdp2 under zero-1, FSDP_ZERO1_STEPS
+    steps. The init and step-1 params are sampled to the work directory;
+    prints one JSON result."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.parallel.sharding import local_region, spec_of
+    from dlrover_tpu_torch.run import llama_pretrain
+    from dlrover_tpu_torch.train import bootstrap
+
+    t0 = time.perf_counter()
+    ctx = bootstrap.init()
+    rank, world = bootstrap.process_index(), bootstrap.process_count()
+    device = f"cuda:{ctx.local_rank}"
+    args = _fsdp_args(workdir, role)
+    cfg, trainer, state, next_batch, tokens = llama_pretrain.build(args,
+                                                                   device)
+    result = {"rank": rank, "world": world, "mode": trainer.zero1_mode,
+              "mesh": trainer.world_descriptor().spec,
+              "tokens_per_step": tokens,
+              "params": leaf_bytes(state["params"]),
+              "moments": leaf_bytes({"mu": state["opt"]["mu"],
+                                     "nu": state["opt"]["nu"]}),
+              "build_s": time.perf_counter() - t0}
+    ckpt, start = None, 0
+    if role != "zero1":
+        ckpt, start, result["restore"] = llama_pretrain.open_checkpoint(
+            args, state, next_batch)
+        if role == "life2":
+            result["crc"] = local_state_crcs(torch, state)
+    if role != "life2":
+        save_sample(workdir, role, rank, "init",
+                    fsdp_sample(torch, state["params"]))
+    last = {"life1": FSDP_KILL_AFTER, "life2": FSDP_STEPS,
+            "zero1": FSDP_ZERO1_STEPS}[role]
+    # the sharded init's (and a restore's) peak, apart from the steps'
+    result["init_peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    _reset_counts(attention, fce, [0])
+    torch.cuda.reset_peak_memory_stats(device)
+    result["steps"] = []
+    for step in range(start + 1, last + 1):
+        state, loss, seconds = llama_pretrain.timed_step(trainer, state,
+                                                         next_batch())
+        result["steps"].append({"step": step, "loss": loss,
+                                "seconds": seconds,
+                                "grad_bytes": trainer.grad_bytes})
+        print(f"rank {rank} {role} step {step} loss {loss:.6f} "
+              f"({seconds:.3f}s)", flush=True)
+        if step == 1:
+            save_sample(workdir, role, rank, "first",
+                        fsdp_sample(torch, state["params"]))
+        if role == "life1" and step == FSDP_SAVE_STEP:
+            pause = ckpt.save(step, state)
+            ckpt.wait_staging()
+            result["save"] = {"pause_s": pause,
+                              "mode": ckpt.last_stage_mode,
+                              "staged_bytes":
+                              ckpt.stage_log[-1]["staged_bytes"]}
+            result["crc"] = local_state_crcs(torch, state)
+    result["counts"] = _launch_counts(attention, fce)
+    result["max_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    if role == "zero1":
+        mu = state["opt"]["mu"]["lm_head"]
+        mesh = trainer.mesh
+        result["lm_head_mu"] = {
+            "spec": spec_of(mu),
+            "region": local_region(mesh, spec_of(mu), tuple(mu.shape)),
+            "dp": mesh.get_local_rank("dp"),
+            "fsdp": mesh.get_local_rank("fsdp"), "rows": int(mu.shape[0])}
+    result["seconds"] = time.perf_counter() - t0
+    print("CHILD_JSON " + json.dumps(result), flush=True)
+    if role == "life1":
+        if rank == FSDP_KILL_RANK:
+            os.kill(os.getpid(), signal.SIGKILL)
+        # step 4's first gather waits for the killed rank until the leg
+        # ends this one
+        llama_pretrain.timed_step(trainer, state, next_batch())
+        raise SmokeFailure(f"rank {rank} finished step {last + 1} without "
+                           f"rank {FSDP_KILL_RANK}")
+    if ckpt is not None:
+        ckpt.close()
+    dist.barrier()
+    return 0
+
+
+def _quartered(run, tree, name, world=FSDP_WORLD):
+    """Every fsdp-split leaf of ``tree`` (``leaf_bytes``) holds exactly
+    1/``world`` on this rank; only the norms are whole."""
+    for path, (total, held, _) in run[tree].items():
+        if "norm" in path:
+            continue
+        check(held * world == total,
+              f"{name}: rank {run['rank']} holds {held} of {path}'s {total} "
+              f"elements, not 1/{world}")
+
+
+def _held_bytes(run, tree):
+    return sum(held * size for _, held, size in run[tree].values())
+
+
+def check_fsdp(life1, life2, zero1, ref_init, ref_first, init, first):
+    """The fsdp leg's checks (module docstring) over each run's ranks'
+    results, in rank order, and the merged samples (``merge_samples``) of
+    the fsdp4 run (``ref_*``) and the zero-1 run at init and after step
+    1."""
+    world = FSDP_WORLD
+    for name, runs in (("life 1", life1), ("life 2", life2),
+                       ("zero-1", zero1)):
+        check([r["rank"] for r in runs] == list(range(world)),
+              f"{name}: ranks {[r['rank'] for r in runs]}")
+        losses = [[st["loss"] for st in r["steps"]] for r in runs]
+        check(all(x == losses[0] for x in losses),
+              f"{name}: the ranks' losses differ: {losses}")
+        for r in runs:
+            check(all(math.isfinite(x) for x in losses[r["rank"]]),
+                  f"{name}: rank {r['rank']} losses {losses[r['rank']]}")
+            for kname, n in r["counts"].items():
+                check(n > 0, f"{name}: kernel {kname} never launched on "
+                      f"rank {r['rank']}")
+            check(r["init_peak_bytes"] <= r["max_memory_bytes"]
+                  < FSDP_MEMORY_MAX,
+                  f"{name}: rank {r['rank']} max_memory_allocated "
+                  f"{r['max_memory_bytes']} in the steps, "
+                  f"{r['init_peak_bytes']} before them")
+    for r in life1 + life2:
+        check(r["mode"] == "off" and r["mesh"] == f"fsdp{world}",
+              f"rank {r['rank']}: mode {r['mode']} on {r['mesh']}")
+        _quartered(r, "params", "fsdp4 params")
+        _quartered(r, "moments", "fsdp4 moments")
+        check(_held_bytes(r, "moments") == 2 * _held_bytes(r, "params"),
+              f"rank {r['rank']}: moments {_held_bytes(r, 'moments')} bytes "
+              f"against params {_held_bytes(r, 'params')}")
+        for st in r["steps"]:
+            check(st["grad_bytes"] == _held_bytes(r, "params"),
+                  f"rank {r['rank']} step {st['step']}: gradients "
+                  f"{st['grad_bytes']} bytes, params "
+                  f"{_held_bytes(r, 'params')}")
+    for r in life1:
+        check([st["step"] for st in r["steps"]]
+              == list(range(1, FSDP_KILL_AFTER + 1)),
+              f"life 1 rank {r['rank']} steps {r['steps']}")
+        check(r["restore"] is None, f"life 1 rank {r['rank']} restored "
+              f"{r['restore']}")
+    for r1, r2 in zip(life1, life2):
+        res = r2["restore"]
+        at = f"life 2 rank {r2['rank']}"
+        check(res is not None and res["step"] == FSDP_SAVE_STEP,
+              f"{at}: restored {res}")
+        check(res["tier"] == "shm" and res["tiers_read"] == ["shm"],
+              f"{at}: restored by tier {res['tier']} (rungs "
+              f"{res['tiers_read']}), not from its own shm segment")
+        compare_crcs(r1["crc"], r2["crc"],
+                     f"{at}'s restored state against the one staged")
+        check([st["step"] for st in r2["steps"]]
+              == list(range(FSDP_SAVE_STEP + 1, FSDP_STEPS + 1)),
+              f"{at}: steps {r2['steps']}")
+        want = r1["steps"][FSDP_SAVE_STEP]["loss"]
+        got = r2["steps"][0]["loss"]
+        check(abs(got - want) <= FSDP_LOSS_TOL,
+              f"{at}: resumed step {FSDP_SAVE_STEP + 1} loss {got} against "
+              f"life 1's {want}")
+    for r in zero1:
+        at = f"zero-1 rank {r['rank']}"
+        check(r["mode"] == "gspmd"
+              and r["mesh"] == f"dp{FSDP_ZERO1_DP}xfsdp"
+              f"{world // FSDP_ZERO1_DP}+zero1",
+              f"{at}: mode {r['mode']} on {r['mesh']}")
+        for path, (total, held, _) in r["moments"].items():
+            split = FSDP_ZERO1_DP if "norm" in path else world
+            check(held * split == total,
+                  f"{at}: holds {held} of {path}'s {total} moment elements, "
+                  f"not 1/{split}")
+        mu = r["lm_head_mu"]
+        block = mu["fsdp"] * FSDP_ZERO1_DP + mu["dp"]
+        rows = mu["rows"] // world
+        check(tuple(map(tuple, mu["region"]))[0]
+              == (block * rows, (block + 1) * rows)
+              and tuple(mu["spec"][0]) == ("fsdp", "dp"),
+              f"{at}: lm_head's moments hold rows {mu['region'][0]} on "
+              f"{mu['spec']}, not fsdp-major block {block}")
+        got, want = r["steps"][0]["loss"], life1[0]["steps"][0]["loss"]
+        check(abs(got - want) <= FSDP_LOSS_TOL,
+              f"{at}: step-1 loss {got} against fsdp4's {want}")
+    d = compare_delta(ref_init, ref_first, init, first)
+    check(d["init_differs"] == 0,
+          f"{d['init_differs']} sampled params differ at init between the "
+          "fsdp4 and the zero-1 runs")
+    check(d["elements"] >= ZERO1_SAMPLE_MIN
+          and d["moved"] >= ZERO1_DELTA_MOVED_MIN * d["elements"],
+          f"the fsdp4 run moved {d['moved']} of {d['elements']} sampled "
+          "params in step 1")
+    check(sorted(q for q in d["quarters"] if q != "all")
+          == [str(q) for q in range(world)],
+          f"params sampled in shards {sorted(d['quarters'])}")
+    for q, e in sorted(d["quarters"].items()):
+        check(e["misses"] <= ZERO1_DELTA_MISS_MAX * e["elements"],
+              f"shard {q}: the zero-1 change from init misses the fsdp4 "
+              f"one in {e['misses']} of {e['elements']} sampled params")
+    return d
+
+
+def print_fsdp(life1, life2, zero1, delta, n_params, card):
+    """The fsdp leg's readings, each beside the cards' name and power
+    limit."""
+    for name, runs in (("fsdp4 life 1", life1), ("fsdp4 life 2", life2),
+                       ("dp2xfsdp2 zero-1", zero1)):
+        for r in runs:
+            print(f"  {name} rank {r['rank']}: params "
+                  f"{_held_bytes(r, 'params')} bytes, grads "
+                  f"{r['steps'][-1]['grad_bytes']} bytes, moments "
+                  f"{_held_bytes(r, 'moments')} bytes, max_memory_allocated "
+                  f"{r['max_memory_bytes']} (before the steps "
+                  f"{r['init_peak_bytes']}); build {r['build_s']:.1f} s, "
+                  f"the run {r['seconds']:.1f} s; launches "
+                  f"{json.dumps(r['counts'])} ({card})", flush=True)
+        per_card = runs[0]["tokens_per_step"] / len(runs)
+        for i, st in enumerate(runs[0]["steps"]):
+            wall = max(r["steps"][i]["seconds"] for r in runs)
+            mfu = 6 * n_params * per_card / wall / PEAK_FLOPS
+            print(f"  {name} step {st['step']}: loss {st['loss']:.6f}, step "
+                  f"wall {wall:.4f} s (slowest rank), {per_card / wall:.1f} "
+                  f"tokens/s a card, MFU {mfu:.4f} ({card})", flush=True)
+    for r in life1:
+        sv = r["save"]
+        print(f"  life 1 rank {r['rank']}: the step-{FSDP_SAVE_STEP} save "
+              f"paused {sv['pause_s']:.4f} s ({sv['mode']}), staged "
+              f"{sv['staged_bytes']} bytes ({card})", flush=True)
+    for r1, r2 in zip(life1, life2):
+        res = r2["restore"]
+        bitwise = r2["steps"][0]["loss"] == r1["steps"][FSDP_SAVE_STEP][
+            "loss"]
+        print(f"  life 2 rank {r2['rank']}: restored step {res['step']} by "
+              f"tier {res['tier']} in {res['seconds']:.3f} s, {res['bytes']}"
+              f" bytes, {len(r2['crc'])} leaves' CRC32 equal to the staged; "
+              f"step {FSDP_SAVE_STEP + 1} loss "
+              f"{r2['steps'][0]['loss']:.6f} against "
+              f"{r1['steps'][FSDP_SAVE_STEP]['loss']:.6f} "
+              f"({'bitwise' if bitwise else 'not bitwise'}) ({card})",
+              flush=True)
+    print(f"  zero-1 step 1 loss {zero1[0]['steps'][0]['loss']:.6f} against "
+          f"fsdp4 {life1[0]['steps'][0]['loss']:.6f}; lm_head moments on "
+          f"{zero1[0]['lm_head_mu']['spec']}; the step-1 change from init "
+          f"against fsdp4's {json.dumps(delta)}", flush=True)
+
+
+def _fsdp_leg(torch):
+    """The four-card fsdp leg (module docstring)."""
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.checkpoint.shm_handler import HEADER_SPACE
+    from dlrover_tpu_torch.common.ipc import default_socket_path
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    n_params = llama.param_count(llama_pretrain.model_config("8b", 0))
+    card = "; ".join(sorted(set(nvidia_smi_line().splitlines())))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    job = f"chip_smoke_fsdp_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    t0 = time.perf_counter()
+    nbytes = 12 * n_params
+    shm_free = check_space("/dev/shm", nbytes + FSDP_WORLD * HEADER_SPACE,
+                           "shm")
+    print(f"  {n_params} params, {nbytes} bytes of params and moments over "
+          f"four shm segments, nothing to disk; shm free {shm_free} ({card})",
+          flush=True)
+    # the node's saver, as the agent hosts it: the stages run under its
+    # shm lock; it persists nothing (no storage save is asked for)
+    host = AsyncCheckpointSaver(job_name=job, node_id=0,
+                                local_process_ids=list(range(FSDP_WORLD)))
+    host.start()
+    whole = {"DLROVER_TPU_CKPT_DEDUP": "0"}
+    try:
+        life1 = _run_ranks("--fsdp-child", "fsdp", "life1", FSDP_WORLD,
+                           workdir, job, FSDP_TIMEOUT_S, whole,
+                           killed=FSDP_KILL_RANK)
+        t1 = time.perf_counter()
+        life2 = _run_ranks("--fsdp-child", "fsdp", "life2", FSDP_WORLD,
+                           workdir, job, FSDP_TIMEOUT_S, whole)
+        t2 = time.perf_counter()
+        zero1 = _run_ranks("--fsdp-child", "fsdp", "zero1", FSDP_WORLD,
+                           workdir, job, FSDP_TIMEOUT_S)
+        t3 = time.perf_counter()
+        samples = {
+            (role, kind): merge_samples([
+                load_sample(workdir, role, r, kind)
+                for r in range(FSDP_WORLD)])
+            for role in ("life1", "zero1") for kind in ("init", "first")}
+        delta = compare_delta(samples[("life1", "init")],
+                              samples[("life1", "first")],
+                              samples[("zero1", "init")],
+                              samples[("zero1", "first")])
+        print_fsdp(life1, life2, zero1, delta, n_params, card)
+        check_fsdp(life1, life2, zero1, samples[("life1", "init")],
+                   samples[("life1", "first")], samples[("zero1", "init")],
+                   samples[("zero1", "first")])
+        print(f"  fsdp leg: life 1 {t1 - t0:.1f} s, life 2 {t2 - t1:.1f} s, "
+              f"zero-1 {t3 - t2:.1f} s, {time.perf_counter() - t0:.1f} s in "
+              f"all; every check passed ({card})", flush=True)
+    finally:
+        host.stop()
+        for pid in range(FSDP_WORLD):
+            unlink_segment(job, pid)
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(os.path.dirname(
+            default_socket_path(job, 0))), ignore_errors=True)
+
+
 def main_four_card():
     """The four-card leg (module docstring)."""
     import torch
@@ -5560,6 +6102,9 @@ def main_four_card():
     print("== the four-card leg: zero-1 against replicated at dp4, restored "
           "at dp2", flush=True)
     _zero1_leg(torch)
+    print("== the four-card leg: the 32-layer Llama-3-8B at fsdp4, a killed "
+          "rank restored from shm, and dp2 x fsdp2 under zero-1", flush=True)
+    _fsdp_leg(torch)
     print(f"== done in {time.perf_counter() - t_start:.1f}s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5718,6 +6263,8 @@ if __name__ == "__main__":
             sys.exit(master_child(sys.argv[2]))
         if sys.argv[1:2] == ["--zero1-child"]:
             sys.exit(zero1_child(*sys.argv[2:4]))
+        if sys.argv[1:2] == ["--fsdp-child"]:
+            sys.exit(fsdp_child(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--four-card"]:
             sys.exit(main_four_card())
         sys.exit(main())

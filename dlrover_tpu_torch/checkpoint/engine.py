@@ -35,13 +35,19 @@ union: this process's shm pieces, then the tiers on disk for the rest. A
 world of one stages everything.
 
 Sharded leaves. A DTensor leaf (zero-1's dp-sharded adam moments,
-train/zero1.py) stages its local shard under the shard's global ranges, its
-regions and owners from its mesh and placements (ownership.py). A restore
+train/zero1.py; fsdp's params and their moments, models/llama.py; a dim
+tiled by two axes included) stages its local shard under the shard's
+global ranges, its regions and owners from its mesh and placements
+(ownership.py). A restore
 by target fills a DTensor's local shard, and a plain tensor the whole leaf,
 from the union of the pieces that overlap it, whatever layout wrote them,
 as the JAX engine's union coverage does: a zero-1 state saved at one dp
 restores at another, or into a replicated target, and a replicated one
-into zero-1.
+into zero-1; an fsdp state at another fsdp, at dp, or under zero-1.
+Under dedup a replicated leaf (fsdp's norms, the scalars) is split over
+its holders, so a restore reads the rest of it from disk; with
+``DLROVER_TPU_CKPT_DEDUP=0`` every rank stages all it holds and a
+same-layout restart reads only its own segment.
 
 Restore is the JAX package's tier ladder, each rung adding the pieces the
 rungs before it were missing: tier 0, shm (this process's segment); tier
@@ -193,7 +199,8 @@ def _local_of(value):
     mine = [r for r, ranks in regions.items() if rank in ranks]
     if not mine:
         raise ValueError(f"rank {rank} holds no region of a DTensor leaf")
-    return value.to_local(), shape, mine[0], regions
+    # detached: a param's shard is read and written, never differentiated
+    return value.to_local().detach(), shape, mine[0], regions
 
 
 def _relative(ranges: Ranges, origin: Ranges) -> Tuple[slice, ...]:

@@ -23,12 +23,13 @@ The JAX package keys a leaf's regions on its ``NamedSharding``. The port
 runs one process a card: a plain tensor (or a Python scalar) is replicated
 over ``world``, the size of the data-parallel group, as the JAX package's
 ``assign_host_leaf`` and its ``assign_leaf`` for a leaf replicated on every
-rank; a DTensor (zero-1's dp-sharded adam moments, train/zero1.py) has the
-regions its mesh and placements give (``parallel.sharding.shard_regions``,
-the counterpart of ``devices_indices_map``), each held by the ranks at the
-mesh coordinates that hold it. A rank is a process's global rank, so the
-JAX package's device-to-rank maps (``virtual_proc_of``, ``real_proc_of``)
-have no counterpart.
+rank; a DTensor (zero-1's dp-sharded adam moments, train/zero1.py; fsdp's
+params and moments, models/llama.py) has the regions its mesh and
+placements give (``parallel.sharding.shard_regions``, the counterpart of
+``devices_indices_map``, a dim tiled by two axes cut in the JAX order),
+each held by the ranks at the mesh coordinates that hold it. A rank is a
+process's global rank, so the JAX package's device-to-rank maps
+(``virtual_proc_of``, ``real_proc_of``) have no counterpart.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Llama-3-family decoder (port of dlrover_tpu/models/llama.py, the non-pp,
-single-device path).
+"""Llama-3-family decoder (port of dlrover_tpu/models/llama.py, the non-pp
+path: one device, dp, and fsdp on a ``DeviceMesh``).
 
 The parameter layout is the JAX package's, so weights cross between the two
 through numpy with no transposes: per-layer leaves are stacked on a leading
@@ -11,13 +11,30 @@ into the cross-entropy through ``cross_entropy_sums``, as the JAX loss
 does: the fused-CE kernels (``ops/fused_ce.py``) by default, the chunked
 cross-entropy under ``DLROVER_TPU_FUSED_CE=0``; under
 ``DLROVER_TPU_CHUNKED_CE=0`` it computes dense f32 logits instead.
+
+Fully sharded params (ZeRO-3). On a mesh with ``fsdp`` above 1 every
+param is a DTensor placed per ``param_specs`` (``init_params`` and
+``models/convert.py::params_from_jax`` place them; each rank holds
+``1/fsdp`` of every matrix, the norms whole), and the forward gathers
+what it needs as the JAX package's weight-gathered path does: the
+embedding before its lookup, each layer's matrices inside the remat
+boundary (so the recomputed forward gathers again rather than keep a
+whole layer), the lm-head before the fused CE. A gather is an all-gather
+over the mesh's fsdp group; its backward reduce-scatters the gradient
+in f32, so a shard's gradient is the sum over the fsdp ranks that the
+replicated dp step would all-reduce. The layer matrices are gathered as
+their compute-dtype casts (half the bytes; the cast is element-wise, so
+the forward is the same), the embedding and the lm-head in f32, whose
+gradients the lookup and the fused CE form in the weight's dtype. Every
+rank issues the same collectives in the same order. tp, sp, ep and pp
+are later slices: a mesh with one of them above 1 raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +53,19 @@ from dlrover_tpu_torch.ops import (
     rms_norm,
     rope_frequencies,
 )
+from dlrover_tpu_torch.parallel.mesh import (
+    DP,
+    EP,
+    FSDP,
+    PP,
+    SP,
+    TP,
+    MeshConfig,
+    axis_sizes,
+    check_ported_axes,
+    validate_divisibility,
+)
+from dlrover_tpu_torch.parallel.sharding import local_of, place_local
 
 Params = Dict[str, Any]
 
@@ -106,38 +136,54 @@ class LlamaConfig:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: LlamaConfig, generator: torch.Generator) -> Params:
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                mesh=None) -> Params:
     """Random init on ``generator.device``: normal(0, 0.02) matrices, the
     output projections scaled by 1/sqrt(2 L) (gpt-2 residual scaling), unit
-    norms. The same distribution as the JAX package, not the same numbers."""
+    norms. The same distribution as the JAX package, not the same numbers.
+
+    On a mesh with fsdp above 1 the params are born sharded: each leaf is
+    drawn whole, in the same order from the same generator, and cut at
+    once into this rank's DTensor shard per ``param_specs``, so a shard
+    equals the same slice of the one-process init and no more than one
+    whole leaf is ever resident beside the shards."""
     pd = cfg.param_dtype
     dev = generator.device
     std = 0.02
     L, D, H, KV, Fd = (cfg.n_layers, cfg.dim, cfg.n_heads * cfg.head_dim,
                        cfg.n_kv_heads * cfg.head_dim, cfg.ffn_dim)
+    sharded = fsdp_mesh(mesh)
+    specs = param_specs(cfg)
 
-    def normal(shape, scale):
+    def put(t, spec):
+        return t if sharded is None else place_local(t, sharded, spec)
+
+    def normal(shape, scale, spec):
         t = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32).mul_(scale)
-        return t.to(pd)
+        return put(t.to(pd), spec)
+
+    def ones(shape, spec):
+        return put(torch.ones(shape, dtype=pd, device=dev), spec)
 
     out_scale = std / (2 * cfg.n_layers) ** 0.5
+    ls = specs["layers"]
     layers = {
-        "attn_norm": torch.ones((L, D), dtype=pd, device=dev),
-        "wq": normal((L, D, H), std),
-        "wk": normal((L, D, KV), std),
-        "wv": normal((L, D, KV), std),
-        "wo": normal((L, H, D), out_scale),
-        "mlp_norm": torch.ones((L, D), dtype=pd, device=dev),
-        "w_gate": normal((L, D, Fd), std),
-        "w_up": normal((L, D, Fd), std),
-        "w_down": normal((L, Fd, D), out_scale),
+        "attn_norm": ones((L, D), ls["attn_norm"]),
+        "wq": normal((L, D, H), std, ls["wq"]),
+        "wk": normal((L, D, KV), std, ls["wk"]),
+        "wv": normal((L, D, KV), std, ls["wv"]),
+        "wo": normal((L, H, D), out_scale, ls["wo"]),
+        "mlp_norm": ones((L, D), ls["mlp_norm"]),
+        "w_gate": normal((L, D, Fd), std, ls["w_gate"]),
+        "w_up": normal((L, D, Fd), std, ls["w_up"]),
+        "w_down": normal((L, Fd, D), out_scale, ls["w_down"]),
     }
     return {
-        "embed": normal((cfg.vocab_size, D), std),
+        "embed": normal((cfg.vocab_size, D), std, specs["embed"]),
         "layers": layers,
-        "final_norm": torch.ones((D,), dtype=pd, device=dev),
-        "lm_head": normal((D, cfg.vocab_size), std),
+        "final_norm": ones((D,), specs["final_norm"]),
+        "lm_head": normal((D, cfg.vocab_size), std, specs["lm_head"]),
     }
 
 
@@ -147,6 +193,152 @@ def param_count(cfg: LlamaConfig) -> int:
     KV = cfg.n_kv_heads * cfg.head_dim
     per_layer = 2 * D + D * H + 2 * D * KV + H * D + 3 * D * Fd
     return L * per_layer + 2 * V * D + D
+
+
+# ---------------------------------------------------------------------------
+# Sharding: the specs, the mesh check, the ZeRO-3 gather
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg: LlamaConfig, pp: int = 1) -> Params:
+    """Spec tree mirroring ``init_params``: the JAX ``param_specs`` as
+    ``tuple(P(...))`` of each leaf. The leading axis of every layer leaf
+    is the layer axis, unsharded (split over pp under pipeline
+    parallelism, a later slice); the column-parallel matrices are
+    ``(d, h) = (fsdp, tp)``, the row-parallel ``wo``/``w_down`` ``(h, d)
+    = (tp, fsdp)``, the norms replicated."""
+    layer_axis = PP if pp > 1 else None
+    return {
+        "embed": (TP, FSDP),
+        "layers": {
+            "attn_norm": (layer_axis, None),
+            "wq": (layer_axis, FSDP, TP),
+            "wk": (layer_axis, FSDP, TP),
+            "wv": (layer_axis, FSDP, TP),
+            "wo": (layer_axis, TP, FSDP),
+            "mlp_norm": (layer_axis, None),
+            "w_gate": (layer_axis, FSDP, TP),
+            "w_up": (layer_axis, FSDP, TP),
+            "w_down": (layer_axis, TP, FSDP),
+        },
+        "final_norm": (None,),
+        "lm_head": (FSDP, TP),
+    }
+
+
+def validate_for_mesh(cfg: LlamaConfig, mesh, seq_len: int = 0) -> None:
+    """Fail fast on model-shape / mesh-axis mismatches (the JAX checks of
+    the non-pp path: ``validate_divisibility``). ``mesh``: a
+    ``DeviceMesh``, a ``MeshConfig`` or ``{axis: size}``. A mesh with pp
+    above 1 raises: the pipeline schedules, and the JAX checks that go
+    with them, are not ported yet (ROADMAP Queue 1 item 6)."""
+    shape = axis_sizes(mesh)
+    mc = MeshConfig(
+        dp=shape.get(DP, 1), pp=shape.get(PP, 1),
+        fsdp=shape.get(FSDP, 1), ep=shape.get(EP, 1),
+        sp=shape.get(SP, 1), tp=shape.get(TP, 1),
+    )
+    validate_divisibility(
+        mc,
+        n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads,
+        seq_len=seq_len or cfg.max_seq_len,
+        vocab=cfg.vocab_size,
+        n_layers=cfg.n_layers,
+    )
+    if mc.pp > 1:
+        raise ValueError(
+            f"pp={mc.pp}: the pipeline schedules are not ported yet "
+            "(ROADMAP Queue 1 item 6)")
+
+
+def fsdp_mesh(mesh):
+    """``mesh`` when its fsdp axis is above 1 (the params are DTensors
+    placed per ``param_specs``), else None (plain tensors, whole)."""
+    if mesh is None or axis_sizes(mesh).get(FSDP, 1) <= 1:
+        return None
+    return mesh
+
+
+#: fsdp (ZeRO-3) all-gather dim per layer leaf, after the leading layer
+#: axis is unbound: column-parallel wq/wk/wv/w_gate/w_up are (d, h) =
+#: (fsdp, tp) -> gather dim 0; row-parallel wo/w_down are (h, d) = (tp,
+#: fsdp) -> gather dim 1. Norm leaves are fsdp-replicated.
+_PP_FSDP_DIM = {
+    "wq": 0, "wk": 0, "wv": 0, "w_gate": 0, "w_up": 0,
+    "wo": 1, "w_down": 1,
+}
+
+
+class FsdpGather(torch.autograd.Function):
+    """A whole fsdp-sharded leaf from every rank's shard: forward, the
+    shard cast to ``dtype`` and all-gathered over ``group`` along
+    ``dim`` (through a leading-dim copy when ``dim`` is not 0); backward,
+    the gradient cast to the shard's dtype and reduce-scattered, so this
+    rank gets the ranks' summed gradient of its own shard."""
+
+    @staticmethod
+    def forward(ctx, shard, group, dim, dtype):
+        import torch.distributed as dist
+
+        ctx.group, ctx.dim, ctx.dtype = group, dim, shard.dtype
+        world = dist.get_world_size(group)
+        src = shard.to(dtype).movedim(dim, 0).contiguous()
+        out = src.new_empty((world * src.shape[0],) + tuple(src.shape[1:]))
+        dist.all_gather_into_tensor(out, src, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        world = dist.get_world_size(ctx.group)
+        src = grad.to(ctx.dtype).movedim(ctx.dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // world,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None, None
+
+
+def fsdp_gather(shard: torch.Tensor, mesh, dim: int,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``FsdpGather`` of ``shard`` over ``mesh``'s fsdp group (its dtype
+    kept when ``dtype`` is None)."""
+    return FsdpGather.apply(shard, mesh.get_group(FSDP), dim,
+                            dtype or shard.dtype)
+
+
+def _gather_layer_params(lp, mesh, dtype=None):
+    """ZeRO-3 gather of one layer's fsdp-sharded matrices, each whole in
+    ``dtype``, the norms as they are. Called inside the remat boundary so
+    the backward gathers again instead of saving the whole matrices; each
+    gather's backward reduce-scatters its gradient into the shard."""
+    if fsdp_mesh(mesh) is None:
+        return lp
+    return {k: (fsdp_gather(a, mesh, _PP_FSDP_DIM[k], dtype)
+                if k in _PP_FSDP_DIM else a)
+            for k, a in lp.items()}
+
+
+def _gather_lm_head(lm_head, mesh):
+    """The whole (d, vocab) lm-head, f32, from its (fsdp, tp) shard, for
+    the fused CE (the weight-gathered limit: no vocab-parallel CE yet).
+    The tp half of the JAX function waits for the tp slice."""
+    if fsdp_mesh(mesh) is None:
+        return lm_head
+    return fsdp_gather(lm_head, mesh, 0)
+
+
+def _mesh_of(params: Params, mesh):
+    """The mesh the forward runs on: ``mesh``, else the params' own when
+    they are DTensors. fsdp params must be DTensors."""
+    if mesh is None:
+        mesh = getattr(params["embed"], "device_mesh", None)
+    if fsdp_mesh(mesh) is not None and not hasattr(params["embed"],
+                                                   "to_local"):
+        raise ValueError(
+            "an fsdp mesh needs params placed per param_specs (DTensors: "
+            "init_params or params_from_jax with the mesh)")
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -210,24 +402,38 @@ def _maybe_remat(cfg: LlamaConfig, layer_fn):
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor,
-                   cfg: LlamaConfig) -> torch.Tensor:
+                   cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     """Final-norm hidden states (b, s, dim) in compute dtype: everything up
-    to, not including, the unembed matmul."""
+    to, not including, the unembed matmul. ``mesh``: the ``DeviceMesh``
+    the params live on (their own when they are DTensors and it is None);
+    with fsdp above 1 the weights are gathered as the module docstring
+    says."""
     b, s = tokens.shape
-    x = embed_lookup(params["embed"], tokens, cfg.dtype)
+    mesh = _mesh_of(params, mesh)
+    if mesh is not None:
+        validate_for_mesh(cfg, mesh, seq_len=s)
+        check_ported_axes(mesh)
+    sharded = fsdp_mesh(mesh)
+    embed = local_of(params["embed"])
+    if sharded is not None:
+        embed = fsdp_gather(embed, sharded, 1)
+    x = embed_lookup(embed, tokens, cfg.dtype)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 device=tokens.device)
-    layer_fn = _maybe_remat(
-        cfg, functools.partial(_decoder_layer, cfg, inv_freq, positions)
-    )
+    layer = functools.partial(_decoder_layer, cfg, inv_freq, positions)
+    if sharded is not None:
+        def layer(lp, x, _layer=layer):
+            return _layer(_gather_layer_params(lp, sharded, cfg.dtype), x)
+    layer_fn = _maybe_remat(cfg, layer)
     # unbind, not leaf[i]: its backward stacks the L layer grads once,
-    # where L selects would each zero-fill a whole (L, ...) grad to add up
-    per_layer = {name: leaf.unbind(0)
+    # where L selects would each zero-fill a whole (L, ...) grad to add up;
+    # under fsdp the local (L, d/fsdp, ...) shard is unbound
+    per_layer = {name: local_of(leaf).unbind(0)
                  for name, leaf in params["layers"].items()}
     for i in range(len(per_layer["wq"])):
         x = layer_fn({name: views[i] for name, views in per_layer.items()}, x)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return rms_norm(x, local_of(params["final_norm"]), cfg.norm_eps)
 
 
 def unembed(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
@@ -240,9 +446,11 @@ def unembed(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, tokens: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
+            cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     """Logits (b, s, vocab) in float32."""
-    return unembed(forward_hidden(params, tokens, cfg), params["lm_head"])
+    mesh = _mesh_of(params, mesh)
+    x = forward_hidden(params, tokens, cfg, mesh)
+    return unembed(x, _gather_lm_head(local_of(params["lm_head"]), mesh))
 
 
 def _ce_sums(logits: torch.Tensor, tokens: torch.Tensor):
@@ -260,24 +468,25 @@ def _shift_targets(tokens: torch.Tensor) -> torch.Tensor:
     return F.pad(tokens[..., 1:], (0, 1), value=-1)
 
 
-def loss_sums(params: Params, tokens: torch.Tensor,
-              cfg: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def loss_sums(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of the next-token NLL, count of valid targets) of ``tokens``;
     pad tokens < 0 are ignored. A data-parallel trainer all-reduces the
     count to form the global token mean."""
+    mesh = _mesh_of(params, mesh)
     if chunked_ce_enabled():
         # fused lm-head + CE on the shifted targets: never materializes
         # [b, s, vocab] logits
-        x = forward_hidden(params, tokens, cfg)
+        x = forward_hidden(params, tokens, cfg, mesh)
         return cross_entropy_sums(
-            x, params["lm_head"], _shift_targets(tokens),
-            chunk_size=cfg.ce_chunk_size,
+            x, _gather_lm_head(local_of(params["lm_head"]), mesh),
+            _shift_targets(tokens), chunk_size=cfg.ce_chunk_size,
         )
-    return _ce_sums(forward(params, tokens, cfg), tokens)
+    return _ce_sums(forward(params, tokens, cfg, mesh), tokens)
 
 
-def loss_fn(params: Params, tokens: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            mesh=None) -> torch.Tensor:
     """Mean next-token cross-entropy (pad tokens < 0 are ignored)."""
-    nll_sum, n_valid = loss_sums(params, tokens, cfg)
+    nll_sum, n_valid = loss_sums(params, tokens, cfg, mesh)
     return nll_sum / torch.clamp(n_valid, min=1.0)

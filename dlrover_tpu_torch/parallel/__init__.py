@@ -18,7 +18,9 @@ from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
     MeshConfig,
     axis_sizes,
     build_mesh,
+    check_ported_axes,
     config_for,
+    data_parallel,
     mesh_for,
     remesh,
     validate_divisibility,
@@ -26,9 +28,13 @@ from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
 from dlrover_tpu_torch.parallel.sharding import (  # noqa: F401
     batch_spec,
     from_local,
+    local_of,
+    local_region,
     named_placements,
     pad_batch_to,
+    place_local,
     placements_for,
+    region_at,
     shard_pytree,
     shard_regions,
     spec_for_resize,

@@ -26,7 +26,7 @@ Queue 1 item 7).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 # Canonical axis names, outermost first.
 DP = "dp"
@@ -120,6 +120,32 @@ def axis_sizes(mesh) -> Dict[str, int]:
     if names is None:
         raise ValueError(f"mesh {mesh!r} has no axis names")
     return {str(a): int(s) for a, s in zip(names, mesh.shape)}
+
+
+def data_parallel(mesh) -> Tuple[int, int]:
+    """``(index, size)`` of this rank over the batch axes of a
+    ``DeviceMesh`` (``BATCH_AXES``, major first): which block of a global
+    batch's rows it trains, as JAX's ``P(BATCH_AXES)`` tiles the batch
+    dim over dp, then fsdp, then ep."""
+    sizes = axis_sizes(mesh)
+    index, size = 0, 1
+    for a in BATCH_AXES:
+        index = index * sizes.get(a, 1) + (
+            mesh.get_local_rank(a) if a in sizes else 0)
+        size *= sizes.get(a, 1)
+    return index, size
+
+
+def check_ported_axes(mesh) -> None:
+    """Raise on a mesh axis whose path is a later slice of the port: it
+    trains dp and fsdp; tp, sp, ep and pp above 1 raise rather than run
+    replicated (ROADMAP Queue 1)."""
+    sizes = axis_sizes(mesh)
+    later = {a: sizes[a] for a in (PP, EP, SP, TP) if sizes.get(a, 1) > 1}
+    if later:
+        raise ValueError(
+            f"mesh axes {later}: tp, sp, ep and pp are not ported yet "
+            "(ROADMAP Queue 1); the port trains dp and fsdp")
 
 
 def build_mesh(config: MeshConfig, device_type: str = "cuda",

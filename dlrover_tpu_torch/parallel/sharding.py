@@ -14,12 +14,16 @@ axis on tensor dim ``d``, ``Replicate()`` elsewhere. The JAX
 ``shard_regions`` reads back, from a DTensor's own mesh and placements,
 which ranks hold which region of the global tensor: what the checkpoint's
 ownership plan and restore key on, as the JAX package keys them on a
-``NamedSharding``'s ``devices_indices_map``.
+``NamedSharding``'s ``devices_indices_map``. A dim tiled by two axes cuts
+in the JAX order, major first (``placements_for``), and
+``place_local`` cuts a whole tensor every rank holds into its DTensor
+with no communication (fsdp params born sharded, weights from numpy).
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -95,40 +99,96 @@ def spec_for_resize(spec: Spec, mesh, shape: Sequence[int], *,
     return tuple(out)
 
 
+def _strided(dim: int, split_factor: int):
+    """DTensor's right-to-left shard of tensor dim ``dim``, after
+    ``split_factor`` shards of it by an inner mesh dim (torch's private
+    ``_StridedShard``, the same constructor and ``split_factor`` in torch
+    2.11 and 2.13; in neither is it a ``Shard``)."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    return _StridedShard(dim, split_factor=split_factor)
+
+
+def _split_factor(pl) -> Optional[int]:
+    """The split factor of a ``_StridedShard``; None for any other
+    placement."""
+    if type(pl).__name__ != "_StridedShard":
+        return None
+    return int(pl.split_factor)
+
+
 def placements_for(spec: Spec, mesh) -> list:
-    """One placement a mesh dim for ``spec`` on ``mesh``. A tensor dim
-    tiled by two axes that are both above size 1 (the fsdp + dp tiling)
-    has no placement here yet: it raises (ROADMAP Queue 1 item 1)."""
+    """One placement a mesh dim for ``spec`` on ``mesh``: ``Shard(d)``
+    for an axis above size 1 that the spec puts on tensor dim ``d``,
+    ``Replicate()`` for the others (an axis of size 1 carries no layout).
+
+    A dim tiled by two axes above size 1 cuts in the spec's order, major
+    first, as JAX tiles a ``PartitionSpec`` entry. In mesh order that is
+    DTensor's default; in the other order (the zero-1 ``("fsdp", "dp")``
+    of a leaf whose dim 0 already carries fsdp: block ``fsdp_idx * dp +
+    dp_idx``) the outer mesh axis gets a ``_StridedShard`` whose split
+    factor is the inner axis's size. A dim tiled by three axes above
+    size 1 raises."""
     from torch.distributed.tensor import Replicate, Shard
 
     sizes = axis_sizes(mesh)
-    dim_of: Dict[str, int] = {}
+    order = list(sizes)
+    out: Dict[str, Any] = {}
     for dim, entry in enumerate(spec):
-        axes = [a for a in entry_axes(entry) if sizes.get(a, 1) > 1]
-        if len(axes) > 1:
-            raise NotImplementedError(
-                f"spec {spec}: dim {dim} tiled by {axes}; nested shards "
-                "come with the fsdp slice")
         for a in entry_axes(entry):
             if a not in sizes:
                 raise ValueError(f"spec {spec} names axis {a!r}, not on "
                                  f"the mesh {tuple(sizes)}")
-            dim_of[a] = dim
-    return [Shard(dim_of[a]) if a in dim_of else Replicate()
-            for a in sizes]
+        live = [a for a in entry_axes(entry) if sizes[a] > 1]
+        if len(live) > 2:
+            raise NotImplementedError(
+                f"spec {spec}: dim {dim} tiled by {live}; at most two "
+                "axes above size 1 tile one dim")
+        if len(live) == 2 and order.index(live[0]) > order.index(live[1]):
+            inner, outer = live
+            out[inner] = Shard(dim)
+            out[outer] = _strided(dim, sizes[inner])
+            continue
+        for a in live:
+            out[a] = Shard(dim)
+    return [out.get(a, Replicate()) for a in sizes]
 
 
 def spec_of(dtensor) -> Spec:
     """The canonical spec of a DTensor's placements (the inverse of
-    ``placements_for``)."""
-    names = dtensor.device_mesh.mesh_dim_names
-    entries: List[Any] = [None] * dtensor.dim()
+    ``placements_for`` over the axes above size 1): each dim's axes in
+    the order JAX tiles it, a ``_StridedShard``'s axis after the inner
+    axis it splits."""
+    mesh = dtensor.device_mesh
+    names = mesh.mesh_dim_names
+    sizes = dict(zip(names, mesh.shape))
+    plain: List[List[str]] = [[] for _ in range(dtensor.dim())]
+    strided: List[List[str]] = [[] for _ in range(dtensor.dim())]
     for name, pl in zip(names, dtensor.placements):
-        if pl.is_shard():
-            d = pl.dim
-            axes = entry_axes(entries[d]) + (name,)
-            entries[d] = axes if len(axes) > 1 else axes[0]
+        sf = _split_factor(pl)
+        if sf is not None:
+            strided[pl.dim].append((name, sf))
+        elif pl.is_shard() and sizes[name] > 1:
+            plain[pl.dim].append(name)
+    entries: List[Any] = []
+    for d in range(dtensor.dim()):
+        axes = list(plain[d])
+        for name, sf in strided[d]:
+            inner = math.prod(sizes[a] for a in axes)
+            if sf != inner:
+                raise NotImplementedError(
+                    f"dim {d}: _StridedShard({name}, split_factor={sf}) "
+                    f"after axes {axes} of {inner} shards")
+            axes.append(name)
+        entries.append(None if not axes else
+                       axes[0] if len(axes) == 1 else tuple(axes))
     return canonical(entries)
+
+
+def local_of(t: torch.Tensor) -> torch.Tensor:
+    """What this rank holds of a tensor: a DTensor's local shard (a view,
+    differentiable under autograd), any other tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def from_local(local: torch.Tensor, mesh, spec: Spec):
@@ -178,33 +238,69 @@ def _zip_trees(tree, specs):
 
 
 def _chunk(extent: int, k: int, i: int) -> Tuple[int, int]:
-    """Chunk ``i`` of ``k`` of ``extent`` as ``torch.chunk`` (and a
-    ``Shard`` placement) cuts it: ceil-sized chunks, the tail short or
-    empty."""
+    """Chunk ``i`` of ``k`` of ``extent``: ceil-sized chunks, the tail
+    short or empty, as JAX's ``devices_indices_map`` and ``torch.chunk``
+    cut a dim."""
     size = -(-extent // k)
     start = min(i * size, extent)
     return start, min(start + size, extent)
 
 
+def region_at(spec: Spec, shape: Sequence[int], sizes: Dict[str, int],
+              coord: Dict[str, int]) -> Ranges:
+    """The region of a tensor of ``shape`` that the mesh coordinate
+    ``coord`` (``{axis: index}``) holds under ``spec``: on each dim the
+    block whose index is the coordinate's mixed-radix number over that
+    dim's axes, major first, as JAX's ``devices_indices_map`` cuts it."""
+    region = []
+    for dim, extent in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        block, n = 0, 1
+        for a in entry_axes(entry):
+            block = block * sizes[a] + coord[a]
+            n *= sizes[a]
+        region.append(_chunk(int(extent), n, block))
+    return tuple(region)
+
+
+def local_region(mesh, spec: Spec, shape: Sequence[int]) -> Ranges:
+    """This rank's region of a tensor of ``shape`` placed per ``spec`` on
+    ``mesh``."""
+    sizes = axis_sizes(mesh)
+    coord = {a: mesh.get_local_rank(a) for a in sizes}
+    return region_at(spec, shape, sizes, coord)
+
+
+def place_local(full: torch.Tensor, mesh, spec: Spec):
+    """A DTensor placed per ``spec`` from a whole tensor every rank holds,
+    with no communication: this rank keeps a contiguous copy of its
+    region. Every sharded dim must divide evenly."""
+    sizes = axis_sizes(mesh)
+    for dim, entry in enumerate(spec):
+        n = math.prod(sizes[a] for a in entry_axes(entry))
+        if full.shape[dim] % n:
+            raise ValueError(
+                f"spec {spec}: dim {dim} of {tuple(full.shape)} does not "
+                f"split {n} ways evenly")
+    index = tuple(slice(s, e) for s, e in local_region(mesh, spec,
+                                                        full.shape))
+    return from_local(full[index].contiguous(), mesh, spec)
+
+
 def shard_regions(dtensor) -> Dict[Ranges, Tuple[int, ...]]:
     """``{region: ranks holding it}`` of a DTensor, from its mesh and
-    placements: each mesh coordinate's region (``Shard`` placements cut
-    in mesh-dim order), keyed by the ``(start, stop)`` ranges per tensor
-    dim, with the global ranks at the coordinates that hold it."""
+    placements (read back as a spec, ``spec_of``): each mesh coordinate's
+    region, keyed by the ``(start, stop)`` ranges per tensor dim, with
+    the global ranks at the coordinates that hold it."""
     mesh = dtensor.device_mesh
-    ranks = mesh.mesh.tolist() if mesh.ndim else [mesh.mesh.item()]
+    names = mesh.mesh_dim_names
+    sizes = dict(zip(names, mesh.shape))
+    spec = spec_of(dtensor)
+    ranks = mesh.mesh.reshape(-1).tolist()
     shape = tuple(int(d) for d in dtensor.shape)
     out: Dict[Ranges, List[int]] = {}
-    for coord in itertools.product(*(range(n) for n in mesh.shape)):
-        region = [(0, d) for d in shape]
-        for mdim, pl in enumerate(dtensor.placements):
-            if pl.is_shard():
-                s, e = region[pl.dim]
-                cs, ce = _chunk(e - s, mesh.shape[mdim], coord[mdim])
-                region[pl.dim] = (s + cs, s + ce)
-        rank = ranks
-        for c in coord:
-            rank = rank[c]
-        out.setdefault(tuple(region), []).append(int(rank))
+    for rank, coord in zip(ranks, itertools.product(
+            *(range(n) for n in mesh.shape))):
+        region = region_at(spec, shape, sizes, dict(zip(names, coord)))
+        out.setdefault(region, []).append(int(rank))
     return {r: tuple(sorted(v)) for r, v in out.items()}
-

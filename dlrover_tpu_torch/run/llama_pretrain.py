@@ -49,6 +49,13 @@ dp (train/zero1.py) on the worker's pure-dp mesh, which the trainer
 builds (``bootstrap.worker_mesh``): the gradients are reduce-scattered,
 adam's moments hold 1/dp each, the params are all-gathered. At dp 1 the
 update runs replicated (mode ``off``), and the run says so.
+``--fsdp N``, the JAX example's flag, trains on the mesh
+``MeshConfig(dp=-1, fsdp=N)`` (dp absorbs the rest of the world;
+``bootstrap.worker_mesh``): the params are born sharded (each rank holds
+``1/N`` of every matrix, models/llama.py), gathered layer by layer, and
+their gradients reduce-scattered; with ``--zero1`` and dp above 1 the
+update is also sharded over dp (mode ``gspmd``). The run logs its mesh.
+``--model 8b --layers 0`` is the preset's whole depth, 32 layers.
 Run bare, it trains alone.
 """
 
@@ -69,6 +76,7 @@ from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer
 from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.parallel.mesh import DP, MeshConfig, axis_sizes
 from dlrover_tpu_torch.train import bootstrap, zero1
 from dlrover_tpu_torch.train.data import (
     ElasticDataLoader,
@@ -112,6 +120,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1 weight-update sharding across dp "
                    "(train/zero1.py; DLROVER_TPU_ZERO1 overrides)")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="fsdp (ZeRO-3) size of the mesh; dp absorbs the "
+                   "rest of the world")
     return p.parse_args(argv)
 
 
@@ -141,11 +152,17 @@ def build(args: argparse.Namespace, device=None, worker_ctx=None):
         warmup_steps=args.warmup_steps,
         zero1=args.zero1,
     )
-    trainer = ElasticTrainer(lambda p, t: llama.loss_fn(p, t, cfg), tc,
-                             lambda p, t: llama.loss_sums(p, t, cfg),
-                             worker_ctx=worker_ctx)
+    mesh = None
+    if args.fsdp > 1:
+        mesh = bootstrap.worker_mesh(device.type, MeshConfig(fsdp=args.fsdp))
+        if mesh is None:
+            raise ValueError(f"--fsdp {args.fsdp} needs a process group of "
+                             "a multiple of it; this world has one process")
+    trainer = ElasticTrainer(lambda p, t: llama.loss_fn(p, t, cfg, mesh), tc,
+                             lambda p, t: llama.loss_sums(p, t, cfg, mesh),
+                             worker_ctx=worker_ctx, mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = trainer.init_state(llama.init_params(cfg, gen))
+    state = trainer.init_state(llama.init_params(cfg, gen, mesh))
     a, b = trainer.step_batch_shape
     data_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
 
@@ -311,8 +328,12 @@ def run(args: argparse.Namespace, log=print) -> dict:
     if ctx is not None and device == "cuda":
         device = f"cuda:{ctx.local_rank}"
     cfg, trainer, state, next_batch, tokens = build(args, device, ctx)
+    if trainer.mesh is not None:
+        log(f"mesh {trainer.world_descriptor().spec}")
     if zero1.enabled(trainer.tc):
-        log(f"zero-1 mode {trainer.zero1_mode} at dp {trainer.dp}")
+        dp = (axis_sizes(trainer.mesh).get(DP, 1) if trainer.mesh is not None
+              else trainer.dp)
+        log(f"zero-1 mode {trainer.zero1_mode} at dp {dp}")
     seq = args.seq or min(2048, cfg.max_seq_len)
     if args.data:
         ckpt, start, restore = open_checkpoint(args, state, None, log)

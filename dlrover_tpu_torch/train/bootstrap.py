@@ -249,17 +249,21 @@ def process_index() -> int:
     return 0
 
 
-def worker_mesh(device_type: str = "cuda"):
-    """The worker's ``DeviceMesh``: pure dp over the default process group,
-    ``parallel.mesh_for`` of that world (``device_type`` "cuda", or "cpu"
-    for gloo); None in a world of one, which has no group."""
+def worker_mesh(device_type: str = "cuda", config=None):
+    """The worker's ``DeviceMesh`` over the default process group:
+    ``config`` (a ``parallel.MeshConfig``; dp -1 absorbs the world, so
+    ``MeshConfig(fsdp=2)`` on four processes is dp2 x fsdp2) resolved on
+    the group's world size, pure dp when None, built by
+    ``parallel.mesh_for`` (``device_type`` "cuda", or "cpu" for gloo);
+    None in a world of one, which has no group."""
     n = process_count()
     if n == 1:
         return None
     from dlrover_tpu_torch.common.world import WorldDescriptor
-    from dlrover_tpu_torch.parallel.mesh import mesh_for
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, mesh_for
 
-    return mesh_for(WorldDescriptor.from_axis_sizes({"dp": n}), device_type)
+    sizes = (config or MeshConfig()).resolve(n).shape()
+    return mesh_for(WorldDescriptor.from_axis_sizes(sizes), device_type)
 
 
 def collective_device():

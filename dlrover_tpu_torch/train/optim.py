@@ -19,16 +19,21 @@ buffers are reused for the update) and params and moments change where
 they lie, so no second param-sized tree is ever allocated.
 
 Under zero-1 (train/zero1.py) the same arithmetic, in the same order, runs
-on this rank's shard of each leaf, the moments holding only that shard;
-the global norm is the dp sum of the shards' squared norms, each leaf with
-no divisible dim (whole on every rank) counted once.
+on this rank's shard of each leaf, the moments holding only that shard.
+Under fsdp (models/llama.py) params, gradients and moments are each
+rank's fsdp shards (DTensors; the update runs on their local tensors).
+Where a rank holds a piece of a leaf, the global norm (``NormPlan``) sums
+the pieces' squared norms over the mesh axes that split the leaf, and
+counts a piece once over the axes that hold copies of it: a zero-1 shard
+over dp, an fsdp shard over fsdp, both over every data axis, a whole
+leaf (the replicated fallback, the norms) on its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -39,6 +44,7 @@ from dlrover_tpu_torch.common.tree import (
     map_tree,
     map_tree_with_path,
 )
+from dlrover_tpu_torch.parallel.sharding import local_of
 
 Schedule = Callable[[int], float]
 
@@ -90,10 +96,12 @@ class AdamW:
     eps: float = 1e-8
 
     def init(self, params: Tree, zero1=None) -> dict:
-        """Zero moments in the params' dtype, and the step count. With a
+        """Zero moments in the params' dtype and layout (an fsdp param's
+        are DTensors on its placements), and the step count. With a
         zero-1 ``Layout`` (train/zero1.py) each moment holds only this
         rank's dp shard (a DTensor), or, for a leaf with no divisible dim,
-        the whole leaf; the count stays a replicated scalar."""
+        what the rank holds of the param; the count stays a replicated
+        scalar."""
         if zero1 is None:
             return {"count": 0, "mu": map_tree(torch.zeros_like, params),
                     "nu": map_tree(torch.zeros_like, params)}
@@ -104,22 +112,26 @@ class AdamW:
     @torch.no_grad()
     @record_function("optimizer_update")
     def step(self, params: Tree, grads: Dict[str, torch.Tensor], state: dict,
-             lr_scale: float = 1.0, zero1=None) -> None:
+             lr_scale: float = 1.0, zero1=None,
+             norm_plan: Optional["NormPlan"] = None) -> None:
         """``params += lr_scale * update(grads)``. ``grads`` maps each
         leaf's path (as ``common.tree.flatten`` names it) to its gradient,
         which this call overwrites. With a zero-1 ``Layout`` a gradient is
         this rank's shard (a fallback leaf's whole gradient), and only this
         rank's shard of each param changes (the caller all-gathers them).
-        Runs in the ``optimizer_update`` profiler scope."""
+        Under fsdp a param is a DTensor and its gradient this rank's
+        shard. ``norm_plan`` says where the gradients are pieces (module
+        docstring); None: every gradient is whole. Runs in the
+        ``optimizer_update`` profiler scope."""
         leaves = flatten(params)
         mus = dict(flatten(state["mu"]))
         nus = dict(flatten(state["nu"]))
         g_list: List[torch.Tensor] = [grads[path] for path, _ in leaves]
-        if zero1 is None:
+        if norm_plan is None:
             g_norm = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(g.float()) for g in g_list]))
         else:
-            g_norm = _sharded_norm(leaves, g_list, zero1)
+            g_norm = _sharded_norm(leaves, g_list, norm_plan)
         keep = g_norm < self.max_norm
         # (t / g_norm) * max_norm, or t itself (t / 1 * 1) below the norm
         divisor = torch.where(keep, 1.0, g_norm)
@@ -129,7 +141,7 @@ class AdamW:
         bc1 = 1 - self.b1 ** (count + 1)
         bc2 = 1 - self.b2 ** (count + 1)
         for (path, p), g in zip(leaves, g_list):
-            mu, nu = _local(mus[path]), _local(nus[path])
+            mu, nu, p = local_of(mus[path]), local_of(nus[path]), local_of(p)
             if zero1 is not None:
                 p = zero1.shard(path, p)
             g.div_(divisor.to(g.dtype)).mul_(factor.to(g.dtype))
@@ -144,28 +156,46 @@ class AdamW:
         state["count"] = count + 1
 
 
-def _local(t: torch.Tensor) -> torch.Tensor:
-    """A moment's tensor to update in place: a DTensor's local shard (a
-    view of it), a plain tensor itself."""
-    return t.to_local() if hasattr(t, "to_local") else t
+@dataclasses.dataclass(frozen=True)
+class NormPlan:
+    """Over which mesh axes each leaf's gradient is split into pieces, one
+    a rank (``axes``: leaf path -> axis names in mesh order; ``()`` for a
+    gradient every rank holds whole), on ``mesh``."""
+
+    mesh: Any
+    axes: Dict[str, Tuple[str, ...]]
+
+    def group(self, axes: Tuple[str, ...]):
+        """The process group over ``axes``: the mesh's group of one axis,
+        or the default group when ``axes`` hold every axis above size 1."""
+        from dlrover_tpu_torch.parallel.mesh import axis_sizes
+
+        live = {a for a, n in axis_sizes(self.mesh).items() if n > 1}
+        if live <= set(axes):
+            return None
+        if len(axes) == 1:
+            return self.mesh.get_group(axes[0])
+        raise ValueError(f"no process group over {axes} on a mesh with "
+                         f"{sorted(live)} above size 1")
 
 
-def _sharded_norm(leaves, g_list: List[torch.Tensor], zero1
+def _sharded_norm(leaves, g_list: List[torch.Tensor], plan: NormPlan
                   ) -> torch.Tensor:
-    """The global gradient norm from this rank's shards: the shards'
-    squared norms summed over the dp group, plus each replicated-fallback
-    leaf's once (every rank holds the same whole gradient of it)."""
+    """The global gradient norm from this rank's pieces: for each set of
+    axes that split leaves, the pieces' squared norms summed over that
+    group; a gradient every rank holds whole counted once."""
     import torch.distributed as dist
 
-    sharded, whole = [], []
+    buckets: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
     for (path, _), g in zip(leaves, g_list):
-        norm = torch.linalg.vector_norm(g.float())
-        (whole if zero1.dim(path) is None else sharded).append(norm)
-    zero = torch.zeros((), dtype=torch.float32, device=g_list[0].device)
-    sq = torch.stack(sharded).square().sum() if sharded else zero.clone()
-    dist.all_reduce(sq, group=zero1.group)
-    if whole:
-        sq = sq + torch.stack(whole).square().sum()
+        buckets.setdefault(plan.axes[path], []).append(
+            torch.linalg.vector_norm(g.float()))
+    sq = None
+    for axes in sorted(buckets):
+        part = torch.stack(buckets[axes]).square().sum()
+        if axes:
+            dist.all_reduce(part, group=plan.group(axes))
+        sq = part if sq is None else sq + part
     return sq.sqrt()
 
 

@@ -1,12 +1,15 @@
 """ElasticTrainer (port of dlrover_tpu/train/trainer.py's step path), on
-one device or data-parallel over the default process group.
+one device, data-parallel over the default process group, or on a
+``DeviceMesh`` of dp and fsdp.
 
 One optimizer step is ``accum_steps = global_batch // (micro_batch · dp)``
-microbatches, ``dp`` the process group's world size (1 without a group), as
-the JAX trainer's ``_accum_for`` computes it. A batch is a tensor (token ids
-for the LM families) or a tree of tensors (an ``(images, labels)`` tuple for
-the CV family) whose every leaf leads with ``accum_steps``; microbatch ``i``
-is every leaf's ``[i]``, as the JAX step slices a pytree. Each microbatch's
+microbatches, ``dp`` the data-parallel size: the mesh's batch axes (dp ·
+fsdp · ep, ``parallel.BATCH_AXES``), else the process group's world size
+(1 without a group), as the JAX trainer's ``_accum_for`` computes it. A
+batch is a tensor (token ids for the LM families) or a tree of tensors
+(an ``(images, labels)`` tuple for the CV family) whose every leaf leads
+with ``accum_steps``; microbatch ``i`` is every leaf's ``[i]``, as the
+JAX step slices a pytree. Each microbatch's
 gradients add into an f32 accumulator, the sum is scaled by 1/accum,
 clipped by its global norm, fed to adamw, and the update is scaled by the
 state's ``lr_scale`` before it lands on the params, as the JAX step does.
@@ -14,9 +17,11 @@ With one microbatch the grads stay in the param dtype and no accumulator
 exists.
 
 Data parallelism: every process draws the same global batch,
-``step_batch_shape = (accum, micro · dp)``, and rank ``r`` trains its rows
-``[r·micro, (r+1)·micro)`` of each microbatch (``rows``), the contiguous
-blocks the JAX batch sharding gives each data-parallel device. The JAX loss
+``step_batch_shape = (accum, micro · dp)``, and the rank of data index
+``r`` trains its rows ``[r·micro, (r+1)·micro)`` of each microbatch
+(``rows``), the contiguous blocks the JAX batch sharding gives each
+data-parallel device (``r`` is the rank's index over the mesh's batch
+axes, dp major, else its process index). The JAX loss
 is one token mean over the whole global microbatch, so above dp 1 the
 trainer needs a ``loss_sums_fn`` (the ``(nll_sum, n_valid)`` pair of the
 rank's rows): each microbatch's valid-target count is all-reduced first and
@@ -75,16 +80,17 @@ batches; the definition of MFU in PERF.md), which feeds the timer's live
 MFU gauge. The step's own events and the digest are unchanged.
 
 ZeRO-1 (train/zero1.py): with ``TrainConfig.zero1`` or
-``DLROVER_TPU_ZERO1`` at dp above 1 on a pure-dp mesh (the ``mesh`` given,
-else ``bootstrap.worker_mesh`` on the params' device type), adam's moments
-hold only this rank's dp shard, each accumulated gradient leaf is
-reduce-scattered over the mesh's dp group into that shard (a leaf with no
-divisible dim is all-reduced whole), the optimizer updates this rank's
-shard of every param, and the params are all-gathered in place. The
-loss's valid-target count and the reported loss are all-reduced as in the
-replicated step. ``zero1_mode`` says which update runs (``"off"`` at dp
-1); a zero-1 request on a mesh with another axis above 1 raises
-(``zero1.mode_for``).
+``DLROVER_TPU_ZERO1`` at dp above 1 (the ``mesh`` given, else
+``bootstrap.worker_mesh``'s pure-dp mesh on the params' device type),
+adam's moments hold only this rank's dp shard, each accumulated gradient
+leaf is reduce-scattered over the mesh's dp group into that shard (a leaf
+with no divisible dim is all-reduced whole), the optimizer updates this
+rank's shard of every param, and the params are all-gathered in place
+over dp. Beside fsdp (``"gspmd"``) all of this runs on each rank's fsdp
+shard. The loss's valid-target count and the reported loss are
+all-reduced as in the replicated step. ``zero1_mode`` says which update
+runs (``"off"`` at dp 1); a zero-1 request on a mesh with sp, tp, ep or
+pp above 1 raises (``zero1.mode_for``).
 
 On the card the step leaves CUDA events around its collectives and its
 update, read by callers that time them: ``reduce_events`` around the
@@ -92,16 +98,30 @@ gradients' all-reduces or reduce-scatters, ``update_events`` around the
 optimizer update, ``gather_events`` around zero-1's param all-gathers
 (None where the step has no such part).
 
-Meshes beyond dp (fsdp, tp, the JAX ``"gspmd"`` zero-1 mode),
-hierarchical collectives, warm compile, remesh and the lint hooks are not
+FSDP (ZeRO-3): on a mesh with fsdp above 1 (``mesh`` given: the caller
+builds it, ``bootstrap.worker_mesh(device_type, MeshConfig(fsdp=N))``,
+and places the params on it, models/llama.py) every param is a DTensor
+and each rank differentiates its local shards: the model gathers the
+weights and its gathers' backward reduce-scatters each gradient over
+fsdp, so a sharded leaf's gradient arrives as this rank's shard of the
+fsdp sum. It is accumulated as a shard, then all-reduced over dp (under
+zero-1, ``"gspmd"``, reduce-scattered over dp into the moments' shard); a
+leaf replicated over fsdp (the norms) is all-reduced over fsdp first. The
+global norm sums the pieces' squares over the axes that split them
+(train/optim.py's ``NormPlan``). ``reduce_events`` then spans only these
+trailing collectives: the fsdp reduce-scatters run in the backward. tp,
+sp, ep and pp above 1 raise (later slices).
+
+Hierarchical collectives, warm compile, remesh and the lint hooks are not
 ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Any, Callable, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -110,9 +130,18 @@ from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.tree import Tree, flatten
 from dlrover_tpu_torch.common.world import WorldDescriptor
 from dlrover_tpu_torch.observability.digest import StepTimeDigest
+from dlrover_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    DP,
+    FSDP,
+    axis_sizes,
+    check_ported_axes,
+    data_parallel,
+)
+from dlrover_tpu_torch.parallel.sharding import entry_axes, local_of, spec_of
 from dlrover_tpu_torch.profiler import tpu_timer
 from dlrover_tpu_torch.train import bootstrap, zero1
-from dlrover_tpu_torch.train.optim import make_optimizer
+from dlrover_tpu_torch.train.optim import NormPlan, make_optimizer
 
 #: a tensor, or a tuple or list of batches
 Batch = Any
@@ -148,6 +177,14 @@ def microbatch(batch: Batch, i: int) -> Batch:
     if isinstance(batch, torch.Tensor):
         return batch[i]
     return type(batch)(microbatch(b, i) for b in batch)
+
+
+def _fsdp_sharded(p) -> bool:
+    """Whether a param is split over the fsdp axis (a DTensor whose spec
+    names fsdp above size 1)."""
+    if not hasattr(p, "to_local"):
+        return False
+    return any(FSDP in entry_axes(e) for e in spec_of(p))
 
 
 def select_rows(batch: Batch, rows: slice) -> Batch:
@@ -196,12 +233,22 @@ class ElasticTrainer:
         self.reduce_events: Optional[Tuple[Any, Any]] = None
         self.update_events: Optional[Tuple[Any, Any]] = None
         self.gather_events: Optional[Tuple[Any, Any]] = None
+        #: bytes of the last step's accumulated gradients as this rank
+        #: holds them before the data-parallel reduction
+        self.grad_bytes = 0
         #: the DeviceMesh the step runs on (None: a world of one, or the
         #: replicated dp step over the default process group)
         self.mesh = mesh
-        #: "off" or "scatter" (train/zero1.py), set by ``init_state``
+        #: "off", "scatter" or "gspmd" (train/zero1.py), set by
+        #: ``init_state``
         self.zero1_mode = "off"
         self._zero1: Optional[zero1.Layout] = None
+        #: the mesh's fsdp size (1: params whole), and which leaves it
+        #: splits, set by ``init_state``
+        self.fsdp = 1
+        self._fsdp_leaves: Dict[str, bool] = {}
+        #: where the gradients are pieces, for the global norm (None: whole)
+        self._norm_plan: Optional[NormPlan] = None
         #: each step's seconds but the first's (module docstring); read
         #: through ``step_digest``
         self._digest = StepTimeDigest()
@@ -256,8 +303,12 @@ class ElasticTrainer:
 
     @property
     def dp(self) -> int:
-        """Data-parallel size: the default process group's world size."""
-        return bootstrap.process_count()
+        """Data-parallel size: the mesh's batch axes (dp · fsdp · ep), else
+        the default process group's world size."""
+        if self.mesh is None:
+            return bootstrap.process_count()
+        sizes = axis_sizes(self.mesh)
+        return math.prod(sizes.get(a, 1) for a in BATCH_AXES)
 
     @property
     def accum_steps(self) -> int:
@@ -280,7 +331,8 @@ class ElasticTrainer:
     def rows(self) -> slice:
         """This rank's rows of the global batch's second axis."""
         micro = self.tc.micro_batch_size
-        r = bootstrap.process_index()
+        r = (bootstrap.process_index() if self.mesh is None
+             else data_parallel(self.mesh)[0])
         return slice(r * micro, (r + 1) * micro)
 
     def local_rows(self, batch: Batch) -> Batch:
@@ -289,16 +341,30 @@ class ElasticTrainer:
 
     def init_state(self, params: Tree) -> dict:
         """Train state around ``params``, whose leaves become the leaves
-        that autograd differentiates (``requires_grad``)."""
+        that autograd differentiates (``requires_grad``). On an fsdp mesh
+        every leaf must be a DTensor on it (the model's placement)."""
         named = flatten(params)
         for _, p in named:
             p.requires_grad_(True)
         if zero1.enabled(self.tc) and self.mesh is None and self.dp > 1:
             # the worker's pure-dp mesh over the process group
-            self.mesh = bootstrap.worker_mesh(named[0][1].device.type)
+            self.mesh = bootstrap.worker_mesh(
+                local_of(named[0][1]).device.type)
         self.zero1_mode = zero1.mode_for(self.mesh, self.tc)
+        if self.mesh is not None:
+            check_ported_axes(self.mesh)
+        self.fsdp = (axis_sizes(self.mesh).get(FSDP, 1)
+                     if self.mesh is not None else 1)
+        if self.fsdp > 1:
+            loose = [path for path, p in named if not hasattr(p, "to_local")]
+            if loose:
+                raise ValueError(
+                    f"fsdp={self.fsdp}: params {loose[:3]} are not DTensors "
+                    "on the mesh (place them per the model's specs)")
+        self._fsdp_leaves = {path: _fsdp_sharded(p) for path, p in named}
         self._zero1 = (zero1.Layout.build(self.mesh, named)
-                       if self.zero1_mode == "scatter" else None)
+                       if self.zero1_mode != "off" else None)
+        self._norm_plan = self._plan_norm(named)
         return {
             "params": params,
             "opt": self.optimizer.init(params, self._zero1),
@@ -306,6 +372,42 @@ class ElasticTrainer:
             # runtime lr multiplier applied to the optimizer's updates
             "lr_scale": 1.0,
         }
+
+    def _plan_norm(self, named) -> Optional[NormPlan]:
+        """Over which axes each leaf's reduced gradient is split: dp where
+        zero-1 scatters it, fsdp where the param is an fsdp shard; None
+        when every gradient is whole."""
+        if self._zero1 is None and self.fsdp == 1:
+            return None
+        axes = {}
+        for path, _ in named:
+            a = ()
+            if self._zero1 is not None and self._zero1.dim(path) is not None:
+                a += (DP,)
+            if self._fsdp_leaves[path]:
+                a += (FSDP,)
+            axes[path] = a
+        return NormPlan(mesh=self.mesh, axes=axes)
+
+    def _reduce_grad(self, path: str, g: torch.Tensor) -> torch.Tensor:
+        """The data-parallel sum of one accumulated gradient (what this
+        rank holds of it), laid out as the optimizer takes it (module
+        docstring)."""
+        import torch.distributed as dist
+
+        z1 = self._zero1
+        if self.fsdp == 1:
+            if z1 is None:
+                dist.all_reduce(g)
+                return g
+            return z1.reduce_scatter(path, g)
+        if not self._fsdp_leaves[path]:
+            dist.all_reduce(g, group=self.mesh.get_group(FSDP))
+        if z1 is not None:
+            return z1.reduce_scatter(path, g)
+        if axis_sizes(self.mesh).get(DP, 1) > 1:
+            dist.all_reduce(g, group=self.mesh.get_group(DP))
+        return g
 
     def _microbatch_loss(self, params: Tree, mb: Batch, dp: int):
         """The loss whose gradient this rank adds for microbatch ``mb``.
@@ -337,8 +439,8 @@ class ElasticTrainer:
         tensors = [p for _, p in leaves]
         # the params' device is where the step runs, whatever the batch's
         device_start, stream, timer_token = None, None, 0
-        if tensors and tensors[0].is_cuda:
-            stream = torch.cuda.current_stream(tensors[0].device)
+        if tensors and local_of(tensors[0]).is_cuda:
+            stream = torch.cuda.current_stream(local_of(tensors[0]).device)
             device_start = torch.cuda.Event(enable_timing=True)
             device_start.record(stream)
             if self._step_timer is not None:
@@ -380,7 +482,8 @@ class ElasticTrainer:
         for i in range(accum):
             loss = self._microbatch_loss(state["params"],
                                          microbatch(batch, i), dp)
-            g = torch.autograd.grad(loss, tensors)
+            # a DTensor param's gradient: this rank's shard of it
+            g = [local_of(t) for t in torch.autograd.grad(loss, tensors)]
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             if grads is None:
@@ -392,19 +495,17 @@ class ElasticTrainer:
                     acc.add_(t)
             del g
         cuda = grads[0].is_cuda
+        self.grad_bytes = sum(g.nbytes for g in grads)
         z1 = self._zero1
         if dp > 1:
             import torch.distributed as dist
 
             # one collective a leaf: a flat buffer would cost a copy of
-            # the first microbatch's grads, which measured slower (PERF.md)
+            # the first microbatch's grads, which measured slower
+            # (PERF.md); under zero-1 the leaf is freed as its shard arrives
             self.reduce_events = _record(cuda)
             for i, (path, _) in enumerate(leaves):
-                if z1 is None:
-                    dist.all_reduce(grads[i])
-                else:
-                    # the whole leaf is freed as its shard arrives
-                    grads[i] = z1.reduce_scatter(path, grads[i])
+                grads[i] = self._reduce_grad(path, grads[i])
             _record(cuda, self.reduce_events)
             dist.all_reduce(loss_sum)
         if accum > 1:
@@ -415,6 +516,7 @@ class ElasticTrainer:
         self.optimizer.step(
             state["params"], {path: g for (path, _), g in zip(leaves, grads)},
             state["opt"], lr_scale=state["lr_scale"], zero1=z1,
+            norm_plan=self._norm_plan,
         )
         _record(cuda, self.update_events)
         if z1 is not None:
@@ -429,11 +531,13 @@ class ElasticTrainer:
         return state, loss
 
     def world_descriptor(self) -> WorldDescriptor:
-        """The world this trainer runs: pure dp over the process group,
-        ``+zero1`` when the zero-1 update runs (``zero1_mode``), so a
-        seated spec says what runs."""
+        """The world this trainer runs: its mesh's axes (pure dp over the
+        process group without one), ``+zero1`` when the zero-1 update runs
+        (``zero1_mode``), so a seated spec says what runs."""
+        sizes = (axis_sizes(self.mesh) if self.mesh is not None
+                 else {"dp": self.dp})
         return WorldDescriptor.from_axis_sizes(
-            {"dp": self.dp}, zero1=self.zero1_mode != "off")
+            sizes, zero1=self.zero1_mode != "off")
 
     # -- runtime config and the planner's hint ------------------------------
 

@@ -1,7 +1,7 @@
 """ZeRO-1: weight-update sharding across the dp axis (port of
 dlrover_tpu/train/zero1.py).
 
-Under pure dp every rank used to hold all of adam's ``mu`` and ``nu`` and
+Under dp every rank used to hold all of adam's ``mu`` and ``nu`` and
 repeat the whole update. With zero-1 on (``TrainConfig.zero1``, or the
 ``DLROVER_TPU_ZERO1`` flag, which overrides the knob in both directions)
 at dp above 1, each step of the trainer (train/trainer.py):
@@ -23,11 +23,15 @@ another dp re-derives every layout. A spec is a tuple in the JAX
 canonical form (parallel/sharding.py), so a spec compares equal across
 the packages.
 
-``mode_for`` gives ``"off"`` or ``"scatter"``, the JAX package's pure-dp
-strategy. The JAX ``"gspmd"`` mode (zero-1 beside fsdp, sp, tp or ep) and
-pp are later slices: a zero-1 request on a mesh with any other axis above
-1 raises, where the JAX package returns ``"gspmd"`` (or ``"off"`` for pp)
-and never silently runs replicated.
+``mode_for`` gives ``"off"``, ``"scatter"`` (the JAX package's pure-dp
+strategy) or ``"gspmd"`` (zero-1 beside fsdp): the params are fsdp
+DTensors (models/llama.py), and the layout works on each rank's fsdp
+shard over the dp group, so a leaf whose partition dim already carries
+fsdp (the lm-head, ``(("fsdp", "dp"), "tp")``) tiles it fsdp-major, as
+JAX tiles a spec entry, and its moments' placements are nested
+(parallel/sharding.py). Zero-1 beside sp, tp or ep, and with pp, are
+later slices: such a request raises, where the JAX package returns
+``"gspmd"`` (or ``"off"`` for pp), and never silently runs replicated.
 
 Known difference: the JAX scatter step reduce-scatters each microbatch's
 gradients and averages the ranks' local loss means; the port
@@ -45,7 +49,7 @@ import torch
 
 from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.parallel import sharding
-from dlrover_tpu_torch.parallel.mesh import axis_sizes
+from dlrover_tpu_torch.parallel.mesh import FSDP, axis_sizes
 
 Spec = Tuple[Any, ...]
 
@@ -79,23 +83,25 @@ def enabled(train_config) -> bool:
 
 
 def mode_for(mesh, train_config) -> str:
-    """``"off"`` or ``"scatter"`` for a trainer on ``mesh`` (a
-    ``DeviceMesh``, a ``MeshConfig`` or ``{axis: size}``; None is a world
-    of one). Off when zero-1 is not enabled or dp is 1; scatter on a
-    pure-dp mesh; a mesh with any other axis above 1 raises (the JAX
-    ``"gspmd"`` mode and pp are later slices)."""
+    """``"off"``, ``"scatter"`` or ``"gspmd"`` for a trainer on ``mesh``
+    (a ``DeviceMesh``, a ``MeshConfig`` or ``{axis: size}``; None is a
+    world of one). Off when zero-1 is not enabled or dp is 1; scatter on a
+    pure-dp mesh; gspmd where fsdp is the only other axis above 1; a mesh
+    with sp, tp, ep or pp above 1 raises (later slices)."""
     if not enabled(train_config) or mesh is None:
         return "off"
     sizes = axis_sizes(mesh)
     if sizes.get(ZERO1_AXIS, 1) <= 1:
         return "off"
-    mixed = {a: s for a, s in sizes.items() if a != ZERO1_AXIS and s > 1}
+    mixed = {a: s for a, s in sizes.items()
+             if a not in (ZERO1_AXIS, FSDP) and s > 1}
     if mixed:
         raise ValueError(
             f"zero-1 on a mesh with {mixed} beside dp={sizes[ZERO1_AXIS]}: "
-            "only pure dp (the JAX package's \"scatter\" mode) is ported; "
-            "the \"gspmd\" mode and pp come in a later slice")
-    return "scatter"
+            "only pure dp (the JAX package's \"scatter\" mode) and dp with "
+            "fsdp (\"gspmd\") are ported; beside sp, tp, ep or pp it comes "
+            "in a later slice")
+    return "gspmd" if sizes.get(FSDP, 1) > 1 else "scatter"
 
 
 def strip_spec(spec) -> Spec:
@@ -156,10 +162,13 @@ def scatter_dim(spec, shape, axis_sizes: Dict[str, int]) -> Optional[int]:
 
 @dataclasses.dataclass
 class Layout:
-    """The zero-1 layout of a replicated param tree on a pure-dp mesh:
-    each leaf's scatter dim (None for the replicated fallback) and the
-    collectives that move a leaf between its whole and this rank's
-    shard. ``rank`` is this process's dp coordinate."""
+    """The zero-1 layout of a param tree over the mesh's dp group: each
+    leaf's scatter dim (None for the replicated fallback) and the
+    collectives that move a leaf between this rank's params and its dp
+    shard. A param is whole on a pure-dp mesh (``"scatter"``) and this
+    rank's fsdp shard, a DTensor, beside fsdp (``"gspmd"``); either way
+    the dp split runs on the tensor the rank holds. ``rank`` is this
+    process's dp coordinate."""
 
     mesh: Any
     dp: int
@@ -173,8 +182,9 @@ class Layout:
         leaves = {}
         for path, p in named:
             shape = tuple(p.shape)
-            leaves[path] = (scatter_dim((), shape, sizes),
-                            partition_spec((), shape, sizes))
+            spec = sharding.spec_of(p) if hasattr(p, "to_local") else ()
+            leaves[path] = (scatter_dim(spec, shape, sizes),
+                            partition_spec(spec, shape, sizes))
         return cls(mesh=mesh, dp=sizes[ZERO1_AXIS],
                    rank=mesh.get_local_rank(ZERO1_AXIS), leaves=leaves)
 
@@ -185,52 +195,58 @@ class Layout:
     def dim(self, path: str) -> Optional[int]:
         return self.leaves[path][0]
 
-    def shard(self, path: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of a whole leaf, as a view of it (the leaf
+    def shard(self, path: str, held: torch.Tensor) -> torch.Tensor:
+        """This rank's dp shard of the tensor it holds of a leaf (the
+        whole leaf, or its fsdp shard), as a view of it (the tensor
         itself for a fallback)."""
         d = self.dim(path)
         if d is None:
-            return full
-        k = full.shape[d] // self.dp
-        return full.narrow(d, self.rank * k, k)
+            return held
+        k = held.shape[d] // self.dp
+        return held.narrow(d, self.rank * k, k)
 
     def zeros(self, path: str, p: torch.Tensor):
         """A zero moment for param ``p``: a DTensor holding this rank's
-        shard, or, for a fallback, a whole plain tensor."""
+        shard on the zero-1 spec, or, for a fallback, zeros laid out as
+        ``p`` (a DTensor stays one)."""
         d, spec = self.leaves[path]
         if d is None:
             return torch.zeros_like(p)
-        local = torch.zeros_like(self.shard(path, p),
+        local = torch.zeros_like(self.shard(path, sharding.local_of(p)),
                                  memory_format=torch.contiguous_format)
         return sharding.from_local(local, self.mesh, spec)
 
     @torch.no_grad()
-    def reduce_scatter(self, path: str, full: torch.Tensor) -> torch.Tensor:
-        """The dp sum of a gradient leaf, this rank's shard of it (laid
-        out as the moment's local shard); a fallback leaf is all-reduced
-        whole."""
+    def reduce_scatter(self, path: str, held: torch.Tensor) -> torch.Tensor:
+        """The dp sum of a gradient leaf (the tensor this rank holds of
+        it), this rank's shard of it (laid out as the moment's local
+        shard); a fallback leaf is all-reduced whole."""
         import torch.distributed as dist
 
         d = self.dim(path)
         if d is None:
-            dist.all_reduce(full, group=self.group)
-            return full
-        # the scatter runs over a contiguous leading dim
-        src = full if d == 0 else full.movedim(d, 0).contiguous()
+            dist.all_reduce(held, group=self.group)
+            return held
+        # the scatter runs over a contiguous leading dim: NCCL takes a dense
+        # strided tensor (the gradient of an fsdp gather along dim 1, as
+        # the embedding's) and cuts it in storage order
+        src = held.movedim(d, 0).contiguous()
         out = src.new_empty((src.shape[0] // self.dp,) + src.shape[1:])
         dist.reduce_scatter_tensor(out, src, group=self.group)
         return out if d == 0 else out.movedim(0, d)
 
     @torch.no_grad()
     def all_gather_(self, path: str, param: torch.Tensor) -> None:
-        """Gather every rank's updated shard into ``param``, in place: on
-        dim 0 the input is a view of the output's own chunk; on another
-        dim through a leading-dim buffer and back."""
+        """Gather every dp rank's updated shard into ``param`` (the tensor
+        this rank holds of it, a DTensor's local shard), in place: on dim
+        0 the input is a view of the output's own chunk; on another dim
+        through a leading-dim buffer and back."""
         import torch.distributed as dist
 
         d = self.dim(path)
         if d is None:
             return
+        param = sharding.local_of(param)
         if d == 0 and param.is_contiguous():
             dist.all_gather_into_tensor(param, self.shard(path, param),
                                         group=self.group)
@@ -243,4 +259,3 @@ class Layout:
         chunk.copy_(moved.narrow(0, self.rank * k, k))
         dist.all_gather_into_tensor(buf, chunk, group=self.group)
         moved.copy_(buf)
-

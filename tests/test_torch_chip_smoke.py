@@ -13,6 +13,7 @@ master, and the four-card leg's rank agreement and staged share: each
 check passes on good input and fails on each fault it is there to catch.
 """
 
+import copy
 import os
 import re
 import sys
@@ -1714,3 +1715,225 @@ def test_moment_sample_comparison_finds_a_misplaced_shard():
             "nu/embed": (mine[:10], None)}))
     with pytest.raises(chip_smoke.SmokeFailure, match="sampled leaves"):
         chip_smoke.compare_sample(ref, {"mu/embed": same["mu/embed"]})
+
+
+# -- the four-card fsdp leg ----------------------------------------------------
+
+F_SHAPES = {"embed": (512, 64), "layers/attn_norm": (2, 64),
+            "layers/wq": (2, 64, 64), "final_norm": (64,),
+            "lm_head": (64, 512)}
+F_ROWS = F_SHAPES["lm_head"][0]
+
+
+def _f_held(split_of):
+    """``leaf_bytes`` of the tree ``F_SHAPES`` under ``split_of(path)``."""
+    import math
+
+    return {path: [math.prod(s), math.prod(s) // split_of(path), 4]
+            for path, s in F_SHAPES.items()}
+
+
+def _f_samples(fault):
+    """Merged samples (``merge_samples``'s form) of the fsdp4 run and the
+    zero-1 run at init and after step 1: four sharded leaves of 2^18
+    sampled params whose holder is the quarter they lie in, and a norm
+    every rank holds. The fsdp4 run steps each by 1e-3 up or down, the
+    zero-1 run the same to 1e-7. ``fault``: the zero-1 run leaves shard 2
+    of the first leaf where it was (``delta_miss``), or starts from
+    another init (``init_differs``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    n = 1 << 18
+    names = [f"params/{w}" for w in ("embed", "layers/wq", "layers/wo",
+                                     "lm_head")]
+    ref_init, ref_first, init, first = {}, {}, {}, {}
+    for name in names + ["params/final_norm"]:
+        size = 64 if name.endswith("norm") else n
+        holder = (np.full(size, -1) if size == 64
+                  else np.arange(size) * 4 // size)
+        v0 = rng.normal(size=size) * 0.02
+        up = np.sign(rng.normal(size=size)) * 1e-3
+        ref_init[name] = (v0, holder)
+        ref_first[name] = (v0 - up, holder)
+        z0 = v0.copy()
+        z1 = v0 - up * (1 + 1e-7)
+        if fault == "delta_miss" and name == names[0]:
+            z1 = np.where(holder == 2, v0, z1)
+        if fault == "init_differs" and name == names[1]:
+            z0[5] += 1e-3
+        init[name] = (z0, holder)
+        first[name] = (z1, holder)
+    return ref_init, ref_first, init, first
+
+
+def _fsdp_case(fault="none"):
+    """Results of the fsdp leg's three runs of four ranks, made up, that
+    pass every check unless ``fault`` says otherwise; and the samples."""
+    counts = {"flash_fwd": 64, "fused_ce_fwd": 4}
+
+    def quarter(path):
+        return 1 if "norm" in path else 4
+
+    def moments(split_of):
+        return {f"{key}/{p}": v for key in ("mu", "nu")
+                for p, v in _f_held(split_of).items()}
+
+    param_held = _f_held(quarter)
+    pbytes = sum(h * 4 for _, h, _ in param_held.values())
+
+    def crcs(r):
+        return {"params/embed": 10 * r, "opt/mu/embed": 10 * r + 1,
+                "step": 2}
+
+    def steps(first, losses):
+        return [{"step": first + i, "loss": x, "seconds": 1.2,
+                 "grad_bytes": pbytes} for i, x in enumerate(losses)]
+
+    losses = (11.9, 11.7, 11.6, 11.5)
+    common = {"world": 4, "tokens_per_step": 16384, "params": param_held,
+              "moments": moments(quarter), "build_s": 9.0,
+              "init_peak_bytes": 24e9, "max_memory_bytes": 45e9,
+              "seconds": 60.0}
+    life1 = [dict(common, rank=r, mode="off", mesh="fsdp4", restore=None,
+                  steps=steps(1, losses[:3]), crc=crcs(r),
+                  counts=dict(counts),
+                  save={"pause_s": 5.0, "mode": "device_snapshot",
+                        "staged_bytes": 3 * pbytes})
+             for r in range(4)]
+    life2 = [dict(common, rank=r, mode="off", mesh="fsdp4",
+                  restore={"step": 2, "tier": "shm", "tiers_read": ["shm"],
+                           "seconds": 10.0, "bytes": 3 * pbytes},
+                  steps=steps(3, losses[2:]), crc=crcs(r),
+                  counts=dict(counts))
+             for r in range(4)]
+    zero1 = []
+    for r in range(4):
+        dp, fsdp = divmod(r, 2)
+        block = fsdp * 2 + dp
+        zero1.append(dict(
+            common, rank=r, mode="gspmd", mesh="dp2xfsdp2+zero1",
+            params=_f_held(lambda p: 1 if "norm" in p else 2),
+            moments=moments(lambda p: 2 if "norm" in p else 4),
+            steps=steps(1, (losses[0] + 1e-6, losses[1])),
+            counts=dict(counts),
+            lm_head_mu={"spec": [["fsdp", "dp"]],
+                        "region": [[block * F_ROWS // 4,
+                                    (block + 1) * F_ROWS // 4],
+                                   [0, F_SHAPES["lm_head"][1]]],
+                        "dp": dp, "fsdp": fsdp, "rows": F_ROWS}))
+    for r in zero1:
+        for st in r["steps"]:
+            st["grad_bytes"] = sum(h * 4 for _, h, _ in r["params"].values())
+    # every rank's own copy, so that a fault touches one rank
+    life1, life2, zero1 = ([copy.deepcopy(r) for r in run]
+                           for run in (life1, life2, zero1))
+    if fault == "disk":
+        life2[2]["restore"].update(tier="disk", tiers_read=["shm", "disk"])
+    elif fault == "resumed_loss":
+        for r in life2:
+            r["steps"][0]["loss"] += 2e-4
+    elif fault == "restore_crc":
+        life2[1]["crc"]["opt/mu/embed"] += 1
+    elif fault == "whole_leaf":
+        life1[3]["params"]["layers/wq"][1] *= 4
+    elif fault == "moments_whole":
+        life2[0]["moments"]["mu/lm_head"][1] *= 4
+    elif fault == "dp_major":
+        # rank (dp, fsdp) holding block dp * 2 + fsdp: DTensor's default
+        for r in zero1:
+            mu = r["lm_head_mu"]
+            block = mu["dp"] * 2 + mu["fsdp"]
+            mu["region"][0] = [block * F_ROWS // 4, (block + 1) * F_ROWS // 4]
+    elif fault == "misplaced":
+        zero1[1]["lm_head_mu"]["region"][0] = [0, F_ROWS // 4]
+    elif fault == "zero1_moments":
+        zero1[2]["moments"]["nu/embed"][1] *= 2
+    elif fault == "zero1_loss":
+        for r in zero1:
+            r["steps"][0]["loss"] += 2e-4
+    elif fault == "zero1_mode":
+        zero1[0]["mode"] = "off"
+    elif fault == "rank_loss":
+        life1[2]["steps"][1]["loss"] += 1e-6
+    elif fault == "memory":
+        life1[1]["max_memory_bytes"] = 81e9
+    elif fault == "init_peak":
+        zero1[3]["init_peak_bytes"] = 50e9
+    elif fault == "no_launch":
+        life2[3]["counts"]["flash_fwd"] = 0
+    elif fault == "restored_step":
+        life2[0]["restore"]["step"] = 1
+    return (life1, life2, zero1) + _f_samples(fault)
+
+
+def test_fsdp_checks_pass():
+    case = _fsdp_case()
+    d = chip_smoke.check_fsdp(*case)
+    assert sorted(d["quarters"]) == ["0", "1", "2", "3", "all"]
+    assert d["init_differs"] == 0 and d["moved"] == d["elements"]
+    assert sum(e["misses"] for e in d["quarters"].values()) == 0
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("disk", "life 2 rank 2: restored by tier disk"),
+    ("resumed_loss", "resumed step 3 loss"),
+    ("restore_crc", "life 2 rank 1's restored state"),
+    ("whole_leaf", "rank 3 holds .* of layers/wq's .* not 1/4"),
+    ("moments_whole", "rank 0 holds .* of mu/lm_head's"),
+    ("dp_major", "zero-1 rank 1: lm_head's moments hold rows"),
+    ("misplaced", "zero-1 rank 1: lm_head's moments hold rows"),
+    ("zero1_moments", "zero-1 rank 2: holds .* of nu/embed's"),
+    ("zero1_loss", "step-1 loss"),
+    ("zero1_mode", "zero-1 rank 0: mode off"),
+    ("rank_loss", "life 1: the ranks' losses differ"),
+    ("memory", "life 1: rank 1 max_memory_allocated"),
+    ("init_peak", "zero-1: rank 3 max_memory_allocated"),
+    ("no_launch", "kernel flash_fwd never launched on rank 3"),
+    ("restored_step", "life 2 rank 0: restored"),
+    ("delta_miss", "shard 2: the zero-1 change from init misses"),
+    ("init_differs", "1 sampled params differ at init"),
+])
+def test_fsdp_checks_fail_on_each_fault(fault, match):
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_fsdp(*_fsdp_case(fault))
+
+
+def test_fsdp_samples_merge_the_ranks_regions():
+    """A whole tree's ``fsdp_sample`` is ``param_sample``'s values at every
+    position; quarters merge with their holder, replicas must agree, and a
+    position no rank holds fails."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    params = _z1_tree({p: torch.randn(s, generator=g)
+                       for p, s in F_SHAPES.items()})
+    whole = chip_smoke.fsdp_sample(torch, params)
+    ref = chip_smoke.param_sample(torch, params, 4)
+    merged = chip_smoke.merge_samples([whole])
+    for name, (values, _) in ref.items():
+        assert np.array_equal(merged[name][0], values)
+        assert (merged[name][1] == -1).all()
+    parts = []
+    for r in range(4):
+        part = {}
+        for name, (pos, val, n) in whole.items():
+            keep = (pos * 4 // n == r) if "norm" not in name else pos >= 0
+            part[name] = (pos[keep], val[keep], n)
+        parts.append(part)
+    merged = chip_smoke.merge_samples(parts)
+    n = whole["params/lm_head"][2]
+    assert np.array_equal(merged["params/lm_head"][1],
+                          np.arange(n) * 4 // n)
+    assert (merged["params/final_norm"][1] == -1).all()
+    stale = [dict(p) for p in parts]
+    pos, val, n = stale[1]["params/final_norm"]
+    stale[1]["params/final_norm"] = (pos, val + 1, n)
+    with pytest.raises(chip_smoke.SmokeFailure, match="disagrees"):
+        chip_smoke.merge_samples(stale)
+    gap = [dict(p) for p in parts]
+    pos, val, n = gap[0]["params/embed"]
+    gap[0]["params/embed"] = (pos[1:], val[1:], n)
+    with pytest.raises(chip_smoke.SmokeFailure, match="held by no rank"):
+        chip_smoke.merge_samples(gap)

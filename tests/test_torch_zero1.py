@@ -141,14 +141,16 @@ MODE_CASES = [
                                                 s.items()))
 @pytest.mark.parametrize("on", [False, True])
 def test_mode_for_matches_jax_or_refuses(sizes, on):
-    """Off and scatter as the JAX package gives them; where the JAX
-    package would run ``"gspmd"`` (or, for pp, replicated), the port
-    raises."""
+    """Off, scatter and gspmd beside fsdp as the JAX package gives them;
+    where the JAX package would run ``"gspmd"`` beside sp, tp or ep (or,
+    for pp, replicated), the port raises."""
     jtc = jtrainer.TrainConfig(zero1=on)
     want = jzero1.mode_for(_Mesh(sizes), jtc, has_factory=True)
     tc = TrainConfig(zero1=on)
     full = {a: sizes.get(a, 1) for a in tmesh.AXIS_ORDER}
-    if want == "gspmd" or (want == "off" and on and sizes.get("dp", 1) > 1):
+    beside = {a for a, n in full.items() if a != "dp" and n > 1}
+    if (want == "gspmd" and beside != {"fsdp"}) or (
+            want == "off" and on and sizes.get("dp", 1) > 1):
         with pytest.raises(ValueError, match="only pure dp"):
             tzero1.mode_for(full, tc)
     else:
