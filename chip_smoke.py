@@ -25,8 +25,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    shape and for non-causal, ragged, group-1, head-dim-64, ViT-B/16
    (non-causal, s 196, head dim 64, batch 64), two cases that cut the
    128-row tiles (s 130 with batches meeting inside a tile, and s 200 at
-   head dim 64) and one of group 8 (s 300: every dk/dv tile takes the
-   most query heads, and both the 64- and 128-row tiles are cut); each
+   head dim 64), one of group 8 (s 300: every dk/dv tile takes the
+   most query heads, and both the 64- and 128-row tiles are cut) and the
+   four-card tp leg's local heads of the main shape (``TP_LOCAL_CASES``:
+   h 16 / hkv 4 at tp2, h 8 / hkv 2 at tp4); each
    fused-CE kernel (fwd, merge, bwd_q, bwd_dx, bwd_dw) against its plain
    version for the main-path shape and for ragged, ragged-d (every edge of
    the wgmma tiles), ViT, all-masked, last-column and half-tile cases;
@@ -42,8 +44,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    back-to-back calls (``cuda_ms``). Each kernel's timing block starts
    after a synchronise and an idle gap of ``IDLE_GAP_S``, so no block
    inherits the clocks or heat of the one before, and the SM clock and
-   power draw are printed after it. Last, the whole forward and backward
-   of the fused CE against the chunked CE at the main-path shape.
+   power draw are printed after it. The flash kernels at the tp-local
+   heads are timed once each beside their plain versions and bounds
+   (``phase_tp_timing``; on the JSON line as each flash kernel's
+   ``tp_local``). Last, the whole forward and backward of the fused CE
+   against the chunked CE at the main-path shape.
 4. main path: 4 training steps of the Llama-3-8B-width model cut to 4 of
    32 layers (seq 2048, micro-batch 1, global batch 2) through the port's
    ``ElasticTrainer``, with every kernel launch counter at 0 just before
@@ -403,8 +408,24 @@ change of the sampled params against fsdp4's as the zero-1 leg holds its
 step 1 (``compare_delta``). Prints each rank's param, gradient and moment
 bytes and peaks, each step's wall, tokens/s a card and MFU, the save's
 pause, each restore's tier and seconds, each rank's kernel launches and
-the leg's seconds, beside the card's name and power limit. The last line
-is the contract's, with the cards' count.
+the leg's seconds, beside the card's name and power limit.
+
+Then the tp leg (``TP_*``, ``_tp_leg``): the fsdp leg's configuration
+through ``run/llama_pretrain.py --tp 2``, ranks of ``chip_smoke.py
+--tp-child ROLE DIR`` bootstrapped as there, no checkpoint.
+``fsdp2xtp2``: ``--fsdp 2 --tp 2`` (the JAX example's layout), steps 1-3;
+``dp2xtp2``: dp2 x tp2 under ``--zero1`` (``"gspmd"``), steps 1-2, from
+the same init. ``check_tp``: each run's mode and mesh, its losses equal
+across its ranks, its step-1 loss within ``TP_LOSS_RTOL`` (relative) of
+the fsdp leg's fsdp4 step-1 loss; every rank's params, moments and
+gradients at the arithmetic's share (fsdp2 x tp2: a quarter of every
+matrix, the norms whole; dp2 x tp2: half of every matrix, its moments a
+quarter, the norms' moments half), its ``max_memory_allocated`` under
+``FSDP_MEMORY_MAX``, every kernel launched on every rank. Prints each
+rank's bytes, peaks and launches, each step's wall (slowest rank),
+tokens/s a card (the global batch's tokens over the four cards) and MFU,
+and a ``kernels`` line of each kernel's launches by run and rank. The
+last line is the contract's, with the cards' count.
 
 Exits with code 2 and prints no result when CUDA is not available.
 ``--ckpt-child ROLE DIR`` runs one of phase 4c's children or the
@@ -413,7 +434,8 @@ phase 4d's worker (``shards``) or one of phase 4e's (``relaunch``,
 ``hang``), ``--master-child SPEC`` the scale-out leg's master, and
 ``--zero1-child ROLE DIR`` a rank of the zero-1 leg (``dp4``, ``dp2``),
 ``--fsdp-child ROLE DIR`` one of the fsdp leg's (``life1``, ``life2``,
-``zero1``); none is run by hand.
+``zero1``), ``--tp-child ROLE DIR`` one of the tp leg's (``fsdp2xtp2``,
+``dp2xtp2``); none is run by hand.
 """
 
 import contextlib
@@ -431,6 +453,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import uuid
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -477,7 +500,13 @@ CASES = [
     # one kv head for eight query heads: the most blocks adding into each
     # dk/dv tile, and s 300 cuts the 64- and the 128-row tiles
     ("mqa_group8", dict(b=2, s=300, h=8, hkv=1, d=128, causal=True)),
+    # the four-card tp leg's local heads of the main shape: a tp rank's
+    # 32/tp query heads and 8/tp kv heads (group 4 either way)
+    ("tp2_local", dict(b=1, s=2048, h=16, hkv=4, d=128, causal=True)),
+    ("tp4_local", dict(b=1, s=2048, h=8, hkv=2, d=128, causal=True)),
 ]
+#: the cases timed beside the main shape (``phase_tp_timing``)
+TP_LOCAL_CASES = ("tp2_local", "tp4_local")
 
 
 # fused CE, kernel vs plain version on the same bf16 inputs: logits are
@@ -762,6 +791,28 @@ FSDP_ZERO1_STEPS = 2
 FSDP_LOSS_TOL = 1e-4
 FSDP_MEMORY_MAX = 80e9
 FSDP_TIMEOUT_S = 600
+# the four-card tp leg (``_tp_leg``): the fsdp leg's configuration at
+# fsdp2 x tp2, the JAX example's layout, steps 1 to TP_STEPS, then dp2 x
+# tp2 under zero-1 ("gspmd") from the same init for TP_ZERO1_STEPS steps.
+# Each run's step-1 loss within TP_LOSS_RTOL (relative) of the fsdp leg's
+# fsdp4 step-1 loss: the same init cut another way, on the same 8 rows,
+# but the row-parallel products round to bf16 before the tp all-reduce
+# sums them. bf16 compute at tp2 against one process on the CPU
+# (tests/test_torch_tp.py's bf16_drift: dim 128, 8/4 heads, 2 and 8
+# layers, four seeds) parted by at most 3.7e-5 relative; the bound is
+# 13.7 times that, under 1e-3
+TP_SIZE = 2
+TP_FSDP = 2
+TP_STEPS = 3
+TP_ZERO1_STEPS = 2
+TP_LOSS_RTOL = 5e-4
+TP_TIMEOUT_S = 300
+# the tp ranks' caching allocator grows its segments in place: dp2 x tp2
+# zero-1 holds the f32 accumulator and a second microbatch's gradients
+# (16.1 GB each) beside params and moments, and fixed segments left 11.56
+# GiB reserved but unallocated when a 3.5 GiB gradient did not fit (my
+# chip run 1, PR 19)
+TP_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
 # bf16 dense peak of an H100 SXM, for MFU (PERF.md section 2)
 PEAK_FLOPS = 989e12
 # manifests, commit votes and the tracker beside a persisted step's leaves
@@ -990,9 +1041,13 @@ def check_dkv_deterministic(torch, attention, case=MAIN_CASE):
 
 
 def phase_kernels(torch, attention):
+    """Every case of ``CASES`` against the plain versions; returns the
+    main case's worst error a kernel and its inputs, and the same for
+    each of ``TP_LOCAL_CASES`` (``{label: (errors, inputs)}``)."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     errors = {}
     timing = None
+    tp_local = {}
     for label, case in CASES:
         b, s, h, hkv, d, causal = (case[k] for k in
                                    ("b", "s", "h", "hkv", "d", "causal"))
@@ -1039,13 +1094,17 @@ def phase_kernels(torch, attention):
             if label == "main":
                 errors[name] = worst
                 timing = (q, k, v, do, lse_p, delta)
-    return errors, timing
+            if label in TP_LOCAL_CASES:
+                tp_local.setdefault(label, ({}, (q, k, v, do, lse_p,
+                                                 delta)))[0][name] = worst
+    return errors, timing, tp_local
 
 
-def phase_timing(torch, F, attention, inputs):
+def _flash_runs(attention, inputs, c):
+    """name -> (kernel call, plain call) of the three flash kernels on
+    ``inputs`` (q, k, v, do, lse, delta), causal ``c``."""
     q, k, v, do, lse, delta = inputs
-    c = MAIN_CASE["causal"]
-    runs = {
+    return {
         "flash_fwd": (lambda: attention.flash_fwd(q, k, v, c),
                       lambda: attention.mha_reference_with_lse(q, k, v, c)),
         "flash_bwd_dq": (
@@ -1055,6 +1114,39 @@ def phase_timing(torch, F, attention, inputs):
             lambda: attention.flash_bwd_dkv(q, k, v, do, lse, delta, c),
             lambda: attention.flash_bwd_dkv_plain(q, k, v, do, lse, delta, c)),
     }
+
+
+def phase_tp_timing(torch, attention, tp_local):
+    """Each flash kernel and its plain version timed once at each of the
+    tp leg's local head counts (after the idle gap, by CUDA events), with
+    the case's bound: ``{label: {kernel: {h, hkv, ms, plain_ms, bound_ms,
+    bound_by, max_abs_err}}}``."""
+    out = {}
+    for label in TP_LOCAL_CASES:
+        case = dict(CASES)[label]
+        errs, inputs = tp_local[label]
+        bound = bounds(case)
+        out[label] = {}
+        for name, (kernel, plain) in _flash_runs(attention, inputs,
+                                                 case["causal"]).items():
+            settle(torch)
+            k_ms = cuda_ms(torch, kernel)
+            p_ms = cuda_ms(torch, plain, iters=5)
+            out[label][name] = {
+                "h": case["h"], "hkv": case["hkv"], "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": bound[name][0],
+                "bound_by": bound[name][1], "max_abs_err": errs[name]}
+            print(f"  [{label}] {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {bound[name][0]:.4f} ms ({bound[name][1]}), "
+                  f"{k_ms / bound[name][0]:.2f}x bound; sm clock, power: "
+                  f"{clocks_line()}", flush=True)
+    return out
+
+
+def phase_timing(torch, F, attention, inputs):
+    q, k, v, do, lse, delta = inputs
+    c = MAIN_CASE["causal"]
+    runs = _flash_runs(attention, inputs, c)
     times = {}
     for name, (kernel, plain) in runs.items():
         settle(torch)
@@ -5943,6 +6035,7 @@ def _fsdp_leg(torch):
         print(f"  fsdp leg: life 1 {t1 - t0:.1f} s, life 2 {t2 - t1:.1f} s, "
               f"zero-1 {t3 - t2:.1f} s, {time.perf_counter() - t0:.1f} s in "
               f"all; every check passed ({card})", flush=True)
+        return life1[0]["steps"][0]["loss"]
     finally:
         host.stop()
         for pid in range(FSDP_WORLD):
@@ -5950,6 +6043,217 @@ def _fsdp_leg(torch):
         shutil.rmtree(workdir, ignore_errors=True)
         shutil.rmtree(os.path.dirname(os.path.dirname(
             default_socket_path(job, 0))), ignore_errors=True)
+
+
+def _tp_args(role):
+    """``run/llama_pretrain.py``'s options for the tp leg: the fsdp leg's
+    (the whole 32-layer Llama-3-8B, seq 2048, micro-batch 1, the
+    four-card global batch, no lr warmup, synthetic tokens from seed 0)
+    at ``--tp 2`` beside ``--fsdp 2`` (``fsdp2xtp2``) or beside dp under
+    ``--zero1`` (``dp2xtp2``)."""
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    steps = TP_STEPS if role == "fsdp2xtp2" else TP_ZERO1_STEPS
+    argv = ["--model", "8b", "--layers", "0", "--seq", str(DATA_SEQ),
+            "--micro-batch", "1", "--global-batch",
+            str(FOUR_CARD_GLOBAL_BATCH), "--steps", str(steps),
+            "--warmup-steps", "0", "--device", "cuda", "--seed", "0",
+            "--tp", str(TP_SIZE)]
+    argv += (["--fsdp", str(TP_FSDP)] if role == "fsdp2xtp2"
+             else ["--zero1"])
+    return llama_pretrain.parse_args(argv)
+
+
+def tp_child(role, workdir):
+    """One rank of the tp leg (``_tp_leg``), its process group formed by
+    ``train/bootstrap.py`` from the environment the leg sets: ``role``'s
+    steps through ``llama_pretrain.build`` with the launch counters at 0
+    just before them; prints one JSON result (the held bytes of the
+    params and moments, each step's loss, wall and gradient bytes, the
+    launch counts and the peaks)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dlrover_tpu_torch.train import bootstrap
+
+    t0 = time.perf_counter()
+    ctx = bootstrap.init()
+    rank, world = bootstrap.process_index(), bootstrap.process_count()
+    try:
+        return _tp_run(torch, role, t0, rank, world,
+                       f"cuda:{ctx.local_rank}")
+    except BaseException:
+        # exit at once: the peers' NCCL wait would hold this process, and
+        # the leg, to its timeout
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def _tp_run(torch, role, t0, rank, world, device):
+    """``tp_child``'s run on ``device`` once the group has formed."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    args = _tp_args(role)
+    _, trainer, state, next_batch, tokens = llama_pretrain.build(args,
+                                                                 device)
+    result = {"rank": rank, "world": world, "mode": trainer.zero1_mode,
+              "mesh": trainer.world_descriptor().spec,
+              "tokens_per_step": tokens,
+              "params": leaf_bytes(state["params"]),
+              "moments": leaf_bytes({"mu": state["opt"]["mu"],
+                                     "nu": state["opt"]["nu"]}),
+              "build_s": time.perf_counter() - t0,
+              "init_peak_bytes": torch.cuda.max_memory_allocated(device)}
+    _reset_counts(attention, fce, [0])
+    torch.cuda.reset_peak_memory_stats(device)
+    result["steps"] = []
+    for step in range(1, args.steps + 1):
+        state, loss, seconds = llama_pretrain.timed_step(trainer, state,
+                                                         next_batch())
+        result["steps"].append({"step": step, "loss": loss,
+                                "seconds": seconds,
+                                "grad_bytes": trainer.grad_bytes})
+        print(f"rank {rank} {role} step {step} loss {loss:.6f} "
+              f"({seconds:.3f}s)", flush=True)
+    result["counts"] = _launch_counts(attention, fce)
+    result["max_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    result["seconds"] = time.perf_counter() - t0
+    print("CHILD_JSON " + json.dumps(result), flush=True)
+    dist.barrier()
+    return 0
+
+
+def _tp_split(path, fsdp, dp_moments=1):
+    """The factor a rank's share of leaf ``path`` is cut by: fsdp times
+    tp for a matrix, whole for a norm; ``dp_moments`` more for a zero-1
+    moment (a norm's moments too)."""
+    return (1 if "norm" in path else fsdp * TP_SIZE) * dp_moments
+
+
+def check_tp(runs, fsdp4_loss):
+    """The tp leg's checks over each run's ranks' results, in rank order
+    (``runs``: ``{"fsdp2xtp2": [...], "dp2xtp2": [...]}``): every run's
+    mode and mesh, its losses equal across its ranks and finite, its
+    step-1 loss within TP_LOSS_RTOL of ``fsdp4_loss``; every rank's
+    params, moments and gradients at the arithmetic's share, its peak
+    under FSDP_MEMORY_MAX and not under the init's, every kernel
+    launched."""
+    world = FSDP_WORLD
+    want = {"fsdp2xtp2": ("off", "fsdp2xtp2", TP_FSDP, 1, TP_STEPS),
+            "dp2xtp2": ("gspmd", "dp2xtp2+zero1", 1, 2, TP_ZERO1_STEPS)}
+    for name, (mode, mesh, fsdp, dp, steps) in want.items():
+        rs = runs[name]
+        check([r["rank"] for r in rs] == list(range(world)),
+              f"{name}: ranks {[r['rank'] for r in rs]}")
+        losses = [[st["loss"] for st in r["steps"]] for r in rs]
+        check(all(x == losses[0] for x in losses),
+              f"{name}: the ranks' losses differ: {losses}")
+        check(len(losses[0]) == steps
+              and all(math.isfinite(x) for x in losses[0]),
+              f"{name}: losses {losses[0]}")
+        rel = abs(losses[0][0] - fsdp4_loss) / abs(fsdp4_loss)
+        check(rel <= TP_LOSS_RTOL,
+              f"{name}: step-1 loss {losses[0][0]} against fsdp4's "
+              f"{fsdp4_loss}, {rel:.3e} relative > {TP_LOSS_RTOL}")
+        for r in rs:
+            at = f"{name} rank {r['rank']}"
+            check(r["mode"] == mode and r["mesh"] == mesh,
+                  f"{at}: mode {r['mode']} on {r['mesh']}")
+            for tree, z in (("params", 1), ("moments", dp)):
+                for path, (total, held, _) in r[tree].items():
+                    split = _tp_split(path, fsdp, z)
+                    check(held * split == total,
+                          f"{at}: holds {held} of {tree} {path}'s {total} "
+                          f"elements, not 1/{split}")
+            for st in r["steps"]:
+                check(st["grad_bytes"] == _held_bytes(r, "params"),
+                      f"{at} step {st['step']}: gradients "
+                      f"{st['grad_bytes']} bytes, params "
+                      f"{_held_bytes(r, 'params')}")
+            for kname, n in r["counts"].items():
+                check(n > 0, f"{at}: kernel {kname} never launched")
+            check(r["init_peak_bytes"] <= r["max_memory_bytes"]
+                  < FSDP_MEMORY_MAX,
+                  f"{at}: max_memory_allocated {r['max_memory_bytes']} in "
+                  f"the steps, {r['init_peak_bytes']} before them")
+
+
+def tp_kernels_line(runs):
+    """The tp leg's ``kernels`` line: each kernel's launches by run and
+    rank."""
+    kernels = []
+    for table, source in ((KERNELS, SOURCE), (CE_KERNELS, CE_SOURCE)):
+        for kname, _, replaces in table:
+            kernels.append({
+                "name": kname, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": {name: [r["counts"][kname] for r in rs]
+                             for name, rs in runs.items()}})
+    return json.dumps({"kernels": kernels})
+
+
+def print_tp(runs, fsdp4_loss, n_params, card):
+    """The tp leg's readings, each beside the cards' name and power
+    limit."""
+    for name, rs in runs.items():
+        for r in rs:
+            print(f"  {name} rank {r['rank']}: params "
+                  f"{_held_bytes(r, 'params')} bytes, grads "
+                  f"{r['steps'][-1]['grad_bytes']} bytes, moments "
+                  f"{_held_bytes(r, 'moments')} bytes, max_memory_allocated "
+                  f"{r['max_memory_bytes']} (before the steps "
+                  f"{r['init_peak_bytes']}); build {r['build_s']:.1f} s, "
+                  f"the run {r['seconds']:.1f} s; launches "
+                  f"{json.dumps(r['counts'])} ({card})", flush=True)
+        per_card = rs[0]["tokens_per_step"] / len(rs)
+        for i, st in enumerate(rs[0]["steps"]):
+            wall = max(r["steps"][i]["seconds"] for r in rs)
+            mfu = 6 * n_params * per_card / wall / PEAK_FLOPS
+            print(f"  {name} step {st['step']}: loss {st['loss']:.6f}, step "
+                  f"wall {wall:.4f} s (slowest rank), {per_card / wall:.1f} "
+                  f"tokens/s a card, MFU {mfu:.4f} ({card})", flush=True)
+        got = rs[0]["steps"][0]["loss"]
+        print(f"  {name} step-1 loss {got:.6f} against fsdp4's "
+              f"{fsdp4_loss:.6f}: {abs(got - fsdp4_loss) / fsdp4_loss:.3e} "
+              f"relative (bound {TP_LOSS_RTOL})", flush=True)
+
+
+def _tp_leg(torch, fsdp4_loss):
+    """The four-card tp leg (module docstring)."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    n_params = llama.param_count(llama_pretrain.model_config("8b", 0))
+    card = "; ".join(sorted(set(nvidia_smi_line().splitlines())))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    job = f"chip_smoke_tp_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    t0 = time.perf_counter()
+    try:
+        runs, walls = {}, {}
+        for name in ("fsdp2xtp2", "dp2xtp2"):
+            t = time.perf_counter()
+            runs[name] = _run_ranks("--tp-child", "tp", name, FSDP_WORLD,
+                                    workdir, job, TP_TIMEOUT_S, TP_ENV)
+            walls[name] = time.perf_counter() - t
+        print_tp(runs, fsdp4_loss, n_params, card)
+        check_tp(runs, fsdp4_loss)
+        print(tp_kernels_line(runs), flush=True)
+        print(f"  tp leg: fsdp2 x tp2 {walls['fsdp2xtp2']:.1f} s, dp2 x tp2 "
+              f"zero-1 {walls['dp2xtp2']:.1f} s, "
+              f"{time.perf_counter() - t0:.1f} s in all; every check passed "
+              f"({card})", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def main_four_card():
@@ -6104,7 +6408,10 @@ def main_four_card():
     _zero1_leg(torch)
     print("== the four-card leg: the 32-layer Llama-3-8B at fsdp4, a killed "
           "rank restored from shm, and dp2 x fsdp2 under zero-1", flush=True)
-    _fsdp_leg(torch)
+    fsdp4_loss = _fsdp_leg(torch)
+    print("== the four-card leg: the 32-layer Llama-3-8B at fsdp2 x tp2, and "
+          "dp2 x tp2 under zero-1", flush=True)
+    _tp_leg(torch, fsdp4_loss)
     print(f"== done in {time.perf_counter() - t_start:.1f}s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6164,9 +6471,11 @@ def main():
     check_dkv_deterministic(torch, attention)
 
     print("== phase 3: kernels against their plain versions", flush=True)
-    errors, inputs = phase_kernels(torch, attention)
+    errors, inputs, tp_local = phase_kernels(torch, attention)
     times, sdpa_fwd, sdpa_bwd = phase_timing(torch, F, attention, inputs)
     del inputs
+    tp_times = phase_tp_timing(torch, attention, tp_local)
+    del tp_local
     bound = bounds(MAIN_CASE)
     for kname, (k_ms, p_ms) in times.items():
         print(f"  {kname}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
@@ -6235,6 +6544,9 @@ def main():
         if kname != "flash_fwd":
             # one SDPA backward computes dq, dk and dv: the pair's yardstick
             entry["library_of"] = "pair"
+        # the tp leg's local head counts, timed once each
+        entry["tp_local"] = {label: tp_times[label][kname]
+                             for label in TP_LOCAL_CASES}
         kernels.append(entry)
     for kname, _, replaces in CE_KERNELS:
         kernels.append({
@@ -6265,6 +6577,8 @@ if __name__ == "__main__":
             sys.exit(zero1_child(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--fsdp-child"]:
             sys.exit(fsdp_child(*sys.argv[2:4]))
+        if sys.argv[1:2] == ["--tp-child"]:
+            sys.exit(tp_child(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--four-card"]:
             sys.exit(main_four_card())
         sys.exit(main())

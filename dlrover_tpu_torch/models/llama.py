@@ -1,5 +1,5 @@
 """Llama-3-family decoder (port of dlrover_tpu/models/llama.py, the non-pp
-path: one device, dp, and fsdp on a ``DeviceMesh``).
+path: one device, and dp, fsdp and tp on a ``DeviceMesh``).
 
 The parameter layout is the JAX package's, so weights cross between the two
 through numpy with no transposes: per-layer leaves are stacked on a leading
@@ -12,22 +12,49 @@ does: the fused-CE kernels (``ops/fused_ce.py``) by default, the chunked
 cross-entropy under ``DLROVER_TPU_FUSED_CE=0``; under
 ``DLROVER_TPU_CHUNKED_CE=0`` it computes dense f32 logits instead.
 
-Fully sharded params (ZeRO-3). On a mesh with ``fsdp`` above 1 every
-param is a DTensor placed per ``param_specs`` (``init_params`` and
+Sharded params. On a mesh with fsdp or tp above 1 every param is a
+DTensor placed per ``param_specs`` (``init_params`` and
 ``models/convert.py::params_from_jax`` place them; each rank holds
-``1/fsdp`` of every matrix, the norms whole), and the forward gathers
-what it needs as the JAX package's weight-gathered path does: the
+``1/(fsdp·tp)`` of every matrix, the norms whole).
+
+Fully sharded params (ZeRO-3, fsdp above 1): the forward gathers what it
+needs over fsdp as the JAX package's weight-gathered path does: the
 embedding before its lookup, each layer's matrices inside the remat
 boundary (so the recomputed forward gathers again rather than keep a
 whole layer), the lm-head before the fused CE. A gather is an all-gather
-over the mesh's fsdp group; its backward reduce-scatters the gradient
-in f32, so a shard's gradient is the sum over the fsdp ranks that the
+over the mesh's fsdp group; its backward reduce-scatters the gradient in
+f32, so a shard's gradient is the sum over the fsdp ranks that the
 replicated dp step would all-reduce. The layer matrices are gathered as
 their compute-dtype casts (half the bytes; the cast is element-wise, so
 the forward is the same), the embedding and the lm-head in f32, whose
-gradients the lookup and the fused CE form in the weight's dtype. Every
-rank issues the same collectives in the same order. tp, sp, ep and pp
-are later slices: a mesh with one of them above 1 raises.
+gradients the lookup and the fused CE form in the weight's dtype.
+
+Tensor parallelism (tp above 1) is Megatron's recipe written out, as the
+JAX package writes it for its pipeline stages (its non-pp path leaves tp
+to the GSPMD partitioner, which the port does not have): a tp rank holds
+the contiguous heads ``[r·h/tp, (r+1)·h/tp)`` and kv heads ``[r·hkv/tp,
+…)`` of the column-parallel ``wq``/``wk``/``wv``, the same ffn columns of
+``w_gate``/``w_up``, and those rows of the row-parallel ``wo``/``w_down``.
+The residual stream is replicated over tp. Each layer's pre-norm output
+enters ``_tp_region_in`` (Megatron's ``f``: identity forward, all-reduce
+backward) and each row-parallel product leaves through ``_tp_region_out``
+(``g``: all-reduce forward, identity backward), so a replicated tensor's
+gradient is the total on every tp rank and a tp-replicated leaf (the
+norms) needs no tp reduction. The flash kernels run unchanged on the
+local heads: the GQA group ``h/hkv`` is the same locally, so a local
+query head's kv head is the same one as in the whole layer. The
+embedding is split by vocab rows: a rank looks up the ids it owns
+(``ops/embedding.py``) and ``_tp_region_out`` sums the ranks' lookups.
+The lm-head stays in the JAX package's weight-gathered limit (no
+vocab-parallel CE yet): it is gathered whole over tp and fsdp, and every
+tp rank runs the fused CE on it; the tp gather's backward takes the
+rank's own columns of the gradient without a sum, since each rank's is
+already the total. Under fsdp × tp a layer's ``(d/fsdp, h/tp)`` shard is
+gathered over fsdp only, to ``(d, h/tp)``.
+
+Every rank issues the same collectives in the same order, in the remat
+recompute too. sp, ep and pp are later slices: a mesh with one of them
+above 1 raises.
 """
 
 from __future__ import annotations
@@ -63,6 +90,9 @@ from dlrover_tpu_torch.parallel.mesh import (
     MeshConfig,
     axis_sizes,
     check_ported_axes,
+    tp_group,
+    tp_index,
+    tp_size,
     validate_divisibility,
 )
 from dlrover_tpu_torch.parallel.sharding import local_of, place_local
@@ -142,17 +172,17 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     output projections scaled by 1/sqrt(2 L) (gpt-2 residual scaling), unit
     norms. The same distribution as the JAX package, not the same numbers.
 
-    On a mesh with fsdp above 1 the params are born sharded: each leaf is
-    drawn whole, in the same order from the same generator, and cut at
-    once into this rank's DTensor shard per ``param_specs``, so a shard
-    equals the same slice of the one-process init and no more than one
-    whole leaf is ever resident beside the shards."""
+    On a mesh with fsdp or tp above 1 the params are born sharded: each
+    leaf is drawn whole, in the same order from the same generator, and
+    cut at once into this rank's DTensor shard per ``param_specs``, so a
+    shard equals the same slice of the one-process init and no more than
+    one whole leaf is ever resident beside the shards."""
     pd = cfg.param_dtype
     dev = generator.device
     std = 0.02
     L, D, H, KV, Fd = (cfg.n_layers, cfg.dim, cfg.n_heads * cfg.head_dim,
                        cfg.n_kv_heads * cfg.head_dim, cfg.ffn_dim)
-    sharded = fsdp_mesh(mesh)
+    sharded = sharded_mesh(mesh)
     specs = param_specs(cfg)
 
     def put(t, spec):
@@ -196,7 +226,7 @@ def param_count(cfg: LlamaConfig) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Sharding: the specs, the mesh check, the ZeRO-3 gather
+# Sharding: the specs, the mesh check, the ZeRO-3 gather, the tp regions
 # ---------------------------------------------------------------------------
 
 
@@ -252,12 +282,20 @@ def validate_for_mesh(cfg: LlamaConfig, mesh, seq_len: int = 0) -> None:
             "(ROADMAP Queue 1 item 6)")
 
 
-def fsdp_mesh(mesh):
-    """``mesh`` when its fsdp axis is above 1 (the params are DTensors
-    placed per ``param_specs``), else None (plain tensors, whole)."""
-    if mesh is None or axis_sizes(mesh).get(FSDP, 1) <= 1:
+def sharded_mesh(mesh):
+    """``mesh`` when one of its param-splitting axes, fsdp or tp, is above
+    1 (the params are DTensors placed per ``param_specs``), else None
+    (plain tensors, whole)."""
+    if mesh is None:
+        return None
+    sizes = axis_sizes(mesh)
+    if sizes.get(FSDP, 1) <= 1 and sizes.get(TP, 1) <= 1:
         return None
     return mesh
+
+
+def _fsdp_size(mesh) -> int:
+    return 1 if mesh is None else axis_sizes(mesh).get(FSDP, 1)
 
 
 #: fsdp (ZeRO-3) all-gather dim per layer leaf, after the leading layer
@@ -307,12 +345,93 @@ def fsdp_gather(shard: torch.Tensor, mesh, dim: int,
                             dtype or shard.dtype)
 
 
+class TpGather(torch.autograd.Function):
+    """A tp-split leaf gathered whole along ``dim`` over ``group``:
+    forward, an all-gather (through a leading-dim copy when ``dim`` is not
+    0); backward, this rank's own block of the gradient (the ``index``-th
+    of the group's), with no sum: every tp rank computes the same function
+    of the whole leaf on the same replicated inputs, so each rank's
+    gradient of it is already the total (a reduce-scatter would multiply
+    it by tp, which the JAX package's marker path undoes with
+    ``_grad_downscale``)."""
+
+    @staticmethod
+    def forward(ctx, shard, group, dim, index):
+        import torch.distributed as dist
+
+        ctx.dim, ctx.index, ctx.size = dim, index, shard.shape[dim]
+        world = dist.get_world_size(group)
+        src = shard.movedim(dim, 0).contiguous()
+        out = src.new_empty((world * src.shape[0],) + tuple(src.shape[1:]))
+        dist.all_gather_into_tensor(out, src, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        own = grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size)
+        return own.contiguous(), None, None, None
+
+
+class _TpRegionIn(torch.autograd.Function):
+    """Megatron ``f``: identity forward, all-reduce over ``group``
+    backward (the branch partials of a replicated tensor summed back to
+    its total)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _TpRegionOut(torch.autograd.Function):
+    """Megatron ``g``: all-reduce over ``group`` forward (the row-parallel
+    partial sums), identity backward (the replicated total's gradient
+    handed to each rank's partial)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _tp_region_in(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``f`` over ``mesh``'s tp group (``_TpRegionIn``); ``x`` itself at
+    tp 1."""
+    if tp_size(mesh) <= 1:
+        return x
+    return _TpRegionIn.apply(x, tp_group(mesh))
+
+
+def _tp_region_out(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``g`` over ``mesh``'s tp group (``_TpRegionOut``); ``x`` itself at
+    tp 1."""
+    if tp_size(mesh) <= 1:
+        return x
+    return _TpRegionOut.apply(x, tp_group(mesh))
+
+
 def _gather_layer_params(lp, mesh, dtype=None):
-    """ZeRO-3 gather of one layer's fsdp-sharded matrices, each whole in
-    ``dtype``, the norms as they are. Called inside the remat boundary so
+    """ZeRO-3 gather of one layer's fsdp-sharded matrices over fsdp only,
+    each in ``dtype`` (a tp shard ``(d/fsdp, h/tp)`` becomes ``(d,
+    h/tp)``), the norms as they are. Called inside the remat boundary so
     the backward gathers again instead of saving the whole matrices; each
     gather's backward reduce-scatters its gradient into the shard."""
-    if fsdp_mesh(mesh) is None:
+    if _fsdp_size(mesh) <= 1:
         return lp
     return {k: (fsdp_gather(a, mesh, _PP_FSDP_DIM[k], dtype)
                 if k in _PP_FSDP_DIM else a)
@@ -321,23 +440,26 @@ def _gather_layer_params(lp, mesh, dtype=None):
 
 def _gather_lm_head(lm_head, mesh):
     """The whole (d, vocab) lm-head, f32, from its (fsdp, tp) shard, for
-    the fused CE (the weight-gathered limit: no vocab-parallel CE yet).
-    The tp half of the JAX function waits for the tp slice."""
-    if fsdp_mesh(mesh) is None:
-        return lm_head
-    return fsdp_gather(lm_head, mesh, 0)
+    the fused CE (the weight-gathered limit: no vocab-parallel CE yet):
+    gathered over tp along dim 1 (``TpGather``: no tp sum in the
+    backward), then over fsdp along dim 0 (``FsdpGather``)."""
+    if tp_size(mesh) > 1:
+        lm_head = TpGather.apply(lm_head, tp_group(mesh), 1, tp_index(mesh))
+    if _fsdp_size(mesh) > 1:
+        lm_head = fsdp_gather(lm_head, mesh, 0)
+    return lm_head
 
 
 def _mesh_of(params: Params, mesh):
     """The mesh the forward runs on: ``mesh``, else the params' own when
-    they are DTensors. fsdp params must be DTensors."""
+    they are DTensors. Params on an fsdp or tp mesh must be DTensors."""
     if mesh is None:
         mesh = getattr(params["embed"], "device_mesh", None)
-    if fsdp_mesh(mesh) is not None and not hasattr(params["embed"],
-                                                   "to_local"):
+    if sharded_mesh(mesh) is not None and not hasattr(params["embed"],
+                                                      "to_local"):
         raise ValueError(
-            "an fsdp mesh needs params placed per param_specs (DTensors: "
-            "init_params or params_from_jax with the mesh)")
+            "an fsdp or tp mesh needs params placed per param_specs "
+            "(DTensors: init_params or params_from_jax with the mesh)")
     return mesh
 
 
@@ -346,54 +468,67 @@ def _mesh_of(params: Params, mesh):
 # ---------------------------------------------------------------------------
 
 
-def _decoder_layer(cfg: LlamaConfig, inv_freq, positions, lp, x):
-    """One block: pre-norm attention + pre-norm swiglu, residual adds."""
+def _decoder_layer(cfg: LlamaConfig, inv_freq, positions, lp, x, mesh=None):
+    """One block: pre-norm attention + pre-norm swiglu, residual adds. At
+    tp above 1 on ``mesh``, the JAX ``tp_size`` form: this rank's
+    ``h/tp`` heads and ``hkv/tp`` kv heads between the f/g regions
+    (module docstring)."""
     dt = cfg.dtype
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tp = tp_size(mesh)
+    h, kvh, hd = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim
 
-    y = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    y = _tp_region_in(rms_norm(x, lp["attn_norm"], cfg.norm_eps), mesh)
     q = (y @ lp["wq"].to(dt)).view(b, s, h, hd)
     k = (y @ lp["wk"].to(dt)).view(b, s, kvh, hd)
     v = (y @ lp["wv"].to(dt)).view(b, s, kvh, hd)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     attn = flash_attention(q, k, v, causal=True).reshape(b, s, h * hd)
-    x = x + attn @ lp["wo"].to(dt)
+    x = x + _tp_region_out(attn @ lp["wo"].to(dt), mesh)
 
-    y = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    y = _tp_region_in(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), mesh)
     gate = F.silu(y @ lp["w_gate"].to(dt))
     up = y @ lp["w_up"].to(dt)
-    return x + (gate * up) @ lp["w_down"].to(dt)
+    return x + _tp_region_out((gate * up) @ lp["w_down"].to(dt), mesh)
 
 
-def _mlp_policy(cfg: LlamaConfig):
-    """Selective-checkpoint policy for ``remat_policy="mlp"``: keep the
-    outputs of the two ``(dim, ffn)`` matmuls (gate before its silu, and
+def _mlp_policy(cfg: LlamaConfig, tp: int = 1):
+    """Selective-checkpoint policy of one layer call for
+    ``remat_policy="mlp"``: keep the outputs of the two matmuls against
+    this rank's ``(dim, ffn_dim/tp)`` weights (gate before its silu, and
     up) and recompute everything else, as the JAX package's
     ``save_only_these_names("ffn_gate", "ffn_up")`` keeps two ffn-sized
-    tensors per layer."""
-    ffn_weight = (cfg.dim, cfg.ffn_dim)
+    tensors per layer. It keys on the local weight's shape and keeps the
+    first two such products of the forward and of the recompute: the
+    row-parallel ``w_down`` comes third, so its product is recomputed
+    even where ``dim`` equals ``ffn_dim/tp``."""
+    ffn_weight = (cfg.dim, cfg.ffn_dim // tp)
+    kept = {False: 0, True: 0}
 
     def policy(ctx, op, *args, **kwargs):
-        if op is torch.ops.aten.mm.default and tuple(args[1].shape) == ffn_weight:
+        if (op is torch.ops.aten.mm.default
+                and tuple(args[1].shape) == ffn_weight
+                and kept[ctx.is_recompute] < 2):
+            kept[ctx.is_recompute] += 1
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
 
     return policy
 
 
-def _maybe_remat(cfg: LlamaConfig, layer_fn):
+def _maybe_remat(cfg: LlamaConfig, layer_fn, tp: int = 1):
     """The configured rematerialization of one layer: non-reentrant
     ``torch.utils.checkpoint``, so the backward re-runs the layer forward
-    (flash forward kernel included), as ``jax.checkpoint`` does."""
+    (flash forward kernel and the layer's collectives included), as
+    ``jax.checkpoint`` does."""
     if not cfg.remat:
         return layer_fn
     kwargs = {"use_reentrant": False}
     if cfg.remat_policy == "mlp":
-        kwargs["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _mlp_policy(cfg)
-        )
+        # a policy a call: its count of kept products starts anew
+        kwargs["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _mlp_policy(cfg, tp))
 
     def remat_layer(lp, x):
         return checkpoint(layer_fn, lp, x, **kwargs)
@@ -406,29 +541,31 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     """Final-norm hidden states (b, s, dim) in compute dtype: everything up
     to, not including, the unembed matmul. ``mesh``: the ``DeviceMesh``
     the params live on (their own when they are DTensors and it is None);
-    with fsdp above 1 the weights are gathered as the module docstring
-    says."""
+    with fsdp or tp above 1 the weights are gathered and the heads split
+    as the module docstring says. On any mesh an id outside the
+    vocabulary embeds as zeros, as the JAX package's one-hot lookup does
+    there; without one it wraps (``ops/embedding.py``)."""
     b, s = tokens.shape
     mesh = _mesh_of(params, mesh)
     if mesh is not None:
         validate_for_mesh(cfg, mesh, seq_len=s)
         check_ported_axes(mesh)
-    sharded = fsdp_mesh(mesh)
     embed = local_of(params["embed"])
-    if sharded is not None:
-        embed = fsdp_gather(embed, sharded, 1)
-    x = embed_lookup(embed, tokens, cfg.dtype)
+    if _fsdp_size(mesh) > 1:
+        embed = fsdp_gather(embed, mesh, 1)
+    x = _tp_region_out(embed_lookup(embed, tokens, cfg.dtype, mesh), mesh)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 device=tokens.device)
-    layer = functools.partial(_decoder_layer, cfg, inv_freq, positions)
-    if sharded is not None:
+    layer = functools.partial(_decoder_layer, cfg, inv_freq, positions,
+                              mesh=mesh)
+    if _fsdp_size(mesh) > 1:
         def layer(lp, x, _layer=layer):
-            return _layer(_gather_layer_params(lp, sharded, cfg.dtype), x)
-    layer_fn = _maybe_remat(cfg, layer)
+            return _layer(_gather_layer_params(lp, mesh, cfg.dtype), x)
+    layer_fn = _maybe_remat(cfg, layer, tp_size(mesh))
     # unbind, not leaf[i]: its backward stacks the L layer grads once,
     # where L selects would each zero-fill a whole (L, ...) grad to add up;
-    # under fsdp the local (L, d/fsdp, ...) shard is unbound
+    # on a sharded mesh the local (L, ...) shard is unbound
     per_layer = {name: local_of(leaf).unbind(0)
                  for name, leaf in params["layers"].items()}
     for i in range(len(per_layer["wq"])):

@@ -16,6 +16,7 @@ from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
     SP,
     TP,
     MeshConfig,
+    axes_group,
     axis_sizes,
     build_mesh,
     check_ported_axes,
@@ -23,6 +24,9 @@ from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
     data_parallel,
     mesh_for,
     remesh,
+    tp_group,
+    tp_index,
+    tp_size,
     validate_divisibility,
 )
 from dlrover_tpu_torch.parallel.sharding import (  # noqa: F401

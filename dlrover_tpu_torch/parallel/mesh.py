@@ -26,6 +26,7 @@ Queue 1 item 7).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Mapping, Tuple
 
 # Canonical axis names, outermost first.
@@ -138,14 +139,74 @@ def data_parallel(mesh) -> Tuple[int, int]:
 
 def check_ported_axes(mesh) -> None:
     """Raise on a mesh axis whose path is a later slice of the port: it
-    trains dp and fsdp; tp, sp, ep and pp above 1 raise rather than run
+    trains dp, fsdp and tp; sp, ep and pp above 1 raise rather than run
     replicated (ROADMAP Queue 1)."""
     sizes = axis_sizes(mesh)
-    later = {a: sizes[a] for a in (PP, EP, SP, TP) if sizes.get(a, 1) > 1}
+    later = {a: sizes[a] for a in (PP, EP, SP) if sizes.get(a, 1) > 1}
     if later:
         raise ValueError(
-            f"mesh axes {later}: tp, sp, ep and pp are not ported yet "
-            "(ROADMAP Queue 1); the port trains dp and fsdp")
+            f"mesh axes {later}: sp, ep and pp are not ported yet "
+            "(ROADMAP Queue 1); the port trains dp, fsdp and tp")
+
+
+def tp_size(mesh) -> int:
+    """The size of the mesh's tp axis (1 without a mesh)."""
+    return 1 if mesh is None else axis_sizes(mesh).get(TP, 1)
+
+
+def tp_index(mesh) -> int:
+    """This rank's coordinate on the tp axis: which contiguous block of
+    heads, ffn columns and vocab rows it holds (0 at tp 1, where a mesh
+    may be a ``MeshConfig`` or a mapping)."""
+    return mesh.get_local_rank(TP) if tp_size(mesh) > 1 else 0
+
+
+def tp_group(mesh):
+    """The process group of this rank's tp ranks (``get_group("tp")``)."""
+    return mesh.get_group(TP)
+
+
+#: (mesh, live axes) -> the process group over them (``axes_group``)
+_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple[object, object]] = {}
+
+
+def axes_group(mesh, axes):
+    """The process group over the mesh axes ``axes``: the ranks that share
+    every other coordinate with this one. Axes of size 1 are dropped; one
+    axis above 1 is the mesh's group of it; every axis above 1 of the mesh
+    is the default group (None); any other set is a group of its own,
+    built on first use (``dist.new_group`` for each such group of the
+    mesh, in one order on every rank, so every rank must ask for the same
+    sets in the same order) and kept for the mesh's life. No axis above 1
+    raises: a reduction over one rank is a caller's fault."""
+    sizes = axis_sizes(mesh)
+    names = list(sizes)
+    live = tuple(a for a in names if a in axes and sizes[a] > 1)
+    if not live:
+        raise ValueError(f"no axis of {tuple(axes)} is above size 1 on the "
+                         f"mesh {sizes}")
+    if live == tuple(a for a in names if sizes[a] > 1):
+        return None
+    if len(live) == 1:
+        return mesh.get_group(live[0])
+    key = (id(mesh), live)
+    if key in _GROUPS and _GROUPS[key][0] is mesh:
+        return _GROUPS[key][1]
+    import torch.distributed as dist
+
+    ranks = mesh.mesh
+    order = ([i for i, a in enumerate(names) if a not in live]
+             + [names.index(a) for a in live])
+    rows = ranks.permute(order).reshape(
+        -1, math.prod(sizes[a] for a in live)).tolist()
+    me = dist.get_rank()
+    mine = None
+    for row in rows:
+        group = dist.new_group(sorted(row))
+        if me in row:
+            mine = group
+    _GROUPS[key] = (mesh, mine)
+    return mine
 
 
 def build_mesh(config: MeshConfig, device_type: str = "cuda",

@@ -55,8 +55,20 @@ update runs replicated (mode ``off``), and the run says so.
 ``1/N`` of every matrix, models/llama.py), gathered layer by layer, and
 their gradients reduce-scattered; with ``--zero1`` and dp above 1 the
 update is also sharded over dp (mode ``gspmd``). The run logs its mesh.
+``--tp N``, the JAX example's other flag, splits the heads, the ffn
+columns and the vocabulary over N ranks (Megatron's recipe,
+models/llama.py) on ``MeshConfig(dp=-1, fsdp=F, tp=N)``, beside
+``--fsdp F``: ``--fsdp 2 --tp 2`` on four processes is the JAX example's
+layout; the ranks of a tp group train the same rows. With ``--zero1`` and
+dp above 1 the update is sharded over dp (mode ``gspmd``).
 ``--model 8b --layers 0`` is the preset's whole depth, 32 layers.
 Run bare, it trains alone.
+
+The result's ``tokens_per_s`` is the global batch's tokens a second of
+step wall after the first step; ``tokens_per_s_per_card`` divides it over
+every card of the world, tp ranks included, and ``mfu`` is
+``6 · params · tokens_per_s_per_card`` over the card's bf16 dense peak
+(``profiler/tpu_timer.py::peak_bf16_tflops``; None on the CPU).
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.parallel.mesh import DP, MeshConfig, axis_sizes
+from dlrover_tpu_torch.profiler.tpu_timer import peak_bf16_tflops
 from dlrover_tpu_torch.train import bootstrap, zero1
 from dlrover_tpu_torch.train.data import (
     ElasticDataLoader,
@@ -123,6 +136,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--fsdp", type=int, default=1,
                    help="fsdp (ZeRO-3) size of the mesh; dp absorbs the "
                    "rest of the world")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size of the mesh (heads, ffn "
+                   "columns and vocabulary split over it)")
     return p.parse_args(argv)
 
 
@@ -153,11 +169,14 @@ def build(args: argparse.Namespace, device=None, worker_ctx=None):
         zero1=args.zero1,
     )
     mesh = None
-    if args.fsdp > 1:
-        mesh = bootstrap.worker_mesh(device.type, MeshConfig(fsdp=args.fsdp))
+    if args.fsdp > 1 or args.tp > 1:
+        mesh = bootstrap.worker_mesh(
+            device.type, MeshConfig(fsdp=args.fsdp, tp=args.tp))
         if mesh is None:
-            raise ValueError(f"--fsdp {args.fsdp} needs a process group of "
-                             "a multiple of it; this world has one process")
+            raise ValueError(
+                f"--fsdp {args.fsdp} --tp {args.tp} needs a process group "
+                "of a multiple of their product; this world has one "
+                "process")
     trainer = ElasticTrainer(lambda p, t: llama.loss_fn(p, t, cfg, mesh), tc,
                              lambda p, t: llama.loss_sums(p, t, cfg, mesh),
                              worker_ctx=worker_ctx, mesh=mesh)
@@ -381,6 +400,10 @@ def run(args: argparse.Namespace, log=print) -> dict:
         for save in saves:
             save["stage"] = stages.get(save["step"])
     steady = step_s[1:] or step_s
+    rate = tokens * len(steady) / sum(steady) if steady else None
+    per_card = None if rate is None else rate / bootstrap.process_count()
+    peak = peak_bf16_tflops(torch.cuda.get_device_name(
+        torch.device(device))) if cuda else 0.0
     return {
         "params": llama.param_count(cfg),
         "tokens_per_step": tokens,
@@ -389,8 +412,10 @@ def run(args: argparse.Namespace, log=print) -> dict:
         "step_s": step_s,
         "data_wait_s": waits,
         "reduce_ms": reduce_ms,
-        "tokens_per_s": (tokens * len(steady) / sum(steady) if steady
-                         else None),
+        "tokens_per_s": rate,
+        "tokens_per_s_per_card": per_card,
+        "mfu": (6 * llama.param_count(cfg) * per_card / (peak * 1e12)
+                if per_card is not None and peak > 0 else None),
         "max_memory_bytes": (torch.cuda.max_memory_allocated()
                              if cuda else None),
         "restore": restore,

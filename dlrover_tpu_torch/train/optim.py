@@ -25,8 +25,9 @@ rank's fsdp shards (DTensors; the update runs on their local tensors).
 Where a rank holds a piece of a leaf, the global norm (``NormPlan``) sums
 the pieces' squared norms over the mesh axes that split the leaf, and
 counts a piece once over the axes that hold copies of it: a zero-1 shard
-over dp, an fsdp shard over fsdp, both over every data axis, a whole
-leaf (the replicated fallback, the norms) on its own.
+over dp, an fsdp or tp shard over fsdp or tp, a piece split by several
+over all of them, a whole leaf (the replicated fallback, the norms) on
+its own.
 """
 
 from __future__ import annotations
@@ -166,17 +167,13 @@ class NormPlan:
     axes: Dict[str, Tuple[str, ...]]
 
     def group(self, axes: Tuple[str, ...]):
-        """The process group over ``axes``: the mesh's group of one axis,
-        or the default group when ``axes`` hold every axis above size 1."""
-        from dlrover_tpu_torch.parallel.mesh import axis_sizes
+        """The process group over ``axes`` (``parallel.axes_group``: one
+        axis's group, the default group when ``axes`` hold every axis
+        above size 1, else a group of its own, such as ``(fsdp, tp)`` on
+        dp2 x fsdp2 x tp2)."""
+        from dlrover_tpu_torch.parallel.mesh import axes_group
 
-        live = {a for a, n in axis_sizes(self.mesh).items() if n > 1}
-        if live <= set(axes):
-            return None
-        if len(axes) == 1:
-            return self.mesh.get_group(axes[0])
-        raise ValueError(f"no process group over {axes} on a mesh with "
-                         f"{sorted(live)} above size 1")
+        return axes_group(self.mesh, axes)
 
 
 def _sharded_norm(leaves, g_list: List[torch.Tensor], plan: NormPlan

@@ -1,6 +1,6 @@
 """ElasticTrainer (port of dlrover_tpu/train/trainer.py's step path), on
 one device, data-parallel over the default process group, or on a
-``DeviceMesh`` of dp and fsdp.
+``DeviceMesh`` of dp, fsdp and tp.
 
 One optimizer step is ``accum_steps = global_batch // (micro_batch · dp)``
 microbatches, ``dp`` the data-parallel size: the mesh's batch axes (dp ·
@@ -86,11 +86,11 @@ adam's moments hold only this rank's dp shard, each accumulated gradient
 leaf is reduce-scattered over the mesh's dp group into that shard (a leaf
 with no divisible dim is all-reduced whole), the optimizer updates this
 rank's shard of every param, and the params are all-gathered in place
-over dp. Beside fsdp (``"gspmd"``) all of this runs on each rank's fsdp
-shard. The loss's valid-target count and the reported loss are
+over dp. Beside fsdp or tp (``"gspmd"``) all of this runs on the shard
+each rank holds. The loss's valid-target count and the reported loss are
 all-reduced as in the replicated step. ``zero1_mode`` says which update
-runs (``"off"`` at dp 1); a zero-1 request on a mesh with sp, tp, ep or
-pp above 1 raises (``zero1.mode_for``).
+runs (``"off"`` at dp 1); a zero-1 request on a mesh with sp, ep or pp
+above 1 raises (``zero1.mode_for``).
 
 On the card the step leaves CUDA events around its collectives and its
 update, read by callers that time them: ``reduce_events`` around the
@@ -109,8 +109,20 @@ zero-1, ``"gspmd"``, reduce-scattered over dp into the moments' shard); a
 leaf replicated over fsdp (the norms) is all-reduced over fsdp first. The
 global norm sums the pieces' squares over the axes that split them
 (train/optim.py's ``NormPlan``). ``reduce_events`` then spans only these
-trailing collectives: the fsdp reduce-scatters run in the backward. tp,
-sp, ep and pp above 1 raise (later slices).
+trailing collectives: the fsdp reduce-scatters run in the backward.
+
+Tensor parallelism (tp above 1 on the ``mesh``; models/llama.py): tp is
+not a batch axis, so the ranks of a tp group train the same rows and
+every rank computes the same loss. Each rank differentiates its tp
+shards; the model's f/g regions make a tp-replicated leaf's gradient (the
+norms) the total on every tp rank, so it gets no tp reduction, as the
+JAX package's loss axes leave tp out. Every data-parallel collective of
+the step (the gradients' reduction, the valid-target count, the reported
+loss) runs over the batch axes' group (``parallel.axes_group``: the
+mesh's dp group beside tp alone, a group of its own when two batch axes
+are above 1), never the whole world, which would count each row tp
+times. The global norm sums a tp-split leaf's pieces over tp. sp, ep and
+pp above 1 raise (later slices).
 
 Hierarchical collectives, warm compile, remesh and the lint hooks are not
 ported yet.
@@ -134,6 +146,8 @@ from dlrover_tpu_torch.parallel.mesh import (
     BATCH_AXES,
     DP,
     FSDP,
+    TP,
+    axes_group,
     axis_sizes,
     check_ported_axes,
     data_parallel,
@@ -179,12 +193,14 @@ def microbatch(batch: Batch, i: int) -> Batch:
     return type(batch)(microbatch(b, i) for b in batch)
 
 
-def _fsdp_sharded(p) -> bool:
-    """Whether a param is split over the fsdp axis (a DTensor whose spec
-    names fsdp above size 1)."""
+def _split_axes(p) -> Tuple[str, ...]:
+    """The param-splitting axes, fsdp and tp, that a param's spec names
+    above size 1 (a DTensor's; ``()`` for a whole tensor), in mesh
+    order."""
     if not hasattr(p, "to_local"):
-        return False
-    return any(FSDP in entry_axes(e) for e in spec_of(p))
+        return ()
+    named = {a for e in spec_of(p) for a in entry_axes(e)}
+    return tuple(a for a in (FSDP, TP) if a in named)
 
 
 def select_rows(batch: Batch, rows: slice) -> Batch:
@@ -243,10 +259,13 @@ class ElasticTrainer:
         #: ``init_state``
         self.zero1_mode = "off"
         self._zero1: Optional[zero1.Layout] = None
-        #: the mesh's fsdp size (1: params whole), and which leaves it
-        #: splits, set by ``init_state``
+        #: the mesh's fsdp and tp sizes (1: params whole), and which of
+        #: the two split each leaf, set by ``init_state``
         self.fsdp = 1
-        self._fsdp_leaves: Dict[str, bool] = {}
+        self.tp = 1
+        self._split: Dict[str, Tuple[str, ...]] = {}
+        #: the batch axes' process group (None: the default group)
+        self._batch_group = None
         #: where the gradients are pieces, for the global norm (None: whole)
         self._norm_plan: Optional[NormPlan] = None
         #: each step's seconds but the first's (module docstring); read
@@ -341,8 +360,8 @@ class ElasticTrainer:
 
     def init_state(self, params: Tree) -> dict:
         """Train state around ``params``, whose leaves become the leaves
-        that autograd differentiates (``requires_grad``). On an fsdp mesh
-        every leaf must be a DTensor on it (the model's placement)."""
+        that autograd differentiates (``requires_grad``). On an fsdp or tp
+        mesh every leaf must be a DTensor on it (the model's placement)."""
         named = flatten(params)
         for _, p in named:
             p.requires_grad_(True)
@@ -353,15 +372,18 @@ class ElasticTrainer:
         self.zero1_mode = zero1.mode_for(self.mesh, self.tc)
         if self.mesh is not None:
             check_ported_axes(self.mesh)
-        self.fsdp = (axis_sizes(self.mesh).get(FSDP, 1)
-                     if self.mesh is not None else 1)
-        if self.fsdp > 1:
+        sizes = axis_sizes(self.mesh) if self.mesh is not None else {}
+        self.fsdp, self.tp = sizes.get(FSDP, 1), sizes.get(TP, 1)
+        if self.fsdp > 1 or self.tp > 1:
             loose = [path for path, p in named if not hasattr(p, "to_local")]
             if loose:
                 raise ValueError(
-                    f"fsdp={self.fsdp}: params {loose[:3]} are not DTensors "
-                    "on the mesh (place them per the model's specs)")
-        self._fsdp_leaves = {path: _fsdp_sharded(p) for path, p in named}
+                    f"fsdp={self.fsdp}, tp={self.tp}: params {loose[:3]} are "
+                    "not DTensors on the mesh (place them per the model's "
+                    "specs)")
+        self._split = {path: _split_axes(p) for path, p in named}
+        if self.mesh is not None and self.dp > 1:
+            self._batch_group = axes_group(self.mesh, BATCH_AXES)
         self._zero1 = (zero1.Layout.build(self.mesh, named)
                        if self.zero1_mode != "off" else None)
         self._norm_plan = self._plan_norm(named)
@@ -375,19 +397,22 @@ class ElasticTrainer:
 
     def _plan_norm(self, named) -> Optional[NormPlan]:
         """Over which axes each leaf's reduced gradient is split: dp where
-        zero-1 scatters it, fsdp where the param is an fsdp shard; None
-        when every gradient is whole."""
-        if self._zero1 is None and self.fsdp == 1:
+        zero-1 scatters it, fsdp and tp where the param is a shard over
+        them; None when every gradient is whole. Each set's process group
+        is built here, in one order on every rank."""
+        if self._zero1 is None and self.fsdp == 1 and self.tp == 1:
             return None
         axes = {}
         for path, _ in named:
             a = ()
             if self._zero1 is not None and self._zero1.dim(path) is not None:
                 a += (DP,)
-            if self._fsdp_leaves[path]:
-                a += (FSDP,)
-            axes[path] = a
-        return NormPlan(mesh=self.mesh, axes=axes)
+            axes[path] = a + self._split[path]
+        plan = NormPlan(mesh=self.mesh, axes=axes)
+        for a in sorted(set(axes.values())):
+            if a:
+                plan.group(a)
+        return plan
 
     def _reduce_grad(self, path: str, g: torch.Tensor) -> torch.Tensor:
         """The data-parallel sum of one accumulated gradient (what this
@@ -398,10 +423,10 @@ class ElasticTrainer:
         z1 = self._zero1
         if self.fsdp == 1:
             if z1 is None:
-                dist.all_reduce(g)
+                dist.all_reduce(g, group=self._batch_group)
                 return g
             return z1.reduce_scatter(path, g)
-        if not self._fsdp_leaves[path]:
+        if FSDP not in self._split[path]:
             dist.all_reduce(g, group=self.mesh.get_group(FSDP))
         if z1 is not None:
             return z1.reduce_scatter(path, g)
@@ -424,7 +449,7 @@ class ElasticTrainer:
 
         nll_sum, n_valid = self.loss_sums_fn(params, mb)
         n_valid = n_valid.detach().float().clone()
-        dist.all_reduce(n_valid)
+        dist.all_reduce(n_valid, group=self._batch_group)
         return nll_sum / torch.clamp(n_valid, min=1.0)
 
     def step(self, state: dict, batch: Batch) -> Tuple[dict, torch.Tensor]:
@@ -507,7 +532,7 @@ class ElasticTrainer:
             for i, (path, _) in enumerate(leaves):
                 grads[i] = self._reduce_grad(path, grads[i])
             _record(cuda, self.reduce_events)
-            dist.all_reduce(loss_sum)
+            dist.all_reduce(loss_sum, group=self._batch_group)
         if accum > 1:
             scale = 1.0 / accum
             for acc in grads:

@@ -24,14 +24,16 @@ canonical form (parallel/sharding.py), so a spec compares equal across
 the packages.
 
 ``mode_for`` gives ``"off"``, ``"scatter"`` (the JAX package's pure-dp
-strategy) or ``"gspmd"`` (zero-1 beside fsdp): the params are fsdp
-DTensors (models/llama.py), and the layout works on each rank's fsdp
-shard over the dp group, so a leaf whose partition dim already carries
-fsdp (the lm-head, ``(("fsdp", "dp"), "tp")``) tiles it fsdp-major, as
-JAX tiles a spec entry, and its moments' placements are nested
-(parallel/sharding.py). Zero-1 beside sp, tp or ep, and with pp, are
-later slices: such a request raises, where the JAX package returns
-``"gspmd"`` (or ``"off"`` for pp), and never silently runs replicated.
+strategy) or ``"gspmd"`` (zero-1 beside fsdp or tp): the params are
+DTensors split over fsdp and tp (models/llama.py), and the layout works
+on the shard each rank holds over the dp group, so a leaf whose
+partition dim already carries fsdp or tp (the lm-head, ``(("fsdp",
+"dp"), "tp")``; the embedding beside tp, ``(("tp", "dp"), "fsdp")``)
+tiles it with dp minor, as JAX tiles a spec entry, and its moments'
+placements are nested (parallel/sharding.py). The "scatter" mode stays
+pure dp. Zero-1 beside sp or ep, and with pp, are later slices: such a
+request raises, where the JAX package returns ``"gspmd"`` (or ``"off"``
+for pp), and never silently runs replicated.
 
 Known difference: the JAX scatter step reduce-scatters each microbatch's
 gradients and averages the ranks' local loss means; the port
@@ -49,7 +51,7 @@ import torch
 
 from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.parallel import sharding
-from dlrover_tpu_torch.parallel.mesh import FSDP, axis_sizes
+from dlrover_tpu_torch.parallel.mesh import FSDP, TP, axis_sizes
 
 Spec = Tuple[Any, ...]
 
@@ -86,22 +88,25 @@ def mode_for(mesh, train_config) -> str:
     """``"off"``, ``"scatter"`` or ``"gspmd"`` for a trainer on ``mesh``
     (a ``DeviceMesh``, a ``MeshConfig`` or ``{axis: size}``; None is a
     world of one). Off when zero-1 is not enabled or dp is 1; scatter on a
-    pure-dp mesh; gspmd where fsdp is the only other axis above 1; a mesh
-    with sp, tp, ep or pp above 1 raises (later slices)."""
+    pure-dp mesh; gspmd where fsdp or tp are the other axes above 1, as
+    the JAX package gives it; a mesh with sp, ep or pp above 1 raises
+    (later slices)."""
     if not enabled(train_config) or mesh is None:
         return "off"
     sizes = axis_sizes(mesh)
     if sizes.get(ZERO1_AXIS, 1) <= 1:
         return "off"
     mixed = {a: s for a, s in sizes.items()
-             if a not in (ZERO1_AXIS, FSDP) and s > 1}
+             if a not in (ZERO1_AXIS, FSDP, TP) and s > 1}
     if mixed:
         raise ValueError(
             f"zero-1 on a mesh with {mixed} beside dp={sizes[ZERO1_AXIS]}: "
             "only pure dp (the JAX package's \"scatter\" mode) and dp with "
-            "fsdp (\"gspmd\") are ported; beside sp, tp, ep or pp it comes "
-            "in a later slice")
-    return "gspmd" if sizes.get(FSDP, 1) > 1 else "scatter"
+            "fsdp or tp (\"gspmd\") are ported; beside sp, ep or pp it "
+            "comes in a later slice")
+    if sizes.get(FSDP, 1) > 1 or sizes.get(TP, 1) > 1:
+        return "gspmd"
+    return "scatter"
 
 
 def strip_spec(spec) -> Spec:

@@ -450,7 +450,7 @@ def test_sampler_order_replica_equals_the_port_sampler(tmp_path):
         np.testing.assert_array_equal(g, w.astype(np.int32))
 
 
-# -- the master's goodput ledger (phases 4c and 4d) -------------------------------
+# -- the master's goodput ledger (phases 4c and 4d) ---------------------------
 
 
 def _master_lines(kill=True):
@@ -545,7 +545,7 @@ def test_master_gauges_check():
             {**gauges, "dlrover_tpu_master_goodput": 0.0}, reading)
 
 
-# -- the four-card leg --------------------------------------------------------------
+# -- the four-card leg --------------------------------------------------------
 
 
 def _four_card_lives(nbytes=4_000_000):
@@ -609,7 +609,7 @@ def test_four_card_checks_fail_on_each_fault(fault, match):
         chip_smoke.check_four_card(first, second, nbytes)
 
 
-# -- the step digest (phase 4c) and the control plane's recovery (phase 4e) -------
+# -- the step digest (phase 4c) and the control plane's recovery (phase 4e) ---
 
 
 def _window(sample):
@@ -917,7 +917,7 @@ def test_hang_lives_split_the_one_log(tmp_path, monkeypatch):
         chip_smoke._hang_lives(job)
 
 
-# -- the planner in phase 4e's relaunch leg ---------------------------------------
+# -- the planner in phase 4e's relaunch leg -----------------------------------
 
 
 def _planner_docs(sample=0.23, n_before=3, n_after=2):
@@ -1022,7 +1022,7 @@ def test_planner_doc_reads_the_masters_file_state(tmp_path, monkeypatch):
     assert chip_smoke.load_planner_doc(str(tmp_path), "j") == before
 
 
-# -- the four-card scale-out leg --------------------------------------------------
+# -- the four-card scale-out leg ----------------------------------------------
 
 
 def _scale_case():
@@ -1432,7 +1432,7 @@ def test_nccl_programs_check_needs_the_timer_and_both_windows():
         chip_smoke.check_nccl_programs([life])
 
 
-# -- the four-card zero-1 leg -------------------------------------------------------
+# -- the four-card zero-1 leg -------------------------------------------------
 
 Z1_PARAMS = 1000
 # a params tree of the main path's kinds of leaf: sharded along dim 0,
@@ -1717,7 +1717,7 @@ def test_moment_sample_comparison_finds_a_misplaced_shard():
         chip_smoke.compare_sample(ref, {"mu/embed": same["mu/embed"]})
 
 
-# -- the four-card fsdp leg ----------------------------------------------------
+# -- the four-card fsdp leg ---------------------------------------------------
 
 F_SHAPES = {"embed": (512, 64), "layers/attn_norm": (2, 64),
             "layers/wq": (2, 64, 64), "final_norm": (64,),
@@ -1937,3 +1937,146 @@ def test_fsdp_samples_merge_the_ranks_regions():
     gap[0]["params/embed"] = (pos[1:], val[1:], n)
     with pytest.raises(chip_smoke.SmokeFailure, match="held by no rank"):
         chip_smoke.merge_samples(gap)
+
+
+# -- the four-card tp leg and phase 3's tp-local heads ------------------------
+
+
+def test_tp_local_cases_are_the_main_shape_at_tp2_and_tp4():
+    """Phase 3 holds the flash kernels at a tp rank's heads of the main
+    shape: 32/8 heads over tp2 and tp4, the GQA group 4 kept."""
+    cases = dict(chip_smoke.CASES)
+    main = chip_smoke.MAIN_CASE
+    for label, tp in zip(chip_smoke.TP_LOCAL_CASES, (2, 4)):
+        assert cases[label] == dict(main, h=main["h"] // tp,
+                                    hkv=main["hkv"] // tp)
+
+
+@pytest.mark.parametrize("label,kernel,ms", [
+    ("tp2_local", "flash_fwd", 0.0174), ("tp2_local", "flash_bwd_dkv", 0.0348),
+    ("tp4_local", "flash_bwd_dq", 0.0130),
+])
+def test_flash_bounds_at_the_tp_local_heads(label, kernel, ms):
+    """The local heads' bounds are the main case's over tp: the work is a
+    rank's heads' share of the visible pairs."""
+    bound_ms, by = chip_smoke.bounds(dict(chip_smoke.CASES)[label])[kernel]
+    assert by == "operations"
+    assert bound_ms == pytest.approx(ms, abs=5e-5)
+
+
+def _tp_case(fault="none"):
+    """Results of the tp leg's two runs of four ranks, made up, that pass
+    every check unless ``fault`` says otherwise; and fsdp4's step-1
+    loss."""
+    counts = {"flash_fwd": 192, "fused_ce_fwd": 3}
+
+    def moments(split_of):
+        return {f"{key}/{p}": v for key in ("mu", "nu")
+                for p, v in _f_held(split_of).items()}
+
+    def run(mode, mesh, split, moment_split, losses):
+        params = _f_held(split)
+        pbytes = sum(h * 4 for _, h, _ in params.values())
+        return [dict(rank=r, world=4, mode=mode, mesh=mesh,
+                     tokens_per_step=16384, params=params,
+                     moments=moments(moment_split), build_s=9.0,
+                     init_peak_bytes=20e9, max_memory_bytes=45e9,
+                     seconds=60.0, counts=dict(counts),
+                     steps=[{"step": i + 1, "loss": x, "seconds": 1.3,
+                             "grad_bytes": pbytes}
+                            for i, x in enumerate(losses)])
+                for r in range(4)]
+
+    fsdp4 = 12.5
+    runs = {
+        "fsdp2xtp2": run("off", "fsdp2xtp2",
+                         lambda p: 1 if "norm" in p else 4,
+                         lambda p: 1 if "norm" in p else 4,
+                         (fsdp4 * (1 + 1e-4), 12.4, 12.3)),
+        "dp2xtp2": run("gspmd", "dp2xtp2+zero1",
+                       lambda p: 1 if "norm" in p else 2,
+                       lambda p: 2 if "norm" in p else 4,
+                       (fsdp4 * (1 - 2e-4), 12.4)),
+    }
+    runs = {k: [copy.deepcopy(r) for r in v] for k, v in runs.items()}
+    if fault == "loss_far":
+        for r in runs["dp2xtp2"]:
+            r["steps"][0]["loss"] = fsdp4 * (1 + 6e-4)
+    elif fault == "rank_loss":
+        runs["fsdp2xtp2"][2]["steps"][1]["loss"] += 1e-6
+    elif fault == "whole_matrix":
+        runs["fsdp2xtp2"][1]["params"]["layers/wq"][1] *= 2
+    elif fault == "norm_split":
+        runs["fsdp2xtp2"][0]["params"]["final_norm"][1] //= 2
+    elif fault == "zero1_moments":
+        runs["dp2xtp2"][3]["moments"]["mu/lm_head"][1] *= 2
+    elif fault == "grads":
+        runs["dp2xtp2"][1]["steps"][0]["grad_bytes"] *= 2
+    elif fault == "mode":
+        runs["dp2xtp2"][0]["mode"] = "off"
+    elif fault == "memory":
+        runs["fsdp2xtp2"][3]["max_memory_bytes"] = 81e9
+    elif fault == "no_launch":
+        runs["dp2xtp2"][2]["counts"]["fused_ce_fwd"] = 0
+    elif fault == "steps":
+        for r in runs["fsdp2xtp2"]:
+            r["steps"].pop()
+    return runs, fsdp4
+
+
+def test_tp_checks_pass():
+    chip_smoke.check_tp(*_tp_case())
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("loss_far", "dp2xtp2: step-1 loss .* relative > 0.0005"),
+    ("rank_loss", "fsdp2xtp2: the ranks' losses differ"),
+    ("whole_matrix", "fsdp2xtp2 rank 1: holds .* of params layers/wq's .* "
+                     "not 1/4"),
+    ("norm_split", "fsdp2xtp2 rank 0: holds .* of params final_norm's"),
+    ("zero1_moments", "dp2xtp2 rank 3: holds .* of moments mu/lm_head's .* "
+                      "not 1/4"),
+    ("grads", "dp2xtp2 rank 1 step 1: gradients"),
+    ("mode", "dp2xtp2 rank 0: mode off"),
+    ("memory", "fsdp2xtp2 rank 3: max_memory_allocated"),
+    ("no_launch", "dp2xtp2 rank 2: kernel fused_ce_fwd never launched"),
+    ("steps", "fsdp2xtp2: losses"),
+])
+def test_tp_checks_fail_on_each_fault(fault, match):
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_tp(*_tp_case(fault))
+
+
+def test_tp_kernels_line_holds_every_kernel_by_run_and_rank():
+    """The leg's ``kernels`` line: all eight kernels, each with its source
+    and the TPU kernel it replaces, and its launches on every rank of both
+    runs."""
+    import json
+
+    runs, _ = _tp_case()
+    for rs in runs.values():
+        for r in rs:
+            r["counts"] = {name: 7 for name, _, _ in
+                           chip_smoke.KERNELS + chip_smoke.CE_KERNELS}
+    line = json.loads(chip_smoke.tp_kernels_line(runs))
+    assert [k["name"] for k in line["kernels"]] == [
+        name for name, _, _ in chip_smoke.KERNELS + chip_smoke.CE_KERNELS]
+    for k in line["kernels"]:
+        assert k["launches"] == {"fsdp2xtp2": [7] * 4, "dp2xtp2": [7] * 4}
+        assert k["source"] in (chip_smoke.SOURCE, chip_smoke.CE_SOURCE)
+        assert k["replaces"].startswith("dlrover_tpu/ops/")
+
+
+@pytest.mark.parametrize("role,extra", [
+    ("fsdp2xtp2", {"fsdp": 2, "zero1": False, "steps": 3}),
+    ("dp2xtp2", {"fsdp": 1, "zero1": True, "steps": 2}),
+])
+def test_tp_leg_args(role, extra):
+    """The fsdp leg's whole 32-layer model at tp2, beside fsdp2 or beside
+    dp under zero-1."""
+    args = chip_smoke._tp_args(role)
+    assert (args.model, args.layers, args.seq, args.micro_batch,
+            args.global_batch, args.warmup_steps, args.seed, args.tp) == (
+        "8b", 0, 2048, 1, 8, 0, 0, 2)
+    assert (args.fsdp, args.zero1, args.steps) == (
+        extra["fsdp"], extra["zero1"], extra["steps"])

@@ -786,9 +786,12 @@ def test_trainer_refuses_fsdp_params_that_are_not_placed(monkeypatch):
 
 @pytest.mark.parametrize("axis", ["tp", "sp", "ep"])
 def test_later_axes_raise(axis):
-    """tp, sp and ep are later slices: the model and the trainer refuse
-    them rather than run replicated."""
+    """sp and ep are later slices: the model and the trainer refuse them
+    rather than run replicated. tp is ported: it passes the check."""
     sizes = {**{a: 1 for a in tmesh.AXIS_ORDER}, "dp": 2, axis: 2}
+    if axis == "tp":
+        tmesh.check_ported_axes(sizes)
+        return
     with pytest.raises(ValueError, match="not ported"):
         tmesh.check_ported_axes(sizes)
 
