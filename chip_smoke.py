@@ -424,8 +424,42 @@ quarter, the norms' moments half), its ``max_memory_allocated`` under
 ``FSDP_MEMORY_MAX``, every kernel launched on every rank. Prints each
 rank's bytes, peaks and launches, each step's wall (slowest rank),
 tokens/s a card (the global batch's tokens over the four cards) and MFU,
-and a ``kernels`` line of each kernel's launches by run and rank. The
-last line is the contract's, with the cards' count.
+and a ``kernels`` line of each kernel's launches by run and rank.
+
+Then the sp leg (``SP_*``, ``_sp_leg``): the main path's widths at
+``SP_LAYERS`` of 32 layers and the preset's seq ``SP_SEQ`` (global batch
+2, micro-batch 1, seed 0, no lr warmup, remat "all", the fused CE; tokens
+drawn on the host, ``sp_batches``, the same rows in every run) through
+``run/llama_pretrain.py``'s build. First ``chip_smoke.py --sp-child
+reference DIR``, one process on one card with no process group: the flash
+kernels against their plain versions at every shape the leg launches them
+(``sp_flash_cases``, derived from ``SP_RUNS`` and ``SP_SEQ``: the
+reference's causal kernel at s 8192, each ring run's causal diagonal
+chunk and non-causal earlier chunk at ``s/sp``, each ulysses run's causal
+kernel at s 8192 on its local heads; a random ``lse`` cotangent in
+every case, as ring's merge gives), each timed once beside its plain
+version and bound (``time_flash_case``), then the reference's steps 1-2
+with the flash kernels on the whole sequence. Then, in one start of four
+ranks of ``--sp-child ranks DIR`` bootstrapped as in the zero-1 leg, sp4
+ring, sp4 ulysses and fsdp2 x sp2 ring (``SP_RUNS``), steps 1-2 each, the
+mesh rebuilt and the memory freed between them. Each run samples its
+params at init and after step 2 (``fsdp_sample``). ``check_sp``: each
+run's losses equal across its ranks and at steps 1 and 2 within
+``SP_LOSS_RTOL`` (relative) of the reference's; its mode and mesh;
+every rank's params, gradients and moments at the arithmetic's share,
+its peak under ``FSDP_MEMORY_MAX``; every kernel launched on every rank,
+the flash kernels exactly as ``sp_expected_flash`` counts them (under
+causal ring rank r runs r + 1 chunk kernels a layer a forward); every
+rank holding a sampled param holds the same bits (``merge_samples``: a
+missing sp sum of the gradients leaves the ranks apart, and moves the
+step-2 loss by less than the bound); each leaf's change of the sampled
+params after step 2 against the reference's within ``SP_DELTA_REL_FRO``
+relative (``compare_delta``). Prints each rank's bytes, peaks and
+launches, each step's loss against the reference's, wall (slowest
+rank), tokens/s a card and MFU, each leaf's relative error and share of
+changes past ``SP_DELTA_ATOL``, and a ``kernels`` line of each kernel's
+launches by run and rank. The last line is the contract's, with the
+cards' count.
 
 Exits with code 2 and prints no result when CUDA is not available.
 ``--ckpt-child ROLE DIR`` runs one of phase 4c's children or the
@@ -435,10 +469,12 @@ phase 4d's worker (``shards``) or one of phase 4e's (``relaunch``,
 ``--zero1-child ROLE DIR`` a rank of the zero-1 leg (``dp4``, ``dp2``),
 ``--fsdp-child ROLE DIR`` one of the fsdp leg's (``life1``, ``life2``,
 ``zero1``), ``--tp-child ROLE DIR`` one of the tp leg's (``fsdp2xtp2``,
-``dp2xtp2``); none is run by hand.
+``dp2xtp2``), ``--sp-child ROLE DIR`` the sp leg's reference or its four
+ranks (``reference``, ``ranks``); none is run by hand.
 """
 
 import contextlib
+import gc
 import dataclasses
 import json
 import math
@@ -813,6 +849,35 @@ TP_TIMEOUT_S = 300
 # GiB reserved but unallocated when a 3.5 GiB gradient did not fit (my
 # chip run 1, PR 19)
 TP_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+# the four-card sp leg (``_sp_leg``): the main path's widths at 4 of 32
+# layers and the preset's seq 8192, global batch 2, trained 2 steps by one
+# process on one card (the reference: the flash kernels on the whole
+# sequence) and, from the same init and rows, at sp4 ring, sp4 ulysses and
+# fsdp2 x sp2 ring in one start of four ranks. Each run's step-1 and
+# step-2 losses within SP_LOSS_RTOL (relative) of the reference's; every
+# rank's sampled params after step 2, their change from init, against the
+# reference's (``compare_delta``): each leaf's relative error (the norm of
+# the changes' difference over the reference change's) at most
+# SP_DELTA_REL_FRO. bf16 compute at sp2 and sp4 against one process on
+# the CPU (tests/test_torch_sp.py: dim 128, 8/2 heads, 2 layers, seq 64,
+# three seeds) parted by at most 2.5e-5 in the loss, the bound 20 times
+# that. SP_DELTA_REL_FRO sits between that run's noise (a leaf's relative
+# error at most 0.13 at seq 64 and 256) and two faults that are global,
+# put in a copy of the port (RoPE by chunk-local positions 1.29-1.31, the
+# sp sum of the gradients dropped 1.16-1.23); a fault on a chunk's border
+# (the shift made on the chunk) touches sp - 1 of 8192 targets here and
+# is held by tests/test_torch_sp.py, not by this bound (PERF.md). The
+# card's share of sampled elements parted by more than SP_DELTA_ATOL of
+# the leaf's largest change (8.2-18.7 %) is printed, not held
+SP_WORLD = 4
+SP_SEQ = 8192
+SP_LAYERS = 4
+SP_GLOBAL_BATCH = 2
+SP_STEPS = 2
+SP_LOSS_RTOL = 5e-4
+SP_DELTA_ATOL = 1e-2
+SP_DELTA_REL_FRO = 0.35
+SP_TIMEOUT_S = 300
 # bf16 dense peak of an H100 SXM, for MFU (PERF.md section 2)
 PEAK_FLOPS = 989e12
 # manifests, commit votes and the tracker beside a persisted step's leaves
@@ -1040,6 +1105,56 @@ def check_dkv_deterministic(torch, attention, case=MAIN_CASE):
           f"{same}")
 
 
+def check_flash_case(torch, attention, label, case, gen):
+    """The three flash kernels against their plain versions on random bf16
+    inputs of ``case`` (with a random ``lse`` cotangent folded into delta);
+    returns each kernel's worst max-abs error and the inputs."""
+    b, s, h, hkv, d, causal = (case[k] for k in
+                               ("b", "s", "h", "hkv", "d", "causal"))
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), \
+        rnd(b, s, h, d)
+    g_lse = 0.1 * torch.randn((b, h, s), generator=gen, device="cuda")
+    o_p, lse_p = attention.mha_reference_with_lse(q, k, v, causal)
+    o_k, lse_k = attention.flash_fwd(q, k, v, causal)
+    # the backward kernels and their plain versions share lse and delta
+    delta = attention.attention_delta(o_p, do, g_lse)
+    dq_p = attention.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, causal)
+    dq_k = attention.flash_bwd_dq(q, k, v, do, lse_p, delta, causal)
+    dk_p, dv_p = attention.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                               causal)
+    dk_k, dv_k = attention.flash_bwd_dkv(q, k, v, do, lse_p, delta, causal)
+    torch.cuda.synchronize()
+    results = {
+        "flash_fwd": [("o", o_k, o_p)],
+        "flash_bwd_dq": [("dq", dq_k, dq_p)],
+        "flash_bwd_dkv": [("dk", dk_k, dk_p), ("dv", dv_k, dv_p)],
+    }
+    lse_err = (lse_k - lse_p).abs().max().item()
+    print(f"  [{label}] {case}: lse max_abs_err {lse_err:.3e} "
+          f"(tol {LSE_ABS_TOL})", flush=True)
+    check(lse_err <= LSE_ABS_TOL, f"{label}: lse error {lse_err}")
+    worst = {}
+    for name, outs in results.items():
+        worst[name] = 0.0
+        for tag, got, ref in outs:
+            err, peak, fro = compare(got, ref)
+            worst[name] = max(worst[name], err)
+            print(f"  [{label}] {name} {tag}: max_abs_err {err:.3e} "
+                  f"(max|ref| {peak:.3e}, tol {REL_MAX_TOL * peak:.3e}) "
+                  f"rel_fro {fro:.3e} (tol {REL_FRO_TOL})", flush=True)
+            check(math.isfinite(err) and err <= REL_MAX_TOL * peak,
+                  f"{label}: {name} {tag} max error {err} > "
+                  f"{REL_MAX_TOL} * {peak}")
+            check(fro <= REL_FRO_TOL,
+                  f"{label}: {name} {tag} relative error {fro}")
+    return worst, (q, k, v, do, lse_p, delta)
+
+
 def phase_kernels(torch, attention):
     """Every case of ``CASES`` against the plain versions; returns the
     main case's worst error a kernel and its inputs, and the same for
@@ -1049,54 +1164,11 @@ def phase_kernels(torch, attention):
     timing = None
     tp_local = {}
     for label, case in CASES:
-        b, s, h, hkv, d, causal = (case[k] for k in
-                                   ("b", "s", "h", "hkv", "d", "causal"))
-
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(
-                torch.bfloat16)
-
-        q, k, v, do = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), \
-            rnd(b, s, h, d)
-        g_lse = 0.1 * torch.randn((b, h, s), generator=gen, device="cuda")
-        o_p, lse_p = attention.mha_reference_with_lse(q, k, v, causal)
-        o_k, lse_k = attention.flash_fwd(q, k, v, causal)
-        # the backward kernels and their plain versions share lse and delta
-        delta = attention.attention_delta(o_p, do, g_lse)
-        dq_p = attention.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, causal)
-        dq_k = attention.flash_bwd_dq(q, k, v, do, lse_p, delta, causal)
-        dk_p, dv_p = attention.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta,
-                                                   causal)
-        dk_k, dv_k = attention.flash_bwd_dkv(q, k, v, do, lse_p, delta, causal)
-        torch.cuda.synchronize()
-        results = {
-            "flash_fwd": [("o", o_k, o_p)],
-            "flash_bwd_dq": [("dq", dq_k, dq_p)],
-            "flash_bwd_dkv": [("dk", dk_k, dk_p), ("dv", dv_k, dv_p)],
-        }
-        lse_err = (lse_k - lse_p).abs().max().item()
-        print(f"  [{label}] {case}: lse max_abs_err {lse_err:.3e} "
-              f"(tol {LSE_ABS_TOL})", flush=True)
-        check(lse_err <= LSE_ABS_TOL, f"{label}: lse error {lse_err}")
-        for name, outs in results.items():
-            worst = 0.0
-            for tag, got, ref in outs:
-                err, peak, fro = compare(got, ref)
-                worst = max(worst, err)
-                print(f"  [{label}] {name} {tag}: max_abs_err {err:.3e} "
-                      f"(max|ref| {peak:.3e}, tol {REL_MAX_TOL * peak:.3e}) "
-                      f"rel_fro {fro:.3e} (tol {REL_FRO_TOL})", flush=True)
-                check(math.isfinite(err) and err <= REL_MAX_TOL * peak,
-                      f"{label}: {name} {tag} max error {err} > "
-                      f"{REL_MAX_TOL} * {peak}")
-                check(fro <= REL_FRO_TOL,
-                      f"{label}: {name} {tag} relative error {fro}")
-            if label == "main":
-                errors[name] = worst
-                timing = (q, k, v, do, lse_p, delta)
-            if label in TP_LOCAL_CASES:
-                tp_local.setdefault(label, ({}, (q, k, v, do, lse_p,
-                                                 delta)))[0][name] = worst
+        worst, inputs = check_flash_case(torch, attention, label, case, gen)
+        if label == "main":
+            errors, timing = worst, inputs
+        if label in TP_LOCAL_CASES:
+            tp_local[label] = (worst, inputs)
     return errors, timing, tp_local
 
 
@@ -1116,31 +1188,35 @@ def _flash_runs(attention, inputs, c):
     }
 
 
-def phase_tp_timing(torch, attention, tp_local):
-    """Each flash kernel and its plain version timed once at each of the
-    tp leg's local head counts (after the idle gap, by CUDA events), with
-    the case's bound: ``{label: {kernel: {h, hkv, ms, plain_ms, bound_ms,
-    bound_by, max_abs_err}}}``."""
+def time_flash_case(torch, attention, label, case, errs, inputs):
+    """Each flash kernel and its plain version timed once at ``case`` on
+    ``inputs`` (after the idle gap, by CUDA events), with the case's bound
+    and ``errs``, the kernels' worst errors there: ``{kernel: {h, hkv, ms,
+    plain_ms, bound_ms, bound_by, max_abs_err}}``."""
+    bound = bounds(case)
     out = {}
-    for label in TP_LOCAL_CASES:
-        case = dict(CASES)[label]
-        errs, inputs = tp_local[label]
-        bound = bounds(case)
-        out[label] = {}
-        for name, (kernel, plain) in _flash_runs(attention, inputs,
-                                                 case["causal"]).items():
-            settle(torch)
-            k_ms = cuda_ms(torch, kernel)
-            p_ms = cuda_ms(torch, plain, iters=5)
-            out[label][name] = {
-                "h": case["h"], "hkv": case["hkv"], "ms": k_ms,
-                "plain_ms": p_ms, "bound_ms": bound[name][0],
-                "bound_by": bound[name][1], "max_abs_err": errs[name]}
-            print(f"  [{label}] {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"bound {bound[name][0]:.4f} ms ({bound[name][1]}), "
-                  f"{k_ms / bound[name][0]:.2f}x bound; sm clock, power: "
-                  f"{clocks_line()}", flush=True)
+    for name, (kernel, plain) in _flash_runs(attention, inputs,
+                                             case["causal"]).items():
+        settle(torch)
+        k_ms = cuda_ms(torch, kernel)
+        p_ms = cuda_ms(torch, plain, iters=5)
+        out[name] = {
+            "h": case["h"], "hkv": case["hkv"], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound[name][0],
+            "bound_by": bound[name][1], "max_abs_err": errs[name]}
+        print(f"  [{label}] {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {bound[name][0]:.4f} ms ({bound[name][1]}), "
+              f"{k_ms / bound[name][0]:.2f}x bound; sm clock, power: "
+              f"{clocks_line()}", flush=True)
     return out
+
+
+def phase_tp_timing(torch, attention, tp_local):
+    """``time_flash_case`` at each of the tp leg's local head counts:
+    ``{label: {kernel: {...}}}``."""
+    return {label: time_flash_case(torch, attention, label,
+                                   dict(CASES)[label], *tp_local[label])
+            for label in TP_LOCAL_CASES}
 
 
 def phase_timing(torch, F, attention, inputs):
@@ -2032,10 +2108,14 @@ def _elastic_life(torch, ckpt_dir):
 
 
 def _wait_persisted(saver, step):
-    """Wait until the saver has logged its persist of ``step``: it logs one
-    once the persist has ended, its commit included."""
+    """Wait until the saver has logged a persist that copied ``step`` from
+    every local process: it logs one once the persist has ended, its
+    commit included. Each rank's save sends its own event, and a persist
+    that ran before every rank had staged the step logs it without the
+    step among the copied ones (``steps``)."""
     deadline = time.time() + CKPT_COMMIT_TIMEOUT_S
-    while not any(e["step"] == step for e in list(saver.persist_log)):
+    while not any(step in e.get("steps", ())
+                  for e in list(saver.persist_log)):
         check(time.time() < deadline, f"the saver did not persist step "
               f"{step} in {CKPT_COMMIT_TIMEOUT_S}s")
         time.sleep(0.5)
@@ -5107,17 +5187,20 @@ def compare_delta(ref_init, ref_final, init, final,
     ``final`` against the replicated run's from ``ref_init`` to
     ``ref_final`` (``param_sample``'s), leaf by leaf: ``{"elements",
     "moved", "init_differs", "worst", "quarters": {quarter or "all":
-    {"elements", "misses"}}}``. An element misses where the two changes
-    differ by more than ``atol_frac`` times its leaf's largest replicated
-    change, and moved where the replicated change is larger than that;
-    ``worst`` is the largest difference over that tolerance."""
+    {"elements", "misses"}}, "leaves": {name: {"elements", "misses",
+    "rel_fro"}}}``. An element misses where the two changes differ by
+    more than ``atol_frac`` times its leaf's largest replicated change,
+    and moved where the replicated change is larger than that; ``worst``
+    is the largest difference over that tolerance; a leaf's ``rel_fro``
+    is the norm of the two changes' difference over the norm of the
+    replicated change."""
     import numpy as np
 
     names = sorted(ref_init)
     check(names == sorted(ref_final) == sorted(init) == sorted(final),
           f"sampled param leaves differ: {names[:3]}")
     out = {"elements": 0, "moved": 0, "init_differs": 0, "worst": 0.0,
-           "quarters": {}}
+           "quarters": {}, "leaves": {}}
     for name in names:
         r0, quarters = ref_init[name]
         g0 = init[name][0]
@@ -5132,6 +5215,10 @@ def compare_delta(ref_init, ref_final, init, final,
         out["init_differs"] += int((g0 != r0).sum())
         if atol > 0:
             out["worst"] = max(out["worst"], float(err.max()) / atol)
+        out["leaves"][name] = {
+            "elements": int(want.size), "misses": int(miss.sum()),
+            "rel_fro": float(np.linalg.norm(got - want)
+                             / max(float(np.linalg.norm(want)), 1e-30))}
         for q in np.unique(quarters):
             sel = quarters == q
             e = out["quarters"].setdefault("all" if q < 0 else str(int(q)),
@@ -5610,8 +5697,9 @@ def _fsdp_args(workdir, role):
 
 
 def _held(t):
-    """What this rank holds of a leaf: a DTensor's local shard, detached."""
-    return t.to_local().detach() if hasattr(t, "to_local") else t
+    """What this rank holds of a leaf, detached: a DTensor's local shard,
+    a whole tensor itself."""
+    return t.to_local().detach() if hasattr(t, "to_local") else t.detach()
 
 
 def leaf_bytes(tree):
@@ -6256,6 +6344,377 @@ def _tp_leg(torch, fsdp4_loss):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+#: the sp leg's runs in the four ranks' one start: run -> (fsdp, sp,
+#: attn_impl, the world's spec)
+SP_RUNS = {
+    "sp4_ring": (1, 4, "ring", "sp4"),
+    "sp4_ulysses": (1, 4, "ulysses", "sp4"),
+    "fsdp2xsp2_ring": (2, 2, "ring", "fsdp2xsp2"),
+}
+
+
+def sp_flash_cases(h, hkv, d, runs=SP_RUNS, seq=SP_SEQ):
+    """Every shape at which the sp leg launches the flash kernels, derived
+    from ``runs`` and ``seq`` so that no run adds a shape nothing holds:
+    the reference's causal kernel on the whole sequence of ``h`` / ``hkv``
+    heads; each ring run's causal diagonal chunk and non-causal earlier
+    chunk at ``seq/sp``; each ulysses run's causal kernel on the whole
+    sequence of its local heads (the kv heads repeated where sp does not
+    divide them, as ``ops/ulysses.py`` repeats them). ``[(label, case)]``,
+    each shape once, labelled by the first run that launches it."""
+    want = [("reference", dict(b=1, s=seq, h=h, hkv=hkv, d=d, causal=True))]
+    for run, (_, sp, impl, _) in runs.items():
+        if impl == "ring":
+            for tag, causal in (("diagonal", True), ("earlier", False)):
+                want.append((f"{run}_{tag}", dict(
+                    b=1, s=seq // sp, h=h, hkv=hkv, d=d, causal=causal)))
+        else:
+            rep = 1 if hkv % sp == 0 else sp // math.gcd(hkv, sp)
+            want.append((f"{run}_local", dict(
+                b=1, s=seq, h=h // sp, hkv=hkv * rep // sp, d=d,
+                causal=True)))
+    out = []
+    for label, case in want:
+        if all(case != c for _, c in out):
+            out.append((label, case))
+    return out
+
+
+def _sp_args(run):
+    """``run/llama_pretrain.py``'s options for one run of the sp leg: the
+    main path's widths at SP_LAYERS layers, seq SP_SEQ, global batch
+    SP_GLOBAL_BATCH, micro-batch 1, no lr warmup, seed 0; the reference
+    on one card, the flash kernels on the whole sequence, else
+    ``SP_RUNS[run]``'s mesh with its attention."""
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    argv = ["--model", "8b", "--layers", str(SP_LAYERS), "--seq",
+            str(SP_SEQ), "--micro-batch", "1", "--global-batch",
+            str(SP_GLOBAL_BATCH), "--steps", str(SP_STEPS),
+            "--warmup-steps", "0", "--device", "cuda", "--seed", "0"]
+    if run in SP_RUNS:
+        fsdp, sp, impl, _ = SP_RUNS[run]
+        argv += ["--fsdp", str(fsdp), "--sp", str(sp), "--attn-impl", impl]
+    return llama_pretrain.parse_args(argv)
+
+
+def sp_batches(torch, steps=SP_STEPS, global_batch=SP_GLOBAL_BATCH,
+               seq=SP_SEQ, vocab=DATA_VOCAB, seed=DATA_SEED):
+    """The sp leg's global batches, ``(steps, global_batch, seq)`` token
+    ids drawn on the host from ``seed``: the same rows whatever a run's
+    layout."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, (steps, global_batch, seq), generator=gen)
+
+
+def sp_expected_flash(run, rank, accum, layers=SP_LAYERS, steps=SP_STEPS):
+    """The flash kernels' launches a rank of ``run`` makes in ``steps``
+    steps of ``accum`` microbatches under remat "all": a chunk kernel a
+    layer a forward (ring: rank r of the sp group runs r + 1 causal chunk
+    kernels, ulysses and the reference one on the whole sequence), the
+    forward twice (the recompute), each backward kernel once. Returns
+    ``{kernel: launches}``."""
+    if run == "reference":
+        chunks = 1
+    else:
+        _, sp, impl, _ = SP_RUNS[run]
+        chunks = rank % sp + 1 if impl == "ring" else 1
+    n = steps * accum * layers * chunks
+    return {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def _sp_train(torch, run, device, batches, workdir, rank):
+    """One run of the sp leg on ``device``: built through
+    ``llama_pretrain.build``, its params sampled at init and after the last
+    step to the work directory, the launch counters at 0 just before the
+    steps. Returns the run's result."""
+    from dlrover_tpu_torch.ops import attention
+    from dlrover_tpu_torch.ops import fused_ce as fce
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    args = _sp_args(run)
+    _, trainer, state, _, tokens = llama_pretrain.build(args, device)
+    a, b = trainer.step_batch_shape
+    result = {"rank": rank, "mode": trainer.zero1_mode,
+              "mesh": (trainer.world_descriptor().spec
+                       if trainer.mesh is not None else "one card"),
+              "accum": a, "tokens_per_step": tokens,
+              "params": leaf_bytes(state["params"]),
+              "moments": leaf_bytes({"mu": state["opt"]["mu"],
+                                     "nu": state["opt"]["nu"]}),
+              "build_s": time.perf_counter() - t0,
+              "init_peak_bytes": torch.cuda.max_memory_allocated(device)}
+    save_sample(workdir, run, rank, "init",
+                fsdp_sample(torch, state["params"]))
+    _reset_counts(attention, fce, [0])
+    torch.cuda.reset_peak_memory_stats(device)
+    result["steps"] = []
+    for step in range(1, args.steps + 1):
+        batch = trainer.local_rows(batches[step - 1].reshape(a, b, -1)).to(
+            device)
+        state, loss, seconds = llama_pretrain.timed_step(trainer, state,
+                                                         batch)
+        result["steps"].append({"step": step, "loss": loss,
+                                "seconds": seconds,
+                                "grad_bytes": trainer.grad_bytes})
+        print(f"rank {rank} {run} step {step} loss {loss:.6f} "
+              f"({seconds:.3f}s)", flush=True)
+    result["counts"] = _launch_counts(attention, fce)
+    result["max_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    save_sample(workdir, run, rank, "last",
+                fsdp_sample(torch, state["params"]))
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
+def sp_child(role, workdir):
+    """The sp leg's processes (``_sp_leg``). ``reference``: one process on
+    one card, no process group: the flash kernels against their plain
+    versions at ``sp_flash_cases`` and their times, then the reference
+    run. ``ranks``: one
+    rank of the four, its group formed by ``train/bootstrap.py`` from the
+    environment the leg sets, running every run of ``SP_RUNS`` in turn, the
+    mesh rebuilt and the memory freed between them. Prints one JSON
+    result; a rank that raises exits at once."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        batches = sp_batches(torch)
+        if role == "reference":
+            from dlrover_tpu_torch.ops import attention
+            from dlrover_tpu_torch.run import llama_pretrain
+
+            cfg = llama_pretrain.model_config("8b", SP_LAYERS)
+            gen = torch.Generator(device="cuda").manual_seed(4321)
+            out = {"rank": 0, "flash": {}}
+            for label, case in sp_flash_cases(cfg.n_heads, cfg.n_kv_heads,
+                                              cfg.head_dim):
+                errs, inputs = check_flash_case(torch, attention, label,
+                                                case, gen)
+                out["flash"][label] = dict(time_flash_case(
+                    torch, attention, label, case, errs, inputs),
+                    case=case)
+                del inputs
+                gc.collect()
+                torch.cuda.empty_cache()
+            out["runs"] = {"reference": _sp_train(
+                torch, "reference", "cuda:0", batches, workdir, 0)}
+            print("CHILD_JSON " + json.dumps(out), flush=True)
+            return 0
+        import torch.distributed as dist
+
+        from dlrover_tpu_torch.train import bootstrap
+
+        ctx = bootstrap.init()
+        rank = bootstrap.process_index()
+        device = f"cuda:{ctx.local_rank}"
+        out = {"rank": rank, "runs": {}}
+        for run in SP_RUNS:
+            out["runs"][run] = _sp_train(torch, run, device, batches,
+                                         workdir, rank)
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        print("CHILD_JSON " + json.dumps(out), flush=True)
+        dist.barrier()
+        return 0
+    except BaseException:
+        # exit at once: the peers' NCCL wait would hold this process, and
+        # the leg, to its timeout
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def _sp_held_split(run, path):
+    """The factor a rank's share of param leaf ``path`` is cut by in
+    ``run``: fsdp for a matrix (sp splits no param), whole for a norm."""
+    fsdp = SP_RUNS[run][0] if run in SP_RUNS else 1
+    return 1 if "norm" in path else fsdp
+
+
+def _sp_results(ref, ranks):
+    """``{run: [each rank's result]}`` of the sp leg, the reference
+    child's run first (one rank)."""
+    runs = {"reference": [ref["runs"]["reference"]]}
+    runs.update({run: [r["runs"][run] for r in ranks] for run in SP_RUNS})
+    return runs
+
+
+def check_sp(ref, ranks, deltas):
+    """The sp leg's checks: ``ref`` the reference child's result, ``ranks``
+    the four ranks' results in rank order, ``deltas`` ``{run:
+    compare_delta of its merged samples against the reference's}``.
+    Every run's losses equal across its
+    ranks, finite, and at steps 1 and 2 within SP_LOSS_RTOL of the
+    reference's; every rank's mode and mesh, its params, gradients and
+    moments at the arithmetic's share, its peak under FSDP_MEMORY_MAX;
+    every kernel launched, the flash kernels as often as
+    ``sp_expected_flash`` says; each leaf's change after the last step
+    against the reference's within ``SP_DELTA_REL_FRO``."""
+    runs = _sp_results(ref, ranks)
+    want_losses = [st["loss"] for st in runs["reference"][0]["steps"]]
+    check(len(want_losses) == SP_STEPS
+          and all(math.isfinite(x) for x in want_losses),
+          f"reference losses {want_losses}")
+    check([r["rank"] for r in ranks] == list(range(SP_WORLD)),
+          f"sp ranks {[r['rank'] for r in ranks]}")
+    for run, rs in runs.items():
+        losses = [[st["loss"] for st in r["steps"]] for r in rs]
+        check(all(x == losses[0] for x in losses),
+              f"{run}: the ranks' losses differ: {losses}")
+        for i, (got, want) in enumerate(zip(losses[0], want_losses)):
+            rel = abs(got - want) / abs(want)
+            check(math.isfinite(got) and rel <= SP_LOSS_RTOL,
+                  f"{run}: step-{i + 1} loss {got} against the reference's "
+                  f"{want}, {rel:.3e} relative > {SP_LOSS_RTOL}")
+        for rank, r in enumerate(rs):
+            at = f"{run} rank {rank}"
+            mesh = SP_RUNS[run][3] if run in SP_RUNS else "one card"
+            check(r["mode"] == "off" and r["mesh"] == mesh,
+                  f"{at}: mode {r['mode']} on {r['mesh']}")
+            for path, (total, held, _) in r["params"].items():
+                split = _sp_held_split(run, path)
+                check(held * split == total,
+                      f"{at}: holds {held} of param {path}'s {total} "
+                      f"elements, not 1/{split}")
+            check(_held_bytes(r, "moments") == 2 * _held_bytes(r, "params"),
+                  f"{at}: moments {_held_bytes(r, 'moments')} bytes against "
+                  f"params {_held_bytes(r, 'params')}")
+            for st in r["steps"]:
+                check(st["grad_bytes"] == _held_bytes(r, "params"),
+                      f"{at} step {st['step']}: gradients "
+                      f"{st['grad_bytes']} bytes, params "
+                      f"{_held_bytes(r, 'params')}")
+            check(r["max_memory_bytes"] < FSDP_MEMORY_MAX,
+                  f"{at}: max_memory_allocated {r['max_memory_bytes']}")
+            for kname, n in r["counts"].items():
+                check(n > 0, f"{at}: kernel {kname} never launched")
+            for kname, n in sp_expected_flash(run, rank,
+                                              r["accum"]).items():
+                check(r["counts"][kname] == n,
+                      f"{at}: {kname} launched {r['counts'][kname]} times, "
+                      f"not {n}")
+    for run, d in deltas.items():
+        check(d["init_differs"] == 0,
+              f"{run}: {d['init_differs']} sampled params differ at init "
+              "from the reference's")
+        check(d["moved"] >= ZERO1_DELTA_MOVED_MIN * d["elements"],
+              f"{run}: the reference moved {d['moved']} of {d['elements']} "
+              "sampled params")
+        for name, e in sorted(d["leaves"].items()):
+            check(e["rel_fro"] <= SP_DELTA_REL_FRO,
+                  f"{run}: {name}'s change from init parts from the "
+                  f"reference's by {e['rel_fro']:.3f} relative > "
+                  f"{SP_DELTA_REL_FRO:.3f}")
+
+
+def sp_kernels_line(ref, ranks):
+    """The sp leg's ``kernels`` line: each kernel's launches by run and
+    rank, the references' one rank among them."""
+    runs = _sp_results(ref, ranks)
+    kernels = []
+    for table, source in ((KERNELS, SOURCE), (CE_KERNELS, CE_SOURCE)):
+        for kname, _, replaces in table:
+            kernels.append({
+                "name": kname, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": {run: [r["counts"][kname] for r in rs]
+                             for run, rs in runs.items()}})
+    return json.dumps({"kernels": kernels})
+
+
+def print_sp(ref, ranks, deltas, n_params, card):
+    """The sp leg's readings, each beside the cards' name and power
+    limit."""
+    for label, kernels in ref["flash"].items():
+        print(f"  [{label}] {json.dumps(kernels)} ({card})", flush=True)
+    runs = _sp_results(ref, ranks)
+    want = [st["loss"] for st in runs["reference"][0]["steps"]]
+    for run, rs in runs.items():
+        for rank, r in enumerate(rs):
+            print(f"  {run} rank {rank}: params {_held_bytes(r, 'params')} "
+                  f"bytes, grads {r['steps'][-1]['grad_bytes']} bytes, "
+                  f"moments {_held_bytes(r, 'moments')} bytes, "
+                  f"max_memory_allocated {r['max_memory_bytes']} (before "
+                  f"the steps {r['init_peak_bytes']}); build "
+                  f"{r['build_s']:.1f} s, the run {r['seconds']:.1f} s; "
+                  f"launches {json.dumps(r['counts'])} ({card})", flush=True)
+        cards = len(rs)
+        per_card = rs[0]["tokens_per_step"] / cards
+        for i, st in enumerate(rs[0]["steps"]):
+            wall = max(r["steps"][i]["seconds"] for r in rs)
+            mfu = 6 * n_params * per_card / wall / PEAK_FLOPS
+            rel = abs(st["loss"] - want[i]) / abs(want[i])
+            print(f"  {run} step {st['step']}: loss {st['loss']:.6f} "
+                  f"({rel:.3e} relative to the reference), step wall "
+                  f"{wall:.4f} s (slowest rank), {per_card / wall:.1f} "
+                  f"tokens/s a card, MFU {mfu:.4f} ({card})", flush=True)
+    for run, d in deltas.items():
+        misses = sum(e["misses"] for e in d["quarters"].values())
+        leaves = {name.split("/", 1)[1]: [
+            round(e["rel_fro"], 4), round(e["misses"] / e["elements"], 4)]
+            for name, e in sorted(d["leaves"].items())}
+        print(f"  {run} params after step {SP_STEPS}, each leaf's relative "
+              f"error of the change from init against the reference's "
+              f"(bound {SP_DELTA_REL_FRO}) and its share of sampled "
+              f"changes past {SP_DELTA_ATOL} of the leaf's largest: "
+              f"{json.dumps(leaves)};"
+              f" {misses} of {d['elements']} past in all, {d['moved']} "
+              f"moved", flush=True)
+
+
+def _sp_leg(torch):
+    """The four-card sp leg (module docstring)."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.run import llama_pretrain
+
+    cfg = llama_pretrain.model_config("8b", SP_LAYERS)
+    n_params = llama.param_count(cfg)
+    card = "; ".join(sorted(set(nvidia_smi_line().splitlines())))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    job = f"chip_smoke_sp_{os.getpid()}_{uuid.uuid4().hex[:8]}"
+    t0 = time.perf_counter()
+    try:
+        ref = _run_ranks("--sp-child", "sp", "reference", 1, workdir, job,
+                         SP_TIMEOUT_S)[0]
+        cases = sp_flash_cases(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        check([(label, k["case"]) for label, k in ref["flash"].items()]
+              == cases, f"the reference child held the flash kernels at "
+              f"{list(ref['flash'])}, not at every shape of {cases}")
+        t1 = time.perf_counter()
+        ranks = _run_ranks("--sp-child", "sp", "ranks", SP_WORLD, workdir,
+                           job, SP_TIMEOUT_S)
+        t2 = time.perf_counter()
+        samples = {
+            (run, kind): merge_samples([
+                load_sample(workdir, run, r, kind)
+                for r in range(SP_WORLD if run in SP_RUNS else 1)])
+            for run in ("reference",) + tuple(SP_RUNS)
+            for kind in ("init", "last")}
+        deltas = {run: compare_delta(
+            samples[("reference", "init")], samples[("reference", "last")],
+            samples[(run, "init")], samples[(run, "last")],
+            atol_frac=SP_DELTA_ATOL)
+            for run in SP_RUNS}
+        print_sp(ref, ranks, deltas, n_params, card)
+        check_sp(ref, ranks, deltas)
+        print(sp_kernels_line(ref, ranks), flush=True)
+        print(f"  sp leg: the reference {t1 - t0:.1f} s, the four ranks "
+              f"{t2 - t1:.1f} s, {time.perf_counter() - t0:.1f} s in all; "
+              f"every check passed ({card})", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main_four_card():
     """The four-card leg (module docstring)."""
     import torch
@@ -6412,6 +6871,10 @@ def main_four_card():
     print("== the four-card leg: the 32-layer Llama-3-8B at fsdp2 x tp2, and "
           "dp2 x tp2 under zero-1", flush=True)
     _tp_leg(torch, fsdp4_loss)
+    print("== the four-card leg: Llama-3-8B widths (4 of 32 layers) at seq "
+          f"{SP_SEQ}, sp4 ring, sp4 ulysses and fsdp2 x sp2 ring against "
+          "one card", flush=True)
+    _sp_leg(torch)
     print(f"== done in {time.perf_counter() - t_start:.1f}s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6579,6 +7042,8 @@ if __name__ == "__main__":
             sys.exit(fsdp_child(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--tp-child"]:
             sys.exit(tp_child(*sys.argv[2:4]))
+        if sys.argv[1:2] == ["--sp-child"]:
+            sys.exit(sp_child(*sys.argv[2:4]))
         if sys.argv[1:2] == ["--four-card"]:
             sys.exit(main_four_card())
         sys.exit(main())

@@ -1,5 +1,5 @@
 """Llama-3-family decoder (port of dlrover_tpu/models/llama.py, the non-pp
-path: one device, and dp, fsdp and tp on a ``DeviceMesh``).
+path: one device, and dp, fsdp, sp and tp on a ``DeviceMesh``).
 
 The parameter layout is the JAX package's, so weights cross between the two
 through numpy with no transposes: per-layer leaves are stacked on a leading
@@ -52,9 +52,28 @@ rank's own columns of the gradient without a sum, since each rank's is
 already the total. Under fsdp × tp a layer's ``(d/fsdp, h/tp)`` shard is
 gathered over fsdp only, to ``(d, h/tp)``.
 
+Sequence parallelism (sp above 1): the ranks of an sp group train the
+same rows, each its own contiguous chunk of ``s/sp`` positions, rank ``i``
+chunk ``i``, and runs the whole layer on it; the JAX package's GSPMD
+shards the activations' sequence dim over sp the same way. Every entry
+point takes the whole rows on every sp rank and returns this rank's chunk
+(``forward_hidden``, ``forward``) or its chunk's sums (``loss_sums``).
+Two things differ on a chunk: RoPE rotates by the global positions
+``sp_index · s/sp + arange(s/sp)``, and the next-token shift runs on the
+whole row before the split (``_shift_targets``), so a chunk's last target
+is the next chunk's first token and only the last chunk's last position
+is ``-1``, as the JAX pp stages shift. The attention is the only part
+that crosses chunks: ``attn_impl`` picks ring attention (``"auto"`` or
+``"ring"``, ``ops/ring_attention.py``) or ulysses (``"ulysses"``,
+``ops/ulysses.py``) over the mesh's sp group, on this rank's heads, so tp
+× sp composes. ``"flash"`` and ``"reference"`` on an sp mesh raise: the
+port has no partitioner to run a whole-sequence attention on a chunk.
+The trainer sums the losses' sums and the gradients over sp beside the
+batch axes (train/trainer.py).
+
 Every rank issues the same collectives in the same order, in the remat
-recompute too. sp, ep and pp are later slices: a mesh with one of them
-above 1 raises.
+recompute too. ep and pp are later slices: a mesh with one of them above
+1 raises.
 """
 
 from __future__ import annotations
@@ -77,8 +96,11 @@ from dlrover_tpu_torch.ops import (
     cross_entropy_sums,
     embed_lookup,
     flash_attention,
+    mha_reference,
+    ring_attention,
     rms_norm,
     rope_frequencies,
+    ulysses_attention,
 )
 from dlrover_tpu_torch.parallel.mesh import (
     DP,
@@ -90,6 +112,9 @@ from dlrover_tpu_torch.parallel.mesh import (
     MeshConfig,
     axis_sizes,
     check_ported_axes,
+    sp_group,
+    sp_index,
+    sp_size,
     tp_group,
     tp_index,
     tp_size,
@@ -98,6 +123,9 @@ from dlrover_tpu_torch.parallel.mesh import (
 from dlrover_tpu_torch.parallel.sharding import local_of, place_local
 
 Params = Dict[str, Any]
+
+#: ``LlamaConfig.attn_impl``'s values, the JAX package's
+ATTN_IMPLS = ("auto", "flash", "reference", "ring", "ulysses")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,12 +148,18 @@ class LlamaConfig:
     remat_policy: str = "all"
     # vocab columns per step of the chunked cross-entropy
     ce_chunk_size: int = 2048
+    # "auto": ring on an sp mesh, else flash; "flash", "ring", "ulysses";
+    # "reference": the plain attention, on CPU tensors only (_attention)
+    attn_impl: str = "auto"
 
     def __post_init__(self):
         if self.remat_policy not in ("all", "mlp"):
             raise ValueError(
                 f"remat_policy={self.remat_policy!r}: expected 'all' or 'mlp'"
             )
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(
+                f"attn_impl={self.attn_impl!r}: expected one of {ATTN_IMPLS}")
 
     @property
     def head_dim(self) -> int:
@@ -261,7 +295,7 @@ def validate_for_mesh(cfg: LlamaConfig, mesh, seq_len: int = 0) -> None:
     the non-pp path: ``validate_divisibility``). ``mesh``: a
     ``DeviceMesh``, a ``MeshConfig`` or ``{axis: size}``. A mesh with pp
     above 1 raises: the pipeline schedules, and the JAX checks that go
-    with them, are not ported yet (ROADMAP Queue 1 item 6)."""
+    with them, are not ported yet (``parallel/pp_schedule.py``)."""
     shape = axis_sizes(mesh)
     mc = MeshConfig(
         dp=shape.get(DP, 1), pp=shape.get(PP, 1),
@@ -279,7 +313,7 @@ def validate_for_mesh(cfg: LlamaConfig, mesh, seq_len: int = 0) -> None:
     if mc.pp > 1:
         raise ValueError(
             f"pp={mc.pp}: the pipeline schedules are not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+            "(parallel/pp_schedule.py)")
 
 
 def sharded_mesh(mesh):
@@ -393,8 +427,8 @@ class _TpRegionIn(torch.autograd.Function):
 
 class _TpRegionOut(torch.autograd.Function):
     """Megatron ``g``: all-reduce over ``group`` forward (the row-parallel
-    partial sums), identity backward (the replicated total's gradient
-    handed to each rank's partial)."""
+    partial sums; ``loss_fn``'s chunk sums over sp), identity backward
+    (the replicated total's gradient handed to each rank's partial)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -468,11 +502,39 @@ def _mesh_of(params: Params, mesh):
 # ---------------------------------------------------------------------------
 
 
+def _attention(cfg: LlamaConfig, mesh, q, k, v) -> torch.Tensor:
+    """Causal attention of this rank's heads (and, on an sp mesh, its
+    chunk of the sequence) by ``cfg.attn_impl``, the JAX ``_attention``:
+    ring or ulysses over the sp group, else the flash kernels on the whole
+    sequence; ``"reference"`` runs the plain attention on a CPU tensor and
+    raises on a CUDA one, where nothing stands in for the kernels."""
+    impl = cfg.attn_impl
+    sp = sp_size(mesh)
+    if impl == "auto":
+        impl = "ring" if sp > 1 else "flash"
+    if sp > 1:
+        if impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"attn_impl={impl!r} on a mesh with sp={sp}: each rank holds "
+                "a chunk of the sequence, so only 'ring', 'ulysses' or "
+                "'auto' attend across chunks")
+        attend = ring_attention if impl == "ring" else ulysses_attention
+        return attend(q, k, v, sp_group(mesh), causal=True)
+    if impl == "reference":
+        if q.is_cuda:
+            raise ValueError(
+                "attn_impl='reference' runs the plain attention on CPU "
+                "tensors only; on the card the flash kernels run")
+        return mha_reference(q, k, v, causal=True)
+    return flash_attention(q, k, v, causal=True)
+
+
 def _decoder_layer(cfg: LlamaConfig, inv_freq, positions, lp, x, mesh=None):
     """One block: pre-norm attention + pre-norm swiglu, residual adds. At
     tp above 1 on ``mesh``, the JAX ``tp_size`` form: this rank's
     ``h/tp`` heads and ``hkv/tp`` kv heads between the f/g regions
-    (module docstring)."""
+    (module docstring); at sp above 1, ``x`` is this rank's chunk of the
+    sequence and ``positions`` its global positions."""
     dt = cfg.dtype
     b, s, _ = x.shape
     tp = tp_size(mesh)
@@ -484,7 +546,7 @@ def _decoder_layer(cfg: LlamaConfig, inv_freq, positions, lp, x, mesh=None):
     v = (y @ lp["wv"].to(dt)).view(b, s, kvh, hd)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
-    attn = flash_attention(q, k, v, causal=True).reshape(b, s, h * hd)
+    attn = _attention(cfg, mesh, q, k, v).reshape(b, s, h * hd)
     x = x + _tp_region_out(attn @ lp["wo"].to(dt), mesh)
 
     y = _tp_region_in(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), mesh)
@@ -536,25 +598,42 @@ def _maybe_remat(cfg: LlamaConfig, layer_fn, tp: int = 1):
     return remat_layer
 
 
+def sp_chunk(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's contiguous chunk of ``t``'s sequence dim (dim 1) on an
+    sp mesh: positions ``[i·s/sp, (i+1)·s/sp)`` at sp index ``i``; ``t``
+    itself at sp 1."""
+    sp = sp_size(mesh)
+    if sp <= 1:
+        return t
+    n = t.shape[1] // sp
+    return t.narrow(1, sp_index(mesh) * n, n)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     """Final-norm hidden states (b, s, dim) in compute dtype: everything up
     to, not including, the unembed matmul. ``mesh``: the ``DeviceMesh``
     the params live on (their own when they are DTensors and it is None);
     with fsdp or tp above 1 the weights are gathered and the heads split
-    as the module docstring says. On any mesh an id outside the
-    vocabulary embeds as zeros, as the JAX package's one-hot lookup does
-    there; without one it wraps (``ops/embedding.py``)."""
+    as the module docstring says. With sp above 1 ``tokens`` are the whole
+    rows and the result is this rank's chunk, ``(b, s/sp, dim)``. On any
+    mesh an id outside the vocabulary embeds as zeros, as the JAX
+    package's one-hot lookup does there; without one it wraps
+    (``ops/embedding.py``)."""
     b, s = tokens.shape
     mesh = _mesh_of(params, mesh)
     if mesh is not None:
         validate_for_mesh(cfg, mesh, seq_len=s)
         check_ported_axes(mesh)
+    tokens = sp_chunk(tokens, mesh)
+    n = tokens.shape[1]
     embed = local_of(params["embed"])
     if _fsdp_size(mesh) > 1:
         embed = fsdp_gather(embed, mesh, 1)
     x = _tp_region_out(embed_lookup(embed, tokens, cfg.dtype, mesh), mesh)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    # global positions: this chunk's offset in the row
+    positions = (sp_index(mesh) * n
+                 + torch.arange(n, device=tokens.device)).expand(b, n)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 device=tokens.device)
     layer = functools.partial(_decoder_layer, cfg, inv_freq, positions,
@@ -584,16 +663,18 @@ def unembed(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Params, tokens: torch.Tensor,
             cfg: LlamaConfig, mesh=None) -> torch.Tensor:
-    """Logits (b, s, vocab) in float32."""
+    """Logits (b, s, vocab) in float32; on an sp mesh this rank's chunk,
+    ``(b, s/sp, vocab)``, of the whole rows ``tokens``."""
     mesh = _mesh_of(params, mesh)
     x = forward_hidden(params, tokens, cfg, mesh)
     return unembed(x, _gather_lm_head(local_of(params["lm_head"]), mesh))
 
 
-def _ce_sums(logits: torch.Tensor, tokens: torch.Tensor):
-    """(sum of next-token NLL, count of valid targets); pad tokens < 0
-    are ignored. ``logits``/``tokens`` are (mb, s, vocab)/(mb, s)."""
-    logits, targets = logits[:, :-1], tokens[:, 1:]
+def _ce_sums(logits: torch.Tensor, targets: torch.Tensor):
+    """(sum of NLL, count of valid targets) against pre-shifted targets
+    (``_shift_targets``; targets < 0 are ignored), the JAX
+    ``_ce_sums_shifted``. ``logits``/``targets`` are (mb, s, vocab)/(mb,
+    s)."""
     valid = (targets >= 0).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets.clamp(min=0).long()[..., None])[..., 0]
@@ -609,21 +690,32 @@ def loss_sums(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of the next-token NLL, count of valid targets) of ``tokens``;
     pad tokens < 0 are ignored. A data-parallel trainer all-reduces the
-    count to form the global token mean."""
+    count to form the global token mean. On an sp mesh ``tokens`` are the
+    whole rows: they are shifted whole, and the sums are this rank's
+    chunk's (the trainer sums them over sp)."""
     mesh = _mesh_of(params, mesh)
+    targets = sp_chunk(_shift_targets(tokens), mesh)
     if chunked_ce_enabled():
         # fused lm-head + CE on the shifted targets: never materializes
         # [b, s, vocab] logits
         x = forward_hidden(params, tokens, cfg, mesh)
         return cross_entropy_sums(
             x, _gather_lm_head(local_of(params["lm_head"]), mesh),
-            _shift_targets(tokens), chunk_size=cfg.ce_chunk_size,
+            targets, chunk_size=cfg.ce_chunk_size,
         )
-    return _ce_sums(forward(params, tokens, cfg, mesh), tokens)
+    return _ce_sums(forward(params, tokens, cfg, mesh), targets)
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
             mesh=None) -> torch.Tensor:
-    """Mean next-token cross-entropy (pad tokens < 0 are ignored)."""
+    """Mean next-token cross-entropy (pad tokens < 0 are ignored). On an
+    sp mesh the mean of the whole rows on every sp rank: the chunks' sums
+    are added over the sp group by Megatron's ``g`` (all-reduce forward,
+    identity backward), so a rank's gradient is its chunk's share, which
+    the trainer's sp sum completes."""
+    mesh = _mesh_of(params, mesh)
     nll_sum, n_valid = loss_sums(params, tokens, cfg, mesh)
+    if sp_size(mesh) > 1:
+        nll_sum = _TpRegionOut.apply(nll_sum, sp_group(mesh))
+        n_valid = _TpRegionOut.apply(n_valid.detach(), sp_group(mesh))
     return nll_sum / torch.clamp(n_valid, min=1.0)

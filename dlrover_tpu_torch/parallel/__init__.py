@@ -24,6 +24,9 @@ from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
     data_parallel,
     mesh_for,
     remesh,
+    sp_group,
+    sp_index,
+    sp_size,
     tp_group,
     tp_index,
     tp_size,

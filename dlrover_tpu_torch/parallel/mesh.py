@@ -19,8 +19,8 @@ mesh on a plain device list, so on a pure-dp mesh rank ``r`` is dp index
 ``r``.
 
 Not ported here: the multislice layout (``_build_multislice_mesh`` and
-``mesh_slice_of*``), which waits for hierarchical collectives (ROADMAP
-Queue 1 item 7).
+``mesh_slice_of*``), which waits for the hierarchical collectives
+(``ops/hier_collectives.py``).
 """
 
 from __future__ import annotations
@@ -138,15 +138,16 @@ def data_parallel(mesh) -> Tuple[int, int]:
 
 
 def check_ported_axes(mesh) -> None:
-    """Raise on a mesh axis whose path is a later slice of the port: it
-    trains dp, fsdp and tp; sp, ep and pp above 1 raise rather than run
-    replicated (ROADMAP Queue 1)."""
+    """Raise on a mesh axis whose path the port does not have yet: it
+    trains dp, fsdp, sp and tp; ep (the MoE layers, ``models/moe.py``) and
+    pp (the pipeline schedules, ``parallel/pp_schedule.py``) above 1 raise
+    rather than run replicated."""
     sizes = axis_sizes(mesh)
-    later = {a: sizes[a] for a in (PP, EP, SP) if sizes.get(a, 1) > 1}
+    later = {a: sizes[a] for a in (PP, EP) if sizes.get(a, 1) > 1}
     if later:
         raise ValueError(
-            f"mesh axes {later}: sp, ep and pp are not ported yet "
-            "(ROADMAP Queue 1); the port trains dp, fsdp and tp")
+            f"mesh axes {later}: ep and pp are not ported yet; the port "
+            "trains dp, fsdp, sp and tp")
 
 
 def tp_size(mesh) -> int:
@@ -164,6 +165,24 @@ def tp_index(mesh) -> int:
 def tp_group(mesh):
     """The process group of this rank's tp ranks (``get_group("tp")``)."""
     return mesh.get_group(TP)
+
+
+def sp_size(mesh) -> int:
+    """The size of the mesh's sp axis (1 without a mesh)."""
+    return 1 if mesh is None else axis_sizes(mesh).get(SP, 1)
+
+
+def sp_index(mesh) -> int:
+    """This rank's coordinate on the sp axis: which contiguous chunk of
+    ``s/sp`` positions of every row it holds (0 at sp 1, where a mesh may
+    be a ``MeshConfig`` or a mapping)."""
+    return mesh.get_local_rank(SP) if sp_size(mesh) > 1 else 0
+
+
+def sp_group(mesh):
+    """The process group of this rank's sp ranks (``get_group("sp")``), in
+    sp order: group rank ``i`` holds chunk ``i``."""
+    return mesh.get_group(SP)
 
 
 #: (mesh, live axes) -> the process group over them (``axes_group``)
@@ -244,7 +263,7 @@ def mesh_for(world, device_type: str = "cuda"):
     if world.n_slices > 1:
         raise ValueError(
             f"{world.spec}: multislice meshes are not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+            "(they wait for ops/hier_collectives.py)")
     n = bootstrap.process_count()
     if n != world.world_size:
         raise ValueError(

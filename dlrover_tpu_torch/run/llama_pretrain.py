@@ -61,12 +61,18 @@ models/llama.py) on ``MeshConfig(dp=-1, fsdp=F, tp=N)``, beside
 ``--fsdp F``: ``--fsdp 2 --tp 2`` on four processes is the JAX example's
 layout; the ranks of a tp group train the same rows. With ``--zero1`` and
 dp above 1 the update is sharded over dp (mode ``gspmd``).
+``--sp N``, the JAX example's third model axis, splits every row's
+positions over N ranks (``MeshConfig(dp=-1, fsdp=F, sp=N, tp=T)``): each
+trains its contiguous chunk of ``--seq / N`` positions of the same rows,
+its attention running ring attention over the sp group, or ulysses with
+``--attn-impl ulysses`` (the config's ``attn_impl``; models/llama.py).
 ``--model 8b --layers 0`` is the preset's whole depth, 32 layers.
 Run bare, it trains alone.
 
 The result's ``tokens_per_s`` is the global batch's tokens a second of
-step wall after the first step; ``tokens_per_s_per_card`` divides it over
-every card of the world, tp ranks included, and ``mfu`` is
+step wall after the first step, each token counted once whatever the
+ranks it is split over; ``tokens_per_s_per_card`` divides it over every
+card of the world, tp and sp ranks included, and ``mfu`` is
 ``6 · params · tokens_per_s_per_card`` over the card's bf16 dense peak
 (``profiler/tpu_timer.py::peak_bf16_tflops``; None on the CPU).
 """
@@ -139,15 +145,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel size of the mesh (heads, ffn "
                    "columns and vocabulary split over it)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel size of the mesh (each row's "
+                   "positions split over it)")
+    p.add_argument("--attn-impl", default="auto", choices=llama.ATTN_IMPLS,
+                   help="the model's attention: auto is ring on an sp mesh, "
+                   "else flash")
     return p.parse_args(argv)
 
 
-def model_config(name: str, layers: int) -> llama.LlamaConfig:
+def model_config(name: str, layers: int,
+                 attn_impl: str = "auto") -> llama.LlamaConfig:
     cfg = (llama.LlamaConfig.tiny() if name == "tiny"
            else llama.LlamaConfig.llama3_8b())
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    return cfg
+    return dataclasses.replace(cfg, attn_impl=attn_impl)
 
 
 def build(args: argparse.Namespace, device=None, worker_ctx=None):
@@ -159,7 +172,7 @@ def build(args: argparse.Namespace, device=None, worker_ctx=None):
     the worker's bootstrap context, through which the trainer polls the
     runtime config and the planner's hint."""
     device = resolve_device(args.device if device is None else device)
-    cfg = model_config(args.model, args.layers)
+    cfg = model_config(args.model, args.layers, args.attn_impl)
     seq = args.seq or min(2048, cfg.max_seq_len)
     tc = TrainConfig(
         global_batch_size=args.global_batch or args.micro_batch,
@@ -169,14 +182,14 @@ def build(args: argparse.Namespace, device=None, worker_ctx=None):
         zero1=args.zero1,
     )
     mesh = None
-    if args.fsdp > 1 or args.tp > 1:
+    if args.fsdp > 1 or args.sp > 1 or args.tp > 1:
         mesh = bootstrap.worker_mesh(
-            device.type, MeshConfig(fsdp=args.fsdp, tp=args.tp))
+            device.type, MeshConfig(fsdp=args.fsdp, sp=args.sp, tp=args.tp))
         if mesh is None:
             raise ValueError(
-                f"--fsdp {args.fsdp} --tp {args.tp} needs a process group "
-                "of a multiple of their product; this world has one "
-                "process")
+                f"--fsdp {args.fsdp} --sp {args.sp} --tp {args.tp} needs a "
+                "process group of a multiple of their product; this world "
+                "has one process")
     trainer = ElasticTrainer(lambda p, t: llama.loss_fn(p, t, cfg, mesh), tc,
                              lambda p, t: llama.loss_sums(p, t, cfg, mesh),
                              worker_ctx=worker_ctx, mesh=mesh)

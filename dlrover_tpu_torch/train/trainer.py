@@ -1,6 +1,6 @@
 """ElasticTrainer (port of dlrover_tpu/train/trainer.py's step path), on
 one device, data-parallel over the default process group, or on a
-``DeviceMesh`` of dp, fsdp and tp.
+``DeviceMesh`` of dp, fsdp, sp and tp.
 
 One optimizer step is ``accum_steps = global_batch // (micro_batch · dp)``
 microbatches, ``dp`` the data-parallel size: the mesh's batch axes (dp ·
@@ -66,18 +66,21 @@ file and applies a pushed ``optimizer_learning_rate`` as ``lr_scale``
 relative to the configured base lr (``apply_paral_config``; the
 schedule's shape is kept, and ``lr_scale`` stays a host float, so nothing
 on the step path syncs the device), then polls the goodput planner's
-speculation hint (``set_speculation_hint`` records the target world and
-logs it; the warm compiler that would build it ahead waits for ROADMAP
-item 8).
+speculation hint (``set_speculation_hint`` refits the mesh to the target
+world, records it and logs it; the warm compiler that would build it
+ahead, train/warm_compile.py, is not ported yet).
 
 The device timer: in a worker that preloaded the timer's hook
 (``elastic_run --tpu-timer``, profiler/tpu_timer.py), a step on the card is
 also timed as the program ``train_step``, the counterpart of the JAX
 ``train_step`` program the TPU timer sees: the hook records its own CUDA
 events right after the step's start event and right before its end event,
-on the same stream, with a cost of 6·params·tokens flops (token-id
-batches; the definition of MFU in PERF.md), which feeds the timer's live
-MFU gauge. The step's own events and the digest are unchanged.
+on the same stream, with a cost of this rank's share of 6·params·tokens
+flops (token-id batches; the definition of MFU in PERF.md): the tokens of
+its rows, divided by tp and sp, since a tp rank does 1/tp of each row's
+work and an sp rank sees 1/sp of its positions (an fsdp rank gathers the
+whole model for its own rows). It feeds the timer's live MFU gauge. The
+step's own events and the digest are unchanged.
 
 ZeRO-1 (train/zero1.py): with ``TrainConfig.zero1`` or
 ``DLROVER_TPU_ZERO1`` at dp above 1 (the ``mesh`` given, else
@@ -86,10 +89,10 @@ adam's moments hold only this rank's dp shard, each accumulated gradient
 leaf is reduce-scattered over the mesh's dp group into that shard (a leaf
 with no divisible dim is all-reduced whole), the optimizer updates this
 rank's shard of every param, and the params are all-gathered in place
-over dp. Beside fsdp or tp (``"gspmd"``) all of this runs on the shard
-each rank holds. The loss's valid-target count and the reported loss are
-all-reduced as in the replicated step. ``zero1_mode`` says which update
-runs (``"off"`` at dp 1); a zero-1 request on a mesh with sp, ep or pp
+over dp. Beside fsdp, sp or tp (``"gspmd"``) all of this runs on the
+shard each rank holds. The loss's valid-target count and the reported
+loss are all-reduced as in the replicated step. ``zero1_mode`` says which
+update runs (``"off"`` at dp 1); a zero-1 request on a mesh with ep or pp
 above 1 raises (``zero1.mode_for``).
 
 On the card the step leaves CUDA events around its collectives and its
@@ -121,7 +124,18 @@ the step (the gradients' reduction, the valid-target count, the reported
 loss) runs over the batch axes' group (``parallel.axes_group``: the
 mesh's dp group beside tp alone, a group of its own when two batch axes
 are above 1), never the whole world, which would count each row tp
-times. The global norm sums a tp-split leaf's pieces over tp. sp, ep and
+times. The global norm sums a tp-split leaf's pieces over tp.
+
+Sequence parallelism (sp above 1; models/llama.py): sp is not a batch
+axis either, so the ranks of an sp group train the same rows (``rows``
+slices over the batch axes only) and each hands the whole rows to the
+loss, which runs this rank's chunk of ``s/sp`` positions. So every sum
+the JAX package takes over its loss axes (``_PP_LOSS_AXES``) runs over the
+batch axes and sp here: the valid-target count, the reported loss, and
+every gradient, the leaves that fsdp's gathers already reduce-scattered
+over fsdp and the tp-replicated norms included. The group is
+``parallel.axes_group(mesh, BATCH_AXES + (SP,))``. After the sum the
+gradients are equal over sp, so the global norm adds no sp axis. ep and
 pp above 1 raise (later slices).
 
 Hierarchical collectives, warm compile, remesh and the lint hooks are not
@@ -143,14 +157,18 @@ from dlrover_tpu_torch.common.tree import Tree, flatten
 from dlrover_tpu_torch.common.world import WorldDescriptor
 from dlrover_tpu_torch.observability.digest import StepTimeDigest
 from dlrover_tpu_torch.parallel.mesh import (
+    AXIS_ORDER,
     BATCH_AXES,
     DP,
     FSDP,
+    SP,
     TP,
+    MeshConfig,
     axes_group,
     axis_sizes,
     check_ported_axes,
     data_parallel,
+    remesh,
 )
 from dlrover_tpu_torch.parallel.sharding import entry_axes, local_of, spec_of
 from dlrover_tpu_torch.profiler import tpu_timer
@@ -264,8 +282,13 @@ class ElasticTrainer:
         self.fsdp = 1
         self.tp = 1
         self._split: Dict[str, Tuple[str, ...]] = {}
-        #: the batch axes' process group (None: the default group)
-        self._batch_group = None
+        #: the process group of the batch axes and sp, over which the
+        #: loss's sums run (None: the default group)
+        self._loss_group = None
+        #: leaf path -> the process group its accumulated gradient is
+        #: all-reduced over before zero-1's scatter (None: the default
+        #: group); a leaf absent needs no all-reduce
+        self._grad_groups: Dict[str, Any] = {}
         #: where the gradients are pieces, for the global norm (None: whole)
         self._norm_plan: Optional[NormPlan] = None
         #: each step's seconds but the first's (module docstring); read
@@ -295,12 +318,17 @@ class ElasticTrainer:
                 self._digest.add(start.elapsed_time(end) / 1e3)
 
     def _step_flops(self, tensors: List[torch.Tensor], batch: Batch) -> float:
-        """6·params·tokens of this rank's step when ``batch`` holds token
-        ids; 0 otherwise (the timer then keeps no MFU for the step)."""
+        """This rank's share of 6·params·tokens when ``batch`` (its rows)
+        holds token ids: the whole model's params (a DTensor's ``numel``
+        is the whole leaf's) over the rows' tokens, divided by tp and sp
+        (module docstring); 0 otherwise (the timer then keeps no MFU for
+        the step)."""
         leaf = batch_leaves(batch)[0]
         if leaf.is_floating_point():
             return 0.0
-        return 6.0 * sum(t.numel() for t in tensors) * leaf.numel()
+        cfg = self.mesh_config
+        return (6.0 * sum(t.numel() for t in tensors) * leaf.numel()
+                / (cfg.tp * cfg.sp))
 
     def _end_step(self, t0: float, device_start, stream, timer_token=0):
         """Account for the step just queued on ``stream`` (module
@@ -328,6 +356,12 @@ class ElasticTrainer:
             return bootstrap.process_count()
         sizes = axis_sizes(self.mesh)
         return math.prod(sizes.get(a, 1) for a in BATCH_AXES)
+
+    @property
+    def loss_ranks(self) -> int:
+        """The ranks the loss's sums and the gradients are summed over:
+        the batch axes' size times sp."""
+        return self.dp * self.mesh_config.sp
 
     @property
     def accum_steps(self) -> int:
@@ -382,10 +416,11 @@ class ElasticTrainer:
                     "not DTensors on the mesh (place them per the model's "
                     "specs)")
         self._split = {path: _split_axes(p) for path, p in named}
-        if self.mesh is not None and self.dp > 1:
-            self._batch_group = axes_group(self.mesh, BATCH_AXES)
+        if self.mesh is not None and self.loss_ranks > 1:
+            self._loss_group = axes_group(self.mesh, BATCH_AXES + (SP,))
         self._zero1 = (zero1.Layout.build(self.mesh, named)
                        if self.zero1_mode != "off" else None)
+        self._grad_groups = self._plan_grad_sums(named, sizes)
         self._norm_plan = self._plan_norm(named)
         return {
             "params": params,
@@ -414,42 +449,62 @@ class ElasticTrainer:
                 plan.group(a)
         return plan
 
+    def _plan_grad_sums(self, named, sizes) -> Dict[str, Any]:
+        """Each leaf's all-reduce before the optimizer: over the batch axes
+        and sp, less fsdp where the model's gather already reduce-scattered
+        the leaf over fsdp and less dp where zero-1 reduce-scatters it
+        (``Layout.reduce_scatter``). Without a mesh, over the default group
+        at dp above 1. Each set's process group is built here, in one order
+        on every rank."""
+        if self.mesh is None:
+            return {path: None for path, _ in named} if self.dp > 1 else {}
+        live = [a for a in AXIS_ORDER
+                if a in BATCH_AXES + (SP,) and sizes.get(a, 1) > 1]
+        out = {}
+        for path, _ in named:
+            axes = tuple(
+                a for a in live
+                if not (a == FSDP and FSDP in self._split[path])
+                and not (a == DP and self._zero1 is not None))
+            if axes:
+                out[path] = axes
+        groups = {axes: axes_group(self.mesh, axes)
+                  for axes in sorted(set(out.values()))}
+        return {path: groups[axes] for path, axes in out.items()}
+
     def _reduce_grad(self, path: str, g: torch.Tensor) -> torch.Tensor:
         """The data-parallel sum of one accumulated gradient (what this
         rank holds of it), laid out as the optimizer takes it (module
         docstring)."""
         import torch.distributed as dist
 
-        z1 = self._zero1
-        if self.fsdp == 1:
-            if z1 is None:
-                dist.all_reduce(g, group=self._batch_group)
-                return g
-            return z1.reduce_scatter(path, g)
-        if FSDP not in self._split[path]:
-            dist.all_reduce(g, group=self.mesh.get_group(FSDP))
-        if z1 is not None:
-            return z1.reduce_scatter(path, g)
-        if axis_sizes(self.mesh).get(DP, 1) > 1:
-            dist.all_reduce(g, group=self.mesh.get_group(DP))
+        if path in self._grad_groups:
+            # NCCL takes a dense tensor: the gradient of an fsdp gather
+            # along dim 1 (the embedding's) is a strided view
+            g = g.contiguous()
+            dist.all_reduce(g, group=self._grad_groups[path])
+        if self._zero1 is not None:
+            return self._zero1.reduce_scatter(path, g)
         return g
 
-    def _microbatch_loss(self, params: Tree, mb: Batch, dp: int):
+    def _microbatch_loss(self, params: Tree, mb: Batch, ranks: int):
         """The loss whose gradient this rank adds for microbatch ``mb``.
-        At dp 1, ``loss_fn``'s; above it, this rank's share of the global
-        microbatch's token mean, so that the shares' sum over the ranks is
-        the JAX loss of the whole global microbatch."""
-        if dp == 1:
+        Over one rank, ``loss_fn``'s; over more (``loss_ranks``: the batch
+        axes and sp), this rank's share of the global microbatch's token
+        mean, so that the shares' sum over the ranks is the JAX loss of
+        the whole global microbatch."""
+        if ranks == 1:
             return self.loss_fn(params, mb)
         if self.loss_sums_fn is None:
             raise ValueError(
-                f"dp={dp} needs a loss_sums_fn: the loss is one token mean "
-                "over the global microbatch")
+                f"a step over {ranks} ranks of rows and sequence chunks "
+                "needs a loss_sums_fn: the loss is one token mean over the "
+                "global microbatch")
         import torch.distributed as dist
 
         nll_sum, n_valid = self.loss_sums_fn(params, mb)
         n_valid = n_valid.detach().float().clone()
-        dist.all_reduce(n_valid, group=self._batch_group)
+        dist.all_reduce(n_valid, group=self._loss_group)
         return nll_sum / torch.clamp(n_valid, min=1.0)
 
     def step(self, state: dict, batch: Batch) -> Tuple[dict, torch.Tensor]:
@@ -487,6 +542,7 @@ class ElasticTrainer:
         reduce, clipping and adamw."""
         accum = self.accum_steps
         dp = self.dp
+        ranks = self.loss_ranks
         micro = self.tc.micro_batch_size
         leaves_in = batch_leaves(batch)
         leads = [t.shape[0] if t.dim() else None for t in leaves_in]
@@ -506,7 +562,7 @@ class ElasticTrainer:
         grads = None
         for i in range(accum):
             loss = self._microbatch_loss(state["params"],
-                                         microbatch(batch, i), dp)
+                                         microbatch(batch, i), ranks)
             # a DTensor param's gradient: this rank's shard of it
             g = [local_of(t) for t in torch.autograd.grad(loss, tensors)]
             loss = loss.detach().float()
@@ -522,7 +578,7 @@ class ElasticTrainer:
         cuda = grads[0].is_cuda
         self.grad_bytes = sum(g.nbytes for g in grads)
         z1 = self._zero1
-        if dp > 1:
+        if ranks > 1:
             import torch.distributed as dist
 
             # one collective a leaf: a flat buffer would cost a copy of
@@ -532,7 +588,7 @@ class ElasticTrainer:
             for i, (path, _) in enumerate(leaves):
                 grads[i] = self._reduce_grad(path, grads[i])
             _record(cuda, self.reduce_events)
-            dist.all_reduce(loss_sum, group=self._batch_group)
+            dist.all_reduce(loss_sum, group=self._loss_group)
         if accum > 1:
             scale = 1.0 / accum
             for acc in grads:
@@ -559,30 +615,51 @@ class ElasticTrainer:
         """The world this trainer runs: its mesh's axes (pure dp over the
         process group without one), ``+zero1`` when the zero-1 update runs
         (``zero1_mode``), so a seated spec says what runs."""
-        sizes = (axis_sizes(self.mesh) if self.mesh is not None
-                 else {"dp": self.dp})
         return WorldDescriptor.from_axis_sizes(
-            sizes, zero1=self.zero1_mode != "off")
+            self.mesh_config.shape(), zero1=self.zero1_mode != "off")
 
     # -- runtime config and the planner's hint ------------------------------
+
+    @property
+    def mesh_config(self) -> MeshConfig:
+        """The resolved mesh config this trainer runs: its mesh's axes,
+        pure dp over the process group without one."""
+        if self.mesh is None:
+            return MeshConfig(dp=self.dp)
+        sizes = axis_sizes(self.mesh)
+        return MeshConfig(**{a: sizes.get(a, 1) for a in AXIS_ORDER})
 
     def _descriptor_for_world(
         self, world: int, n_slices: Optional[int] = None
     ) -> Optional[WorldDescriptor]:
-        """This trainer's layout (pure dp) on ``world`` processes, or None
-        when that world is inadmissible: the global batch must divide
-        into ``micro_batch x world``, and a multislice world must split
-        dp evenly over its slices."""
+        """This trainer's mesh config refitted onto ``world`` processes
+        (``parallel.remesh``: the model axes kept, the data axes absorbing
+        the rest; without a mesh, the replicated step, pure dp at any
+        world) and described, or None when that world is inadmissible:
+        the model axes do not divide it, the global batch does not divide
+        into ``micro_batch x`` its data size, or a multislice world does
+        not split it evenly over its slices. The JAX trainer's filters."""
         if world <= 0:
             return None
         slices = max(1, int(n_slices)) if n_slices is not None else 1
-        if world % slices:
+        if slices > 1 and world % slices:
             return None
-        if self.tc.global_batch_size % (self.tc.micro_batch_size * world):
+        config = self.mesh_config if self.mesh is not None else MeshConfig()
+        try:
+            resolved = remesh(config, world).resolve(world)
+        except ValueError:
             return None
-        return WorldDescriptor.from_axis_sizes(
-            {"dp": world}, n_slices=slices, hier=slices > 1,
-            zero1=world > 1 and zero1.enabled(self.tc))
+        dp = resolved.data_parallel_size
+        if self.tc.global_batch_size % (self.tc.micro_batch_size * dp):
+            return None
+        if slices > 1 and dp % slices:
+            return None
+        try:
+            return WorldDescriptor.from_axis_sizes(
+                resolved.shape(), n_slices=slices, hier=slices > 1,
+                zero1=resolved.dp > 1 and zero1.enabled(self.tc))
+        except ValueError:
+            return None
 
     def set_speculation_hint(self, hint, n_slices: Optional[int] = None):
         """Record the exact world the master's goodput planner intends to
@@ -590,9 +667,9 @@ class ElasticTrainer:
         :class:`WorldDescriptor`, a process-world size (the caller
         converts the master's node-level hint, ``WorkerContext.
         poll_speculation_hint``), or None to clear. An inadmissible hint,
-        or the world this trainer already runs, records nothing. The warm
-        compiler that would build the target ahead waits for ROADMAP
-        item 8."""
+        or the world size this trainer already runs, records nothing. The
+        warm compiler that would build the target ahead
+        (train/warm_compile.py) is not ported yet."""
         if hint is None:
             self.speculation_hint = None
             return
@@ -601,7 +678,8 @@ class ElasticTrainer:
                                             n_slices=hint.n_slices)
         else:
             wd = self._descriptor_for_world(int(hint), n_slices=n_slices)
-        if wd is not None and wd.world_size == self.dp:
+        if wd is not None and wd.world_size == math.prod(
+                self.mesh_config.shape().values()):
             wd = None  # already there
         if wd is not None:
             logger.info("speculation hint armed: planner intends world %s",

@@ -24,15 +24,17 @@ canonical form (parallel/sharding.py), so a spec compares equal across
 the packages.
 
 ``mode_for`` gives ``"off"``, ``"scatter"`` (the JAX package's pure-dp
-strategy) or ``"gspmd"`` (zero-1 beside fsdp or tp): the params are
-DTensors split over fsdp and tp (models/llama.py), and the layout works
+strategy) or ``"gspmd"`` (zero-1 beside fsdp, sp or tp): the params are
+DTensors split over fsdp and tp (models/llama.py; whole tensors beside sp
+alone, which splits the rows' positions, not the params), and the layout
+works
 on the shard each rank holds over the dp group, so a leaf whose
 partition dim already carries fsdp or tp (the lm-head, ``(("fsdp",
 "dp"), "tp")``; the embedding beside tp, ``(("tp", "dp"), "fsdp")``)
 tiles it with dp minor, as JAX tiles a spec entry, and its moments'
 placements are nested (parallel/sharding.py). The "scatter" mode stays
-pure dp. Zero-1 beside sp or ep, and with pp, are later slices: such a
-request raises, where the JAX package returns ``"gspmd"`` (or ``"off"``
+pure dp. Zero-1 beside ep, and with pp, wait for those axes' paths: such
+a request raises, where the JAX package returns ``"gspmd"`` (or ``"off"``
 for pp), and never silently runs replicated.
 
 Known difference: the JAX scatter step reduce-scatters each microbatch's
@@ -51,7 +53,7 @@ import torch
 
 from dlrover_tpu_torch.common import flags
 from dlrover_tpu_torch.parallel import sharding
-from dlrover_tpu_torch.parallel.mesh import FSDP, TP, axis_sizes
+from dlrover_tpu_torch.parallel.mesh import FSDP, SP, TP, axis_sizes
 
 Spec = Tuple[Any, ...]
 
@@ -88,23 +90,23 @@ def mode_for(mesh, train_config) -> str:
     """``"off"``, ``"scatter"`` or ``"gspmd"`` for a trainer on ``mesh``
     (a ``DeviceMesh``, a ``MeshConfig`` or ``{axis: size}``; None is a
     world of one). Off when zero-1 is not enabled or dp is 1; scatter on a
-    pure-dp mesh; gspmd where fsdp or tp are the other axes above 1, as
-    the JAX package gives it; a mesh with sp, ep or pp above 1 raises
-    (later slices)."""
+    pure-dp mesh; gspmd where fsdp, sp or tp are the other axes above 1,
+    as the JAX package gives it on mixed meshes; a mesh with ep or pp
+    above 1 raises (the MoE layers and the pipeline schedules are not
+    ported)."""
     if not enabled(train_config) or mesh is None:
         return "off"
     sizes = axis_sizes(mesh)
     if sizes.get(ZERO1_AXIS, 1) <= 1:
         return "off"
     mixed = {a: s for a, s in sizes.items()
-             if a not in (ZERO1_AXIS, FSDP, TP) and s > 1}
+             if a not in (ZERO1_AXIS, FSDP, SP, TP) and s > 1}
     if mixed:
         raise ValueError(
             f"zero-1 on a mesh with {mixed} beside dp={sizes[ZERO1_AXIS]}: "
             "only pure dp (the JAX package's \"scatter\" mode) and dp with "
-            "fsdp or tp (\"gspmd\") are ported; beside sp, ep or pp it "
-            "comes in a later slice")
-    if sizes.get(FSDP, 1) > 1 or sizes.get(TP, 1) > 1:
+            "fsdp, sp or tp (\"gspmd\") are ported; ep and pp are not")
+    if any(sizes.get(a, 1) > 1 for a in (FSDP, SP, TP)):
         return "gspmd"
     return "scatter"
 

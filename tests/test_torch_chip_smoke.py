@@ -2080,3 +2080,226 @@ def test_tp_leg_args(role, extra):
         "8b", 0, 2048, 1, 8, 0, 0, 2)
     assert (args.fsdp, args.zero1, args.steps) == (
         extra["fsdp"], extra["zero1"], extra["steps"])
+
+
+# -- the four-card sp leg -----------------------------------------------------
+
+
+SP_FLASH_WANT = {
+    "reference": (8192, 32, 8, True),
+    "sp4_ring_diagonal": (2048, 32, 8, True),
+    "sp4_ring_earlier": (2048, 32, 8, False),
+    "sp4_ulysses_local": (8192, 8, 2, True),
+    "fsdp2xsp2_ring_diagonal": (4096, 32, 8, True),
+    "fsdp2xsp2_ring_earlier": (4096, 32, 8, False),
+}
+
+
+@pytest.mark.parametrize("label", list(SP_FLASH_WANT))
+def test_sp_flash_cases_hold_every_shape_the_leg_launches(label):
+    """The reference child holds the flash kernels at every shape of the
+    sp leg, derived from its runs: the reference's causal kernel at s
+    8192, each ring run's causal diagonal and non-causal earlier chunk at
+    s/sp, ulysses' causal kernel at s 8192 on a quarter of the heads; the
+    main path's widths, b 1, head dim 128."""
+    cases = chip_smoke.sp_flash_cases(32, 8, 128)
+    assert [lb for lb, _ in cases] == list(SP_FLASH_WANT)
+    s, h, hkv, causal = SP_FLASH_WANT[label]
+    assert dict(cases)[label] == dict(b=1, s=s, h=h, hkv=hkv, d=128,
+                                      causal=causal)
+
+
+@pytest.mark.parametrize("hkv,sp,want", [(8, 4, 2), (2, 4, 1), (4, 8, 1)])
+def test_sp_flash_cases_repeat_ulysses_kv_heads(hkv, sp, want):
+    """A ulysses run whose sp does not divide the kv heads holds the shape
+    ``ops/ulysses.py`` runs: each kv head repeated sp / gcd(hkv, sp)
+    times, then a 1/sp share; shapes that two runs share are held
+    once."""
+    runs = {"u": (1, sp, "ulysses", f"sp{sp}"),
+            "u2": (1, sp, "ulysses", f"sp{sp}")}
+    cases = dict(chip_smoke.sp_flash_cases(16, hkv, 64, runs=runs, seq=64))
+    assert list(cases) == ["reference", "u_local"]
+    assert (cases["u_local"]["h"], cases["u_local"]["hkv"]) == (16 // sp,
+                                                                 want)
+
+
+@pytest.mark.parametrize("run,accum,want", [
+    ("reference", 2, [(32, 16)]),
+    ("sp4_ring", 2, [(32, 16), (64, 32), (96, 48), (128, 64)]),
+    ("sp4_ulysses", 2, [(32, 16)] * 4),
+    ("fsdp2xsp2_ring", 1, [(16, 8), (32, 16), (16, 8), (32, 16)]),
+])
+def test_sp_flash_launches_a_rank(run, accum, want):
+    """Two steps under remat "all" of four layers: causal ring's rank r of
+    its sp group runs r + 1 chunk kernels a layer a forward (the forward
+    twice: the recompute), ulysses and the reference one on the whole
+    sequence; fsdp2 x sp2 trains one microbatch a step."""
+    for rank, (fwd, bwd) in enumerate(want):
+        assert chip_smoke.sp_expected_flash(run, rank, accum) == {
+            "flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
+
+
+def _sp_case(fault="none"):
+    """Results of the sp leg, made up, that pass every check unless
+    ``fault`` says otherwise: the reference child's, the four ranks' (each
+    with its three runs), and each run's ``compare_delta``."""
+    ce = {name: 4 for name, _, _ in chip_smoke.CE_KERNELS}
+
+    def result(run, rank, accum, split, losses):
+        params = _f_held(split)
+        pbytes = sum(h * 4 for _, h, _ in params.values())
+        counts = dict(ce, **chip_smoke.sp_expected_flash(run, rank, accum))
+        return dict(rank=rank, mode="off",
+                    mesh=(chip_smoke.SP_RUNS[run][3]
+                          if run in chip_smoke.SP_RUNS else "one card"),
+                    accum=accum, tokens_per_step=16384, params=params,
+                    moments={f"{k}/{p}": v for k in ("mu", "nu")
+                             for p, v in params.items()},
+                    build_s=5.0, init_peak_bytes=20e9,
+                    max_memory_bytes=45e9, seconds=20.0, counts=counts,
+                    steps=[{"step": i + 1, "loss": x, "seconds": 0.4,
+                            "grad_bytes": pbytes}
+                           for i, x in enumerate(losses)])
+
+    want = (12.58, 12.56)
+    near = (want[0] * (1 + 1e-5), want[1] * (1 - 2e-5))
+    ref = {"rank": 0, "flash": {},
+           "runs": {"reference": result("reference", 0, 2, lambda p: 1,
+                                        want)}}
+    ranks = [{"rank": r, "runs": {
+        "sp4_ring": result("sp4_ring", r, 2, lambda p: 1, near),
+        "sp4_ulysses": result("sp4_ulysses", r, 2, lambda p: 1, near),
+        "fsdp2xsp2_ring": result("fsdp2xsp2_ring", r, 1,
+                                 lambda p: 1 if "norm" in p else 2, near)}}
+        for r in range(4)]
+    ranks = copy.deepcopy(ranks)
+    deltas = {run: {"elements": 1000, "moved": 990, "init_differs": 0,
+                    "worst": 3.0, "quarters": {"all": {"elements": 1000,
+                                                       "misses": 120}},
+                    "leaves": {f"params/{p}": {"elements": 200,
+                                               "misses": 24, "rel_fro": 0.2}
+                               for p in F_SHAPES}}
+              for run in chip_smoke.SP_RUNS}
+    if fault == "step2_far":
+        for r in ranks:
+            r["runs"]["sp4_ulysses"]["steps"][1]["loss"] = want[1] * 1.001
+    elif fault == "rank_loss":
+        ranks[1]["runs"]["sp4_ring"]["steps"][0]["loss"] += 1e-6
+    elif fault == "split_norm":
+        ranks[2]["runs"]["fsdp2xsp2_ring"]["params"]["final_norm"][1] //= 2
+    elif fault == "sp_split":
+        ranks[3]["runs"]["sp4_ring"]["params"]["layers/wq"][1] //= 4
+    elif fault == "grads":
+        ranks[0]["runs"]["sp4_ring"]["steps"][1]["grad_bytes"] //= 2
+    elif fault == "ring_launches":
+        ranks[2]["runs"]["sp4_ring"]["counts"]["flash_fwd"] = 16
+    elif fault == "no_ce":
+        ranks[1]["runs"]["fsdp2xsp2_ring"]["counts"]["fused_ce_bwd_dw"] = 0
+    elif fault == "memory":
+        ref["runs"]["reference"]["max_memory_bytes"] = 80e9
+    elif fault == "mesh":
+        ranks[0]["runs"]["sp4_ulysses"]["mesh"] = "dp4"
+    elif fault == "params_apart":
+        deltas["sp4_ring"]["leaves"]["params/layers/wq"]["rel_fro"] = 0.4
+    elif fault == "params_apart_lm_head":
+        deltas["fsdp2xsp2_ring"]["leaves"]["params/lm_head"]["rel_fro"] = 0.36
+    elif fault == "reference_nan":
+        ref["runs"]["reference"]["steps"][1]["loss"] = float("nan")
+    elif fault == "unmoved":
+        deltas["sp4_ulysses"]["moved"] = 10
+    elif fault == "init_differs":
+        deltas["fsdp2xsp2_ring"]["init_differs"] = 3
+    return ref, ranks, deltas
+
+
+def test_sp_checks_pass():
+    chip_smoke.check_sp(*_sp_case())
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("step2_far", "sp4_ulysses: step-2 loss .* relative > 0.0005"),
+    ("rank_loss", "sp4_ring: the ranks' losses differ"),
+    ("split_norm", "fsdp2xsp2_ring rank 2: holds .* of param final_norm's "
+                   ".* not 1/1"),
+    ("sp_split", "sp4_ring rank 3: holds .* of param layers/wq's"),
+    ("grads", "sp4_ring rank 0 step 2: gradients"),
+    ("ring_launches", "sp4_ring rank 2: flash_fwd launched 16 times, not "
+                      "96"),
+    ("no_ce", "fsdp2xsp2_ring rank 1: kernel fused_ce_bwd_dw never"),
+    ("memory", "reference rank 0: max_memory_allocated"),
+    ("mesh", "sp4_ulysses rank 0: mode off on dp4"),
+    ("params_apart", "sp4_ring: params/layers/wq's change from init parts "
+                     "from the reference's by 0.400 relative > 0.350"),
+    ("params_apart_lm_head", "fsdp2xsp2_ring: params/lm_head's change "
+                             "from init parts .* by 0.360 relative > 0.350"),
+    ("reference_nan", "reference losses"),
+    ("unmoved", "sp4_ulysses: the reference moved 10 of 1000"),
+    ("init_differs", "fsdp2xsp2_ring: 3 sampled params differ at init"),
+])
+def test_sp_checks_fail_on_each_fault(fault, match):
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_sp(*_sp_case(fault))
+
+
+def test_sp_kernels_line_holds_every_kernel_by_run_and_rank():
+    """The leg's ``kernels`` line: all eight kernels with their source and
+    the TPU kernel each replaces, and each rank's launches in each run,
+    the reference's one rank among them."""
+    import json
+
+    ref, ranks, _ = _sp_case()
+    line = json.loads(chip_smoke.sp_kernels_line(ref, ranks))
+    assert [k["name"] for k in line["kernels"]] == [
+        name for name, _, _ in chip_smoke.KERNELS + chip_smoke.CE_KERNELS]
+    fwd = line["kernels"][0]["launches"]
+    assert fwd == {"reference": [32],
+                   "sp4_ring": [32, 64, 96, 128],
+                   "sp4_ulysses": [32] * 4,
+                   "fsdp2xsp2_ring": [16, 32, 16, 32]}
+    for k in line["kernels"][3:]:
+        assert k["launches"]["sp4_ring"] == [4] * 4
+        assert k["source"] == chip_smoke.CE_SOURCE
+
+
+@pytest.mark.parametrize("run,extra", [
+    ("reference", (1, 1, "auto")),
+    ("sp4_ring", (1, 4, "ring")),
+    ("sp4_ulysses", (1, 4, "ulysses")),
+    ("fsdp2xsp2_ring", (2, 2, "ring")),
+])
+def test_sp_leg_args(run, extra):
+    """The main path's widths at four layers and the preset's seq 8192,
+    global batch 2, no warmup; each run's mesh and attention."""
+    args = chip_smoke._sp_args(run)
+    assert (args.model, args.layers, args.seq, args.micro_batch,
+            args.global_batch, args.steps, args.warmup_steps, args.seed) == (
+        "8b", 4, 8192, 1, 2, 2, 0, 0)
+    assert (args.fsdp, args.sp, args.attn_impl) == extra
+
+
+def test_sp_batches_are_the_same_rows_in_every_layout():
+    """Host-drawn tokens from the seed, one global batch a step: a run
+    reshapes them to its (accum, rows) and takes its rows, so every
+    layout trains the same rows."""
+    import torch
+
+    a = chip_smoke.sp_batches(torch, seq=16)
+    b = chip_smoke.sp_batches(torch, seq=16)
+    assert a.shape == (chip_smoke.SP_STEPS, chip_smoke.SP_GLOBAL_BATCH, 16)
+    assert torch.equal(a, b) and int(a.max()) < chip_smoke.DATA_VOCAB
+    assert torch.equal(a[0].reshape(2, 1, -1)[1, 0],
+                       a[0].reshape(1, 2, -1)[0, 1])
+
+
+def test_wait_persisted_waits_for_every_local_process(monkeypatch):
+    """Each rank's save sends the saver its own event; a persist run
+    before every rank staged the step logs it without the step among the
+    copied ones, and the wait goes on until one copied it."""
+    import types
+
+    saver = types.SimpleNamespace(persist_log=[{"step": 4, "steps": []}])
+    monkeypatch.setattr(chip_smoke, "CKPT_COMMIT_TIMEOUT_S", 0.2)
+    with pytest.raises(chip_smoke.SmokeFailure, match="did not persist step"):
+        chip_smoke._wait_persisted(saver, 4)
+    saver.persist_log.append({"step": 4, "steps": [4]})
+    chip_smoke._wait_persisted(saver, 4)

@@ -786,10 +786,10 @@ def test_trainer_refuses_fsdp_params_that_are_not_placed(monkeypatch):
 
 @pytest.mark.parametrize("axis", ["tp", "sp", "ep"])
 def test_later_axes_raise(axis):
-    """sp and ep are later slices: the model and the trainer refuse them
-    rather than run replicated. tp is ported: it passes the check."""
+    """ep is a later slice: the model and the trainer refuse it rather
+    than run replicated. tp and sp are ported: they pass the check."""
     sizes = {**{a: 1 for a in tmesh.AXIS_ORDER}, "dp": 2, axis: 2}
-    if axis == "tp":
+    if axis in ("tp", "sp"):
         tmesh.check_ported_axes(sizes)
         return
     with pytest.raises(ValueError, match="not ported"):

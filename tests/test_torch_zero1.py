@@ -141,15 +141,15 @@ MODE_CASES = [
                                                 s.items()))
 @pytest.mark.parametrize("on", [False, True])
 def test_mode_for_matches_jax_or_refuses(sizes, on):
-    """Off, scatter and gspmd beside fsdp or tp as the JAX package gives
-    them; where the JAX package would run ``"gspmd"`` beside sp or ep (or,
+    """Off, scatter and gspmd beside fsdp, sp or tp as the JAX package
+    gives them; where the JAX package would run ``"gspmd"`` beside ep (or,
     for pp, replicated), the port raises."""
     jtc = jtrainer.TrainConfig(zero1=on)
     want = jzero1.mode_for(_Mesh(sizes), jtc, has_factory=True)
     tc = TrainConfig(zero1=on)
     full = {a: sizes.get(a, 1) for a in tmesh.AXIS_ORDER}
     beside = {a for a, n in full.items() if a != "dp" and n > 1}
-    if (want == "gspmd" and not beside <= {"fsdp", "tp"}) or (
+    if (want == "gspmd" and not beside <= {"fsdp", "sp", "tp"}) or (
             want == "off" and on and sizes.get("dp", 1) > 1):
         with pytest.raises(ValueError, match="only pure dp"):
             tzero1.mode_for(full, tc)
@@ -241,15 +241,15 @@ def test_pad_batch_to_matches_jax():
 
 
 def test_trainer_refuses_zero1_on_a_mixed_mesh(monkeypatch):
-    """No silent replicated run: zero-1 asked for on a dp2 x sp2 mesh
-    (sp is a later slice; beside tp zero-1 runs "gspmd") raises when the
-    state is built."""
+    """No silent replicated run: zero-1 asked for on a dp2 x ep2 mesh
+    (ep is a later slice; beside fsdp, sp or tp zero-1 runs "gspmd")
+    raises when the state is built."""
     monkeypatch.setattr(bootstrap, "process_count", lambda: 4)
     cfg = tllama.LlamaConfig.tiny()
     tr = ElasticTrainer(lambda p, t: tllama.loss_fn(p, t, cfg),
                         TrainConfig(global_batch_size=8, zero1=True),
                         mesh={**{a: 1 for a in tmesh.AXIS_ORDER},
-                              "dp": 2, "sp": 2})
+                              "dp": 2, "ep": 2})
     with pytest.raises(ValueError, match="only pure dp"):
         tr.init_state(tllama.init_params(cfg,
                                          torch.Generator().manual_seed(0)))
